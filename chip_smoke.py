@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (varden_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile FILE]
+
+Phases, each of which asserts and any failure of which exits non-zero:
+
+  1. the card's name and power limit (nvidia-smi), then the build of the
+     four CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at once);
+  2. each kernel against its plain PyTorch version on the same inputs at
+     the main path's 256^3 shapes, in float32 and again in float64: max abs
+     error against the stated tolerance, the kernel's time (CUDA events),
+     the plain version's time and the bound (bytes or operations, the
+     operations counted by hand from each kernel's body);
+  3. one advance_timestep of the inviscid 3-D bubble at 32^3 in float64 on
+     the card against the plain path on the CPU, from one numpy-made state;
+  4. the main path: Varden on the inviscid 3-D bubble (prob_type 1, 256^3,
+     float32, no-slip walls on all six faces), initial projection, one
+     pressure iteration and STEPS regular steps, with every launch counter set
+     to 0 just before and read just after.
+
+Then one JSON line of per-kernel numbers, the card's name and power limit,
+and as the last line {"ok": true, "device": {...}}. With --profile FILE,
+one more step runs under torch.profiler and its table of device time by
+kernel is written to FILE. Without a card, or without the package beside
+this file, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and the peak rates outside the
+# tensor cores, per dtype (dense)
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+# kernel vs plain version, relative to the largest |value| of the plain
+# result: the two run the same formulas (nvcc with -fmad=false), but sums
+# may be taken in another order, and the operators' outputs are small
+# differences of O(1) terms (second differences of smooth fields at
+# 256^3 cancel some 50x), so the roundoff of the terms shows up enlarged
+TOL_KERNEL = {"float32": 1e-4, "float64": 1e-11}
+# whole step, card vs CPU, float64: relative to each field's size; the two
+# may take other V-cycle counts, and the MAC and nodal solves stop at
+# residuals of rel_eps 1e-10 and 1e-12 of their right-hand sides
+TOL_STEP = 1e-8
+# density of the 3-D bubble lies in [1, densfact=10]; float32 roundoff of
+# values up to 10 in the conservative update
+TOL_RHO = 1e-5
+# regular steps of the 256^3 main path (depth is the only cut), and
+# launches per float32 kernel timing (a quarter of that in float64)
+STEPS = 4
+REPS = 20
+
+REPLACES = {
+    "velpred_3d_fused": "varden_tpu/ops/pallas_godunov.py:281",
+    "mkflux_update_3d_fused": "varden_tpu/ops/pallas_godunov.py:643",
+    "gsrb_var_sweep_3d": "varden_tpu/ops/pallas_kernels.py:587",
+    "nodal_sweep_3d": "varden_tpu/ops/pallas_kernels.py:892",
+}
+SOURCE = {
+    "velpred_3d_fused": "varden_tpu_torch/csrc/velpred.cu",
+    "mkflux_update_3d_fused": "varden_tpu_torch/csrc/mkflux_update.cu",
+    "gsrb_var_sweep_3d": "varden_tpu_torch/csrc/gsrb_var.cu",
+    "nodal_sweep_3d": "varden_tpu_torch/csrc/nodal.cu",
+}
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def need(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def smi_name_power() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"nvidia-smi unavailable ({e})"
+
+
+# ---------------------------------------------------------------------------
+# inputs, timing, counting
+# ---------------------------------------------------------------------------
+
+def smooth(torch, shape, seed, amp, device, dtype):
+    """A sum of three low sine modes over the last three axes per leading
+    index; mode numbers and phases from a numpy seed, the field built on the
+    device (separable, so no 256^3 array is made on the host)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lead, sp = tuple(shape[:-3]), tuple(shape[-3:])
+    out = torch.zeros(tuple(shape), dtype=torch.float64, device=device)
+    axes = [torch.linspace(0.0, 1.0, s, dtype=torch.float64, device=device)
+            for s in sp]
+    for idx in np.ndindex(*lead):
+        f = torch.zeros(sp, dtype=torch.float64, device=device)
+        for _ in range(3):
+            k, ph = rng.randint(1, 4, size=3), rng.rand(3) * 2 * math.pi
+            w = [torch.sin(float(k[d]) * math.pi * axes[d] + float(ph[d]))
+                 for d in range(3)]
+            f += w[0][:, None, None] * w[1][None, :, None] * w[2][None, None, :]
+        out[idx] = amp * f / 3.0
+    return out.to(dtype)
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean device time of fn() over reps launches, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+# Operations of each kernel's function per interior cell (or node),
+# counted by hand from the kernel bodies in varden_tpu_torch/csrc: every
+# add, sub, mul, div, min, max, abs, compare and select counts one; each
+# intermediate value (a slope, a face state, a node difference) counts once
+# where it is made, though the staged kernels make some of them again; work
+# done only on boundary faces is left out. So the count is a floor for the
+# function. The peak rates above count an FMA as two operations, while the
+# kernels are built with -fmad=false: the operations bound is the least
+# time of any implementation, not of this one.
+SLOPE_OPS = {0: 0, 2: 18, 4: 28}  # Fromm slope 18, fourth-order step 10
+RIEMANN_NORMAL, RIEMANN_TRANSVERSE = 9, 7
+NODAL_EMIT_OPS = {"apply": 0, "residual": 1, "jacobi": 4}
+
+
+def velpred_ops(order):
+    """max|u| (6); 9 slopes; per axis the hat states (two fractions 8,
+    l/r of 3 components 12, one normal and two transverse solves); 6
+    double-hat states (correction 4, l/r minus it 2, transverse solve);
+    per face set the full state (two corrections 9, l/r minus them 2,
+    force 3, normal solve)."""
+    hat = 8 + 12 + RIEMANN_NORMAL + 2 * RIEMANN_TRANSVERSE
+    return (6 + 9 * SLOPE_OPS[order] + 3 * hat
+            + 6 * (4 + 2 + RIEMANN_TRANSVERSE)
+            + 3 * (9 + 2 + 3 + RIEMANN_NORMAL))
+
+
+def mkflux_update_ops(cons, force, fupd, order):
+    """max|mac| (6); per component (cons[c]: conservative) 3 slopes, 3 hat
+    states (l/r 10, transverse solve), 6 double-hat states (correction 3
+    conservative or 4 convective, l/r minus it 2, transverse solve), 3 edge
+    states (two corrections 15 or 9, l/r minus them 2, force 3, transverse
+    solve) and the update (flux divergence 11 or u.grad s 17, dt and
+    subtract 2, fupd 2)."""
+    ops = 6
+    for c in cons:
+        ops += (3 * SLOPE_OPS[order] + 3 * (10 + RIEMANN_TRANSVERSE)
+                + 6 * ((3 if c else 4) + 2 + RIEMANN_TRANSVERSE)
+                + 3 * ((15 if c else 9) + 2 + (3 if force else 0)
+                       + RIEMANN_TRANSVERSE)
+                + (11 if c else 17) + 2 + (2 if fupd else 0))
+    return ops
+
+
+# L(phi) with alpha = 0: per axis two differences, two beta products, a
+# subtract and the 1/dx^2 scale (6), two adds and the sign (21), rhs - L
+# (22); the sweep adds * inv_diag and + phi; the restriction |r| and max per
+# fine cell and 7 adds and 7 halvings per coarse cell
+GSRB_OPS = {"sweep": 24, "residual": 22, "restrict": 24 + 14 / 8}
+
+
+def nodal_ops(emit):
+    """Per node and axis: one node difference, the 2x2 tangential mass
+    weighting (16), sigma times the scale and the four products (5), the
+    transpose difference into eight nodes (8); then the emit."""
+    return 3 * (1 + 16 + 5 + 8) + NODAL_EMIT_OPS[emit]
+
+
+def nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(bytes_moved, ops, dtype_name):
+    t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(torch, out, ref):
+    if isinstance(out, (tuple, list)):
+        errs = [max_err(torch, o, r) for o, r in zip(out, ref)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+    d = (out.double() - ref.double()).abs().max().item()
+    s = ref.double().abs().max().item()
+    return d, s
+
+
+# ---------------------------------------------------------------------------
+# phase 2: every kernel against its plain version at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def kernel_cases(torch, dtype_name, n=256):
+    """(kernel, case, wrapper call, plain call, bytes, operations) at the
+    main path's 256^3 shapes: the wall-bounded bubble's Sim, smooth seeded
+    fields."""
+    from varden_tpu_torch import advance, problems, projection
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.ops import cuda_godunov as cg
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.solvers import mg, nodal
+    from varden_tpu_torch.state import Sim
+
+    cfg = VardenConfig(**bubble_kw(n, dtype_name))
+    sim = Sim(cfg, device="cuda")
+    dev, dt_ = sim.device, sim.dtype
+    N, ng = sim.n_cell, sim.ng
+    cells, order = math.prod(N), cfg.slope_order
+    dt = 0.5 * sim.dx[0] / 0.5
+    cases = []
+
+    # kernel 1: velpred on u, force with ng ghosts
+    u = smooth(torch, (3,) + N, 1, 0.5, dev, dt_)
+    f = smooth(torch, (3,) + N, 2, 0.3, dev, dt_)
+    u_pad, f_pad = sim.fill_vel(u), sim.fill_extrap(f, ng)
+    adv_v = [sim.adv_bc[d] for d in range(3)]
+    a1 = (u_pad, f_pad, dt, sim.dx, sim.phys_bc, adv_v, ng, N,
+          cfg.slope_order, cfg.use_minion)
+    outs = cg.velpred_3d_plain(*a1)
+    cases.append(("velpred_3d_fused", "velocity", lambda: cg.velpred_3d_fused(*a1),
+                  lambda: cg.velpred_3d_plain(*a1),
+                  nbytes([u_pad, f_pad, *outs]), velpred_ops(order) * cells))
+
+    # kernel 2: scalars (conservative density + tracer, no forces) and
+    # velocity (convective, with both forces), on the predicted faces
+    mac_pads = advance.embed_faces(sim, outs, ng)
+    st = problems.initdata(sim)
+    s_pad = sim.fill_scal(st.s + smooth(torch, (2,) + N, 3, 0.05, dev, dt_))
+    adv_s = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+    a2 = (s_pad, mac_pads, None, None, None, dt, sim.dx, sim.phys_bc, adv_s,
+          ng, N, False, [True, False], cfg.slope_order, cfg.use_minion)
+    fupd = smooth(torch, (3,) + N, 4, 0.2, dev, dt_)
+    a3 = (u_pad, mac_pads, f_pad, fupd, None, dt, sim.dx, sim.phys_bc, adv_v,
+          ng, N, True, [False] * 3, cfg.slope_order, cfg.use_minion)
+    for case, a, ins in (("scalars", a2, [s_pad, *mac_pads]),
+                         ("velocity", a3, [u_pad, *mac_pads, f_pad, fupd])):
+        nc = a[0].shape[0]
+        out_b = nc * cells * a[0].element_size()
+        ops = mkflux_update_ops(a[12], a[2] is not None, a[3] is not None,
+                                order) * cells
+        cases.append(("mkflux_update_3d_fused", case,
+                      (lambda a=a: cg.mkflux_update_3d_fused(*a)),
+                      (lambda a=a: cg.mkflux_update_3d_plain(*a)),
+                      nbytes(ins) + out_b, ops))
+
+    # kernel 3: the MAC operator of the bubble's density, Neumann walls
+    rho = st.s[0]
+    beta = projection.mk_mac_coeffs(sim, rho)
+    ell_bc = [tuple(sim.ell_bc[sim.press_comp][d]) for d in range(3)]
+    lev = mg.make_level(N, sim.dx, ell_bc, sim.zeros(N), beta, 0.0)
+    phi = smooth(torch, N, 5, 0.5, dev, dt_)
+    rhs = smooth(torch, N, 6, 50.0, dev, dt_)
+    bv = [[0.0, 0.0]] * 3
+    cell = phi.element_size() * cells
+    for emit, b in (("sweep", cell * 4 + nbytes(beta)),
+                    ("residual", cell * 3 + nbytes(beta)),
+                    ("restrict", cell * 2 + cell // 8 + nbytes(beta))):
+        g = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
+        cases.append(("gsrb_var_sweep_3d", emit,
+                      (lambda g=g, e=emit: ck.gsrb_var_sweep_3d(*g, emit=e)),
+                      (lambda g=g, e=emit: ck.gsrb_var_sweep_3d_plain(*g, emit=e)),
+                      b, GSRB_OPS[emit] * cells))
+
+    # kernel 4: the nodal operator of sigma = 1/rho, walls (no mask)
+    pmask = sim.pmask
+    ns = nodal.node_shape(N, pmask)
+    sigma = 1.0 / rho
+    phin = smooth(torch, ns, 7, 0.5, dev, dt_)
+    rhsn = smooth(torch, ns, 8, 1e-4, dev, dt_)
+    inv = 1.0 / nodal.node_diag(sigma, sim.dx, pmask, 3)
+    phi_pad = nodal._pad_node(phin, pmask, 3)
+    sig_np = nodal._sigma_np(sigma, pmask, 3)
+    node = phin.element_size() * math.prod(ns)
+    for emit, b in (("jacobi", nbytes([phi_pad, sig_np]) + 3 * node),
+                    ("residual", nbytes([phi_pad, sig_np]) + 2 * node),
+                    ("apply", nbytes([phi_pad, sig_np]) + node)):
+        a = (phi_pad, sig_np, rhsn, inv, sim.dx)
+        cases.append(("nodal_sweep_3d", emit,
+                      (lambda a=a, e=emit: ck.nodal_sweep_3d(*a, emit=e)),
+                      (lambda a=a, e=emit: ck.nodal_sweep_3d_plain(*a, emit=e)),
+                      b, nodal_ops(emit) * math.prod(ns)))
+    return cases
+
+
+def phase_kernels(torch, dtype_name, reps):
+    tol = TOL_KERNEL[dtype_name]
+    rows = []
+    for name, case, kern, plain, b, ops in kernel_cases(torch, dtype_name):
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, scale = max_err(torch, out, ref)
+        del out, ref
+        ok = err <= tol * max(scale, 1e-30)
+        ms = cuda_ms(torch, kern, reps)
+        plain_ms = cuda_ms(torch, plain, max(1, reps // 4))
+        bms, by = bound(b, ops, dtype_name)
+        row = dict(name=name, case=case, dtype=dtype_name, max_abs_err=err,
+                   ref_max=scale, tol=tol * scale, ok=ok, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=b,
+                   ops=ops)
+        print(f"  {name:24s} {case:9s} {dtype_name}: max abs err {err:.3e} "
+              f"(tol {tol:.0e} x max|ref| {scale:.3e}) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
+              f"({b} B, {ops:.0f} ops)", flush=True)
+        need(ok, f"{name} ({case}, {dtype_name}) disagrees with its plain "
+                 f"version: {err} > {tol} x {scale}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: one step on the card against the CPU plain path, float64
+# ---------------------------------------------------------------------------
+
+def bubble_kw(n, dtype_name, **over):
+    kw = dict(dim_in=3, prob_type=1, n_cellx=n, n_celly=n, n_cellz=n,
+              grav=-9.8, dtype=dtype_name, visc_coef=0.0, diff_coef=0.0,
+              cflfac=0.5, init_iter=1, plot_int=-1, chk_int=-1, max_levs=1)
+    for ax in "xyz":
+        kw[f"bc{ax}_lo"] = kw[f"bc{ax}_hi"] = 15
+    kw.update(over)
+    return kw
+
+
+def phase_step(torch, n=32):
+    import numpy as np
+    from varden_tpu_torch import advance, problems
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.state import Sim, state_from_numpy, state_to_numpy
+
+    cfg = VardenConfig(**bubble_kw(n, "float64"))
+    cpu, gpu = Sim(cfg, device="cpu"), Sim(cfg, device="cuda")
+    st = problems.initdata(cpu)
+    rng = np.random.RandomState(11)
+    arrs, _ = state_to_numpy(st)
+    k = np.pi * (np.arange(n) + 0.5) / n
+    for c in range(3):  # a smooth seeded velocity so that the step moves
+        a, b, d = rng.randint(1, 3, size=3)
+        arrs["u"][c] = 0.2 * (np.sin(a * k)[:, None, None]
+                              * np.sin(b * k)[None, :, None]
+                              * np.sin(d * k)[None, None, :])
+    st_c, _ = state_from_numpy(cpu, arrs)
+    st_g, _ = state_from_numpy(gpu, arrs)
+    dt = advance.estdt(cpu, st_c, -1.0)
+    t0 = time.perf_counter()
+    out_c, dc = advance.advance_timestep(cpu, st_c, dt, 4)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_g, dg = advance.advance_timestep(gpu, st_g, dt, 4)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    res = {}
+    for key in ("u", "s", "gp", "p"):
+        a = getattr(out_c, key)
+        b = getattr(out_g, key).cpu()
+        scale = max(1.0, float(a.abs().max()))
+        err = float((a - b).abs().max())
+        res[key] = err
+        print(f"  step {n}^3 float64 {key:2s}: max abs err {err:.3e} "
+              f"(tol {TOL_STEP:.0e} x {scale:.3e})", flush=True)
+        need(err <= TOL_STEP * scale, f"step field {key} on the card differs "
+                                      f"from the CPU path by {err}")
+        need(bool(torch.isfinite(b).all()), f"step field {key} not finite")
+    print(f"  step wall: card {t_gpu:.3f} s (first call, kernels loaded), "
+          f"CPU {t_cpu:.3f} s; div_after card "
+          f"{float(dg['div_after']):.3e} CPU {float(dc['div_after']):.3e}",
+          flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def counters():
+    from varden_tpu_torch.ops import cuda_godunov as cg
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    return {"velpred_3d_fused": cg.velpred_3d_fused,
+            "mkflux_update_3d_fused": cg.mkflux_update_3d_fused,
+            "gsrb_var_sweep_3d": ck.gsrb_var_sweep_3d,
+            "nodal_sweep_3d": ck.nodal_sweep_3d}
+
+
+def phase_main(torch, n, steps):
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.driver import Varden
+
+    cfg = VardenConfig(**bubble_kw(n, "float32", max_step=steps))
+    fns = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in fns.values():
+        f.launches = 0
+    t_start = time.perf_counter()
+    v = Varden(cfg)  # the card: no device named
+    state = v.initialize()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_start
+    init_counts = {k: f.launches for k, f in fns.items()}
+    per_step = []
+    while v.istep < steps:
+        before = {k: f.launches for k, f in fns.items()}
+        t0 = time.perf_counter()
+        state = v.step(state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        d = v.last_diag
+        rec = dict(step=v.istep, dt=v.dt, seconds=sec,
+                   cells_per_s=math.prod(cfg.n_cell) / sec,
+                   div_before=float(d["div_before"]),
+                   div_after=float(d["div_after"]),
+                   mac_ratio=float(d["mac_ratio"]),
+                   hg_ratio=float(d["hg_ratio"]),
+                   rho_min=float(d["smin"]), rho_max=float(d["smax"]),
+                   launches={k: f.launches - before[k] for k, f in fns.items()})
+        per_step.append(rec)
+        print(f"  step {rec['step']}: div(umac) before/after MAC "
+              f"{rec['div_before']:.6e} / {rec['div_after']:.6e} "
+              f"(solver ratios MAC {rec['mac_ratio']:.3f} HG "
+              f"{rec['hg_ratio']:.3f}); density min/max {rec['rho_min']:.9f}"
+              f" / {rec['rho_max']:.9f}; {sec:.4f} s; "
+              f"{rec['cells_per_s']:.6e} cells/s; launches "
+              f"{rec['launches']}", flush=True)
+    launches = {k: f.launches for k, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  init (initial projection + {cfg.init_iter} pressure iteration):"
+          f" {t_init:.4f} s, launches {init_counts}", flush=True)
+    print(f"  main path launches {launches}; peak device memory "
+          f"{peak} bytes", flush=True)
+
+    for k, c in launches.items():
+        need(c > 0, f"kernel {k} was not launched on the main path")
+    for key in ("u", "s", "gp", "p"):
+        need(bool(torch.isfinite(getattr(state, key)).all()),
+             f"main path field {key} is not finite")
+    rho = state.s[0]
+    lo, hi = float(rho.min()), float(rho.max())
+    need(1.0 - TOL_RHO <= lo and hi <= 10.0 + TOL_RHO,
+         f"density left [1, 10]: min {lo}, max {hi}")
+    for rec in per_step:
+        need(rec["mac_ratio"] <= 1.0 and rec["hg_ratio"] <= 1.0,
+             f"step {rec['step']}: a projection stopped above its float32 "
+             f"tolerance (ratios {rec['mac_ratio']}, {rec['hg_ratio']})")
+        need(rec["div_after"] < rec["div_before"],
+             f"step {rec['step']}: the MAC projection did not reduce div")
+    return v, state, launches, per_step, peak
+
+
+def profile_step(torch, v, state, path):
+    """One more step under torch.profiler; the kernel table to ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        v.step(state)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=80)
+    with open(path, "w") as fh:
+        fh.write(table)
+    print(f"  profile of step {v.istep} written to {path}", flush=True)
+    print("\n".join(table.splitlines()[:30]), flush=True)
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="FILE",
+                    help="profile one more step; write the table here")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        from varden_tpu_torch.ops import _cuda
+    except ImportError as e:
+        print(f"chip_smoke: varden_tpu_torch is not beside this script ({e})",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = smi_name_power()
+    print(f"card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    build_s = _cuda.build_all()
+    for name in _cuda.SOURCES:
+        _cuda.lib(name)
+    print(f"phase 1: built {len(_cuda.SOURCES)} kernel libraries in "
+          f"{build_s:.2f} s ({time.perf_counter() - t0:.2f} s with loading)",
+          flush=True)
+
+    print("phase 2: kernels vs plain versions at 256^3", flush=True)
+    rows32 = phase_kernels(torch, "float32", REPS)
+    rows64 = phase_kernels(torch, "float64", max(2, REPS // 4))
+    torch.cuda.empty_cache()
+
+    print("phase 3: one float64 step, card vs CPU plain path", flush=True)
+    phase_step(torch)
+    torch.cuda.empty_cache()
+
+    print(f"phase 4: main path, inviscid 3-D bubble 256^3 float32, "
+          f"{STEPS} steps", flush=True)
+    v, state, launches, per_step, peak = phase_main(torch, 256, STEPS)
+    if args.profile:
+        profile_step(torch, v, state, args.profile)
+
+    # the JSON line: for each kernel its main case (velocity update, the
+    # sweep, the Jacobi emit); max_abs_err the largest over its cases
+    main_case = {"velpred_3d_fused": "velocity",
+                 "mkflux_update_3d_fused": "velocity",
+                 "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi"}
+    kernels = []
+    for name in REPLACES:
+        r = next(x for x in rows32 if x["name"] == name
+                 and x["case"] == main_case[name])
+        err = max(x["max_abs_err"] for x in rows32 if x["name"] == name)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name], "replaces": REPLACES[name],
+                        "launches": launches[name], "max_abs_err": err,
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": None})
+    steady = per_step[1:] or per_step
+    detail = {"card": smi, "build_s": build_s, "peak_bytes": peak,
+              "cases_f32": rows32, "cases_f64": rows64, "steps": per_step,
+              "mean_step_s": sum(r["seconds"] for r in steady) / len(steady)}
+    print("detail " + json.dumps(detail), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(3)

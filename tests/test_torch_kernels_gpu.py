@@ -1,0 +1,197 @@
+"""Each CUDA kernel of varden_tpu_torch against its plain PyTorch version,
+on the card. Marked ``gpu``; without a card every test skips.
+
+Run on a machine with a card (the conftest imports JAX, which that machine
+need not have):
+    python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
+
+Tolerances: float64 results agree to 1e-11 relative to the field's size
+(the kernels round like the plain versions except where PyTorch divides by
+a scalar as a multiply by its reciprocal, and where sums are reordered);
+float32 to 2e-5 relative (the same differences at float32 roundoff). The
+Godunov inputs are smooth fields, so an upwind choice that flips on a
+roundoff-level tie changes the result by a roundoff-level amount.
+"""
+import numpy as np
+import pytest
+import torch
+from torch_inputs import smooth as _smooth
+
+from varden_tpu_torch import advance, problems
+from varden_tpu_torch.config import VardenConfig
+from varden_tpu_torch.ops import _cuda, cuda_godunov, cuda_kernels
+from varden_tpu_torch.solvers import mg, nodal
+from varden_tpu_torch.state import Sim, state_from_numpy, state_to_numpy
+
+pytestmark = pytest.mark.gpu
+
+RTOL = {torch.float32: 2e-5, torch.float64: 1e-11}
+BCS = [(15, 15, 15), (-1, -1, -1), (-1, 15, 12), (11, 14, 13)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _close(out, ref, dtype, what):
+    out, ref = out.double().cpu(), ref.double().cpu()
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((out - ref).abs().max())
+    assert err <= RTOL[dtype] * scale, f"{what}: max abs err {err} (scale {scale})"
+
+
+def _sim(bc, n, dtype, device):
+    kw = dict(dim_in=3, prob_type=1, n_cellx=n[0], n_celly=n[1],
+              n_cellz=n[2], grav=-9.8, dtype=dtype)
+    names = ("x", "y", "z")
+    for d in range(3):
+        lo, hi = (bc[d], bc[d]) if bc[d] != 11 else (11, 12)
+        kw[f"bc{names[d]}_lo"], kw[f"bc{names[d]}_hi"] = lo, hi
+    if bc[0] == 11:
+        kw["u_bc"] = ((0.5, 0.0), (0.0, 0.0), (0.0, 0.0))
+        kw["rho_bc"] = ((1.5, 0.0), (0.0, 0.0), (0.0, 0.0))
+    return Sim(VardenConfig(**kw), device=device)
+
+
+def test_kernels_build():
+    if not torch.cuda.is_available():
+        pytest.skip("needs nvcc and a CUDA device")
+    assert _cuda.build_all() >= 0.0
+    for name in _cuda.SOURCES:
+        assert _cuda.lib(name) is not None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+def test_velpred_kernel(cuda, bc, dtype):
+    sim = _sim(bc, (24, 40, 16), dtype, cuda)
+    ng, n = sim.ng, sim.n_cell
+    u = sim.tensor(_smooth((3,) + n, 1))
+    f = sim.tensor(_smooth((3,) + n, 2, amp=0.3))
+    u_pad, f_pad = sim.fill_vel(u), sim.fill_extrap(f, ng)
+    adv = [sim.adv_bc[d] for d in range(3)]
+    args = (u_pad, f_pad, 2e-3, sim.dx, sim.phys_bc, adv, ng, n, 4, False)
+    before = cuda_godunov.velpred_3d_fused.launches
+    out = cuda_godunov.velpred_3d_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_godunov.velpred_3d_fused.launches == before + 5
+    ref = cuda_godunov.velpred_3d_plain(*args)
+    for d in range(3):
+        _close(out[d], ref[d], sim.dtype, f"velpred bc={bc} face {d}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+@pytest.mark.parametrize("is_vel", [False, True])
+def test_mkflux_update_kernel(cuda, bc, dtype, is_vel):
+    sim = _sim(bc, (24, 40, 16), dtype, cuda)
+    ng, n = sim.ng, sim.n_cell
+    umac = tuple(sim.tensor(_smooth(tuple(n[t] + (1 if t == d else 0)
+                                          for t in range(3)), 10 + d))
+                 for d in range(3))
+    mac_pads = advance.embed_faces(sim, umac, ng)
+    if is_vel:
+        s = sim.tensor(_smooth((3,) + n, 3))
+        s_pad = sim.fill_vel(s)
+        adv = [sim.adv_bc[d] for d in range(3)]
+        cons = [False] * 3
+        force = sim.fill_extrap(sim.tensor(_smooth((3,) + n, 4, 0.2)), ng)
+        fupd = sim.tensor(_smooth((3,) + n, 5, 0.2))
+    else:
+        s = problems.initdata(sim).s + sim.tensor(_smooth((2,) + n, 6, 0.05))
+        s_pad = sim.fill_scal(s)
+        adv = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+        cons = [True, False]
+        force = fupd = None
+    args = (s_pad, mac_pads, force, fupd, None, 2e-3, sim.dx, sim.phys_bc,
+            adv, ng, n, is_vel, cons, 4, False)
+    before = cuda_godunov.mkflux_update_3d_fused.launches
+    out = cuda_godunov.mkflux_update_3d_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_godunov.mkflux_update_3d_fused.launches == before + 6
+    ref = cuda_godunov.mkflux_update_3d_plain(*args)
+    _close(out, ref, sim.dtype, f"mkflux_update bc={bc} is_vel={is_vel}")
+
+
+def _mg_level(n, ell_bc, dtype, device, seed=7):
+    rng = np.random.RandomState(seed)
+    dx = (0.1, 0.11, 0.12)
+    kw = dict(dtype=dtype, device=device)
+    beta = tuple(torch.as_tensor(0.5 + rng.rand(*[n[t] + (1 if t == d else 0)
+                                                   for t in range(3)]), **kw)
+                 for d in range(3))
+    lev = mg.make_level(n, dx, ell_bc, torch.zeros(n, **kw), beta, 0.0)
+    phi = torch.as_tensor(rng.rand(*n) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(*n) - 0.5, **kw)
+    return lev, phi, rhs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((16, 8, 32), [(1, 2), (2, 1), (0, 0)]),
+    ((15, 9, 8), [(0, 0), (1, 1), (2, 2)]),
+    ((64, 64, 64), [(1, 1), (1, 1), (1, 1)]),
+])
+def test_gsrb_var_kernel(cuda, dtype, n, ell_bc):
+    lev, phi, rhs = _mg_level(n, ell_bc, dtype, cuda)
+    bv = [[0.0, 0.3], [0.15, 0.0], [0.0, 0.0]]
+    args = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
+    k = cuda_kernels
+    before = k.gsrb_var_sweep_3d.launches
+    for emit in ("sweep", "residual"):
+        out = k.gsrb_var_sweep_3d(*args, emit=emit)
+        ref = k.gsrb_var_sweep_3d_plain(*args, emit=emit)
+        _close(out, ref, dtype, f"gsrb_var {emit} n={n}")
+    assert k.gsrb_var_sweep_3d.launches == before + 3
+    if all(s % 2 == 0 for s in n):
+        crs, rmax = k.gsrb_var_sweep_3d(*args, emit="restrict")
+        crs_ref, rmax_ref = k.gsrb_var_sweep_3d_plain(*args, emit="restrict")
+        _close(crs, crs_ref, dtype, "gsrb_var restrict")
+        _close(rmax, rmax_ref, dtype, "gsrb_var restrict max")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pmask", [(False, False, False), (True, False, True)])
+def test_nodal_kernel(cuda, dtype, pmask):
+    rng = np.random.RandomState(2)
+    n, dx = (24, 16, 20), (0.1, 0.13, 0.07)
+    kw = dict(dtype=dtype, device=cuda)
+    ns = nodal.node_shape(n, pmask)
+    sigma = torch.as_tensor(rng.rand(*n) + 0.5, **kw)
+    phi = torch.as_tensor(rng.rand(*ns) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(*ns) - 0.5, **kw)
+    inv = 1.0 / nodal.node_diag(sigma, dx, pmask, 3)
+    phi_pad = nodal._pad_node(phi, pmask, 3)
+    sig_np = nodal._sigma_np(sigma, pmask, 3)
+    before = cuda_kernels.nodal_sweep_3d.launches
+    for emit in ("apply", "residual", "jacobi"):
+        out = cuda_kernels.nodal_sweep_3d(phi_pad, sig_np, rhs, inv, dx,
+                                          emit=emit)
+        ref = cuda_kernels.nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv,
+                                                dx, emit=emit)
+        _close(out, ref, dtype, f"nodal {emit} pmask={pmask}")
+    assert cuda_kernels.nodal_sweep_3d.launches == before + 3
+
+
+def test_step_on_card_matches_cpu(cuda):
+    """One inviscid-bubble step in float64 on the card against the plain
+    path on the CPU; the solvers may take other V-cycle counts, so the
+    bound is set by their tolerances (rel_eps 1e-10 / 1e-12)."""
+    kw = dict(dim_in=3, prob_type=1, n_cellx=16, n_celly=16, n_cellz=16,
+              grav=-9.8, dtype="float64", bcx_lo=15, bcx_hi=15, bcy_lo=15,
+              bcy_hi=15, bcz_lo=15, bcz_hi=15)
+    cfg = VardenConfig(**kw)
+    cpu, gpu = Sim(cfg, device="cpu"), Sim(cfg, device=cuda)
+    st = problems.initdata(cpu)
+    st.u = st.u + torch.as_tensor(_smooth((3, 16, 16, 16), 9, 0.2))
+    arrs, _ = state_to_numpy(st)
+    st_g, _ = state_from_numpy(gpu, arrs)
+    out_c, _ = advance.advance_timestep(cpu, st, 1e-3, 4)
+    out_g, _ = advance.advance_timestep(gpu, st_g, 1e-3, 4)
+    for k in ("u", "s", "gp", "p"):
+        a, b = getattr(out_c, k), getattr(out_g, k).cpu()
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-8 * scale, k

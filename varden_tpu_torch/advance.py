@@ -1,0 +1,152 @@
+"""One full single-level 3-D timestep (counterpart of varden_tpu.advance):
+the reference's advance_timestep call stack (src/advance_timestep.f90:
+26-170) — premac (src/advance_premac.f90:17-61), MAC projection,
+scalar_advance (src/scalar_advance.f90:17-173), make_at_halftime,
+velocity_advance (src/velocity_advance.f90:17-142) and the nodal projection.
+
+Ported so far: dm=3, inviscid and non-diffusive (visc_coef = diff_coef =
+0), the windowed Godunov path (not use_godunov_debug). Both Godunov phases
+run through the kernels of ops/cuda_godunov.py, both projections through
+the solver kernels of ops/cuda_kernels.py.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from . import projection
+from .bc import grow_mac
+from .ops import basic, cuda_godunov
+from .solvers import mg
+from .state import Sim, State
+
+
+def check_supported(cfg) -> None:
+    """Raise for the configurations this slice of the port does not run."""
+    if cfg.dm != 3:
+        raise NotImplementedError("the 2-D path is not ported yet (dm=2)")
+    if cfg.visc_coef > 0.0:
+        raise NotImplementedError("the viscous solve is not ported yet "
+                                  "(visc_coef > 0)")
+    if cfg.diff_coef > 0.0:
+        raise NotImplementedError("tracer diffusion is not ported yet "
+                                  "(diff_coef > 0)")
+    if cfg.use_godunov_debug:
+        raise NotImplementedError("the full-array Godunov debug oracle is "
+                                  "not ported (use_godunov_debug)")
+    for name in ("mg_bottom_solver", "hg_bottom_solver"):
+        method = mg.BOTTOM_METHODS.get(getattr(cfg, name), "dense")
+        if method != "dense":
+            raise NotImplementedError(f"the {method} bottom solver is not "
+                                      f"ported yet ({name}); the dense "
+                                      "direct solve (-1) is")
+
+
+def embed_faces(sim: Sim, umac, ng: int):
+    """Embed interior MAC components into ghost-padded cell-aligned tensors
+    (face i at padded index ng+i) with one valid tangential ghost layer —
+    the single-level analogue of create_umac_grown/fill_boundary
+    (reference macproject.f90:107-120)."""
+    dm, n = sim.dm, sim.n_cell
+    grown = grow_mac(umac, 1, sim.pmask)
+    out = []
+    for d in range(dm):
+        arr = sim.zeros(tuple(s + 2 * ng for s in n))
+        sl = tuple(slice(ng, ng + n[t] + 1) if t == d
+                   else slice(ng - 1, ng + n[t] + 1) for t in range(dm))
+        arr[sl] = grown[d]
+        out.append(arr)
+    return tuple(out)
+
+
+def _warm(hints, cur_key, prev_key):
+    """Warm start: linear time-extrapolation once two consecutive past
+    solutions exist (pressure-like fields evolve smoothly)."""
+    if hints is None:
+        return None
+    cur, prev = hints.get(cur_key), hints.get(prev_key)
+    if cur is not None and prev is not None:
+        delta = cur - prev
+        ok = delta.abs().max() < 0.5 * cur.abs().max()
+        return torch.where(ok, cur + delta, cur)
+    return cur
+
+
+def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
+                     hints: Dict = None
+                     ) -> Tuple[State, Dict[str, torch.Tensor]]:
+    """One full timestep. ``hints`` optionally carries the previous step's
+    projection solutions ({'phi_mac', 'phi_mac_prev', 'phi_hg',
+    'phi_hg_prev'}) to warm-start the elliptic solves; the new ones are
+    returned in the diag dict."""
+    cfg = sim.cfg
+    check_supported(cfg)
+    dm, dx, n, ng = sim.dm, sim.dx, sim.n_cell, sim.ng
+    uold, sold, gp, p = state.u, state.s, state.gp, state.p
+    adv_bc_vel = [sim.adv_bc[d] for d in range(dm)]
+    adv_bc_scal = [sim.adv_bc[sim.scal_comp(i)] for i in range(sim.nscal)]
+    # mac_rhs is identically zero in this application (no divu sources):
+    # it is passed as None throughout, never allocated
+
+    # ---- premac: cell force then Godunov MAC prediction
+    vel_force = basic.mkvelforce(cfg.ext_force, sold, gp, None,
+                                 cfg.visc_coef, 1.0, cfg.boussinesq)
+    u_pad = sim.fill_vel(uold)
+    vf_pad = sim.fill_extrap(vel_force, ng)
+    umac = cuda_godunov.velpred_3d_fused(
+        u_pad, vf_pad, dt, dx, sim.phys_bc, adv_bc_vel, ng, n,
+        cfg.slope_order, cfg.use_minion)
+
+    # ---- MAC projection
+    umac, div_b, div_a, phi_mac, mac_rn, mac_ratio = projection.macproject(
+        sim, umac, sold[0], None, phi0=_warm(hints, "phi_mac", "phi_mac_prev"))
+
+    # ---- scalar advance: with diff_coef=0 both scalar forces are zero
+    # (mkscalforce), so force and fupd are None
+    is_cons = [True] + [False] * (sim.nscal - 1)
+    s_pad = sim.fill_scal(sold)
+    mac_pads = embed_faces(sim, umac, ng)
+    snew = cuda_godunov.mkflux_update_3d_fused(
+        s_pad, mac_pads, None, None, None, dt, dx, sim.phys_bc, adv_bc_scal,
+        ng, n, False, is_cons, cfg.slope_order, cfg.use_minion)
+    del s_pad
+
+    # ---- half-time density
+    rhohalf = basic.make_at_halftime(sold[0], snew[0])
+
+    # ---- velocity advance: t^n force for the edge states, half-time
+    # force (rhohalf, visc_fac=0; velocity_advance.f90:86) for the update
+    vel_force_half = basic.mkvelforce_half(
+        cfg.ext_force, rhohalf, sold[1] if cfg.boussinesq == 1 else None,
+        gp, cfg.boussinesq)
+    unew = cuda_godunov.mkflux_update_3d_fused(
+        u_pad, mac_pads, vf_pad, vel_force_half, None, dt, dx, sim.phys_bc,
+        adv_bc_vel, ng, n, True, [False] * dm, cfg.slope_order,
+        cfg.use_minion)
+    del u_pad, vf_pad, mac_pads
+
+    # ---- nodal projection
+    diag = {}
+    if cfg.verbose >= 1:
+        diag["u_pre_min"] = unew.reshape(dm, -1).min(dim=1).values
+        diag["u_pre_max"] = unew.reshape(dm, -1).max(dim=1).values
+    unew, p, gp, phi_hg, hg_rn, hg_ratio = projection.hgproject(
+        sim, proj_type, unew, uold, rhohalf, p, gp, dt,
+        phi0=_warm(hints, "phi_hg", "phi_hg_prev"))
+    if cfg.verbose >= 1:
+        diag["u_post_min"] = unew.reshape(dm, -1).min(dim=1).values
+        diag["u_post_max"] = unew.reshape(dm, -1).max(dim=1).values
+
+    diag.update({"div_before": div_b, "div_after": div_a,
+                 "smin": snew[0].min(), "smax": snew[0].max(),
+                 "umax": unew.abs().max(),
+                 "mac_resnorm": mac_rn, "hg_resnorm": hg_rn,
+                 "mac_ratio": mac_ratio, "hg_ratio": hg_ratio,
+                 "phi_mac": phi_mac, "phi_hg": phi_hg})
+    return State(u=unew, s=snew, gp=gp, p=p), diag
+
+
+def estdt(sim: Sim, state: State, dtold: float) -> float:
+    return basic.estdt(state.u, state.s[0], state.gp, sim.cfg.ext_force,
+                       sim.dx, dtold, sim.cfg.cflfac, sim.cfg.max_dt_growth)

@@ -1,0 +1,122 @@
+"""Cell-update, forcing and dt-estimation ops (counterpart of
+varden_tpu.ops.basic; reference update (src/update.f90:113-278), mkforce
+(src/mkforce.f90:18-404), estdt (src/estdt.f90:15-183), make_at_halftime
+(src/make_at_halftime.f90:18-119)). All functions take interior-only
+tensors; spatial axes are the trailing ones.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def _fdiff(face_arr, d, dm):
+    """hi-face minus lo-face per cell along axis d for a face tensor whose
+    axis d has n_d+1 entries."""
+    axis = face_arr.ndim - dm + d
+    n = face_arr.shape[axis]
+    return face_arr.narrow(axis, 1, n - 1) - face_arr.narrow(axis, 0, n - 1)
+
+
+def _fmean(face_arr, d, dm):
+    axis = face_arr.ndim - dm + d
+    n = face_arr.shape[axis]
+    return 0.5 * (face_arr.narrow(axis, 1, n - 1)
+                  + face_arr.narrow(axis, 0, n - 1))
+
+
+def mac_div(umac: Sequence[torch.Tensor], dx: Sequence[float]) -> torch.Tensor:
+    """div(umac) on cells from interior MAC faces (macproject divumac,
+    src/macproject.f90:228-254)."""
+    dm = len(umac)
+    return sum(_fdiff(umac[d], d, dm) / dx[d] for d in range(dm))
+
+
+def update(sold: torch.Tensor, umac: Sequence[torch.Tensor],
+           sedge: Sequence[torch.Tensor], flux: Sequence[torch.Tensor],
+           force, dt, dx: Sequence[float],
+           is_conservative: Sequence[bool]) -> torch.Tensor:
+    """snew = sold - dt*(u·grad s | div flux) + dt*force (reference
+    update_2d/3d, src/update.f90:113-278). sold/force: (nc, *n);
+    sedge[d]/flux[d]: (nc, faces); umac[d]: (faces). ``force`` may be None
+    (statically zero)."""
+    dm = len(umac)
+    ubar = [_fmean(umac[d], d, dm) for d in range(dm)]
+    out = []
+    for c in range(sold.shape[0]):
+        if is_conservative[c]:
+            adv = sum(_fdiff(flux[d][c], d, dm) / dx[d] for d in range(dm))
+        else:
+            adv = sum(ubar[d] * _fdiff(sedge[d][c], d, dm) / dx[d]
+                      for d in range(dm))
+        val = sold[c] - dt * adv
+        if force is not None:
+            val = val + dt * force[c]
+        out.append(val)
+    return torch.stack(out)
+
+
+def mkvelforce(ext_force: Sequence[float], s: torch.Tensor, gp: torch.Tensor,
+               lapu, visc_coef: float, visc_fac: float,
+               boussinesq: int) -> torch.Tensor:
+    """Cell velocity forcing: ext(*tracer if boussinesq) + (visc*lapu - gp)/rho
+    (reference mkvelforce_2d/3d, src/mkforce.f90:82-236). ``lapu`` may be
+    None when the viscous term is absent."""
+    rho = s[0]
+    ext = torch.stack([torch.full_like(rho, f) for f in ext_force])
+    if boussinesq == 1:
+        ext = s[1] * ext
+    if lapu is None:
+        return ext + (-gp) / rho
+    return ext + (visc_coef * visc_fac * lapu - gp) / rho
+
+
+def mkvelforce_half(ext_force: Sequence[float], rho: torch.Tensor,
+                    trac, gp: torch.Tensor, boussinesq: int) -> torch.Tensor:
+    """mkvelforce at visc_fac = 0 with rho = rhohalf (the half-time force of
+    velocity_advance.f90:86)."""
+    ext = torch.stack([torch.full_like(rho, f) for f in ext_force])
+    if boussinesq == 1:
+        ext = trac * ext
+    return ext - gp / rho
+
+
+def mkscalforce(ext_force: torch.Tensor, laps: torch.Tensor, diff_coef: float,
+                diff_fac: float) -> torch.Tensor:
+    """Scalar forcing: ext + diff_fac*diff_coef*laps for tracers; density
+    (comp 0) gets none (reference mkscalforce, src/mkforce.f90:291-334)."""
+    out = ext_force + diff_coef * diff_fac * laps
+    out[0] = 0.0
+    return out
+
+
+def make_at_halftime(rho_old: torch.Tensor, rho_new: torch.Tensor) -> torch.Tensor:
+    """(reference make_at_halftime.f90:73-115)"""
+    return 0.5 * (rho_old + rho_new)
+
+
+def estdt(u: torch.Tensor, rho: torch.Tensor, gp: torch.Tensor,
+          ext_force: Sequence[float], dx: Sequence[float], dtold: float,
+          cflfac: float, max_dt_growth: float) -> float:
+    """CFL + forcing dt estimate (reference estdt, src/estdt.f90:15-183).
+    Returns a host float: the step loop needs it on the host anyway."""
+    dm = u.shape[0]
+    eps = 1.0e-8
+    big = 1.0e20
+    umax = torch.stack([u[d].abs().max() for d in range(dm)])
+    fmax = torch.stack([(gp[d] / rho - ext_force[d]).abs().max()
+                        for d in range(dm)])
+    umax, fmax = umax.tolist(), fmax.tolist()
+    dt = big
+    for d in range(dm):
+        if umax[d] > eps:
+            dt = min(dt, dx[d] / umax[d])
+        if fmax[d] > eps:
+            dt = min(dt, (2.0 * dx[d] / fmax[d]) ** 0.5)
+    if dt == big:
+        dt = min(dx)
+    dt = dt * cflfac
+    if dtold > 0.0:
+        dt = min(dt, max_dt_growth * dtold)
+    return dt

@@ -1,0 +1,161 @@
+"""Hand-written CUDA kernels for the 3-D Godunov hot loops (counterpart of
+varden_tpu.ops.pallas_godunov).
+
+  velpred_3d_fused        csrc/velpred.cu        = godunov3d.velpred_3d
+  mkflux_update_3d_fused  csrc/mkflux_update.cu  = godunov3d.mkflux_3d
+                                                   followed by _update_vals
+
+Each wrapper takes the same arguments as its TPU counterpart. On a CPU
+tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
+tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
+CUDA launches the wrapper made (every stage counts).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda, godunov3d
+from .basic import _fdiff, _fmean
+
+
+def _flat_bc(phys_bc, adv_bc):
+    iv = [int(phys_bc[a][s]) for a in range(3) for s in range(2)]
+    iv += [int(adv_bc[c][a][s]) for c in range(len(adv_bc))
+           for a in range(3) for s in range(2)]
+    return iv
+
+
+def _padded(n_cell, ng):
+    return tuple(s + 2 * ng for s in n_cell)
+
+
+# ---------------------------------------------------------------------------
+# velpred
+# ---------------------------------------------------------------------------
+
+def velpred_3d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                     slope_order, use_minion):
+    """The plain PyTorch version of velpred_3d_fused."""
+    return godunov3d.velpred_3d(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
+                                n_cell, slope_order, use_minion)
+
+
+def velpred_3d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                     slope_order, use_minion):
+    """Corner-coupled BCG MAC predictor. u, force: (3, *padded) with ng
+    ghosts. Returns interior (umac, vmac, wmac) exactly as
+    godunov3d.velpred_3d."""
+    if u.device.type == "cpu":
+        return velpred_3d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
+                                n_cell, slope_order, use_minion)
+    P = _padded(n_cell, ng)
+    _cuda.check(u, "u", (3,) + P)
+    _cuda.check(force, "force", (3,) + P, u.dtype, u.device)
+    opts = dict(dtype=u.dtype, device=u.device)
+    outs = [torch.empty(tuple(n_cell[t] + (1 if t == d else 0)
+                              for t in range(3)), **opts) for d in range(3)]
+    work = torch.empty((24,) + P, **opts)
+    umax = torch.zeros(1, **opts)
+    iv = [*n_cell, ng, slope_order, int(bool(use_minion))]
+    iv += _flat_bc(phys_bc, adv_bc_vel)
+    _cuda.call("velpred", "velpred3d", [u, force, *outs, work, umax], iv,
+               [float(dt), *map(float, dx)], u)
+    velpred_3d_fused.launches += 5
+    return tuple(outs)
+
+
+velpred_3d_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused mkflux + update
+# ---------------------------------------------------------------------------
+
+def _update_vals(sold, umac, sedge, sflux, fupd, dt, dx, is_cons):
+    """The update epilogue on plain tensors (basic.update's arithmetic;
+    reference update_3d, src/update.f90:186-278). ``fupd`` may be None
+    (statically-zero update force)."""
+    dm = len(umac)
+    ubar = [_fmean(umac[d], d, dm) for d in range(dm)]
+    out = []
+    for c in range(sold.shape[0]):
+        if is_cons[c]:
+            adv = sum(_fdiff(sflux[d][c], d, dm) / dx[d] for d in range(dm))
+        else:
+            adv = sum(ubar[d] * _fdiff(sedge[d][c], d, dm) / dx[d]
+                      for d in range(dm))
+        val = sold[c] - dt * adv
+        if fupd is not None:
+            val = val + dt * fupd[c]
+        out.append(val)
+    return torch.stack(out)
+
+
+def _mac_interior(macs, ng, n_cell):
+    """Interior MAC faces from the cell-aligned padded tensors."""
+    return [macs[d][tuple(slice(ng, ng + n_cell[t] + (1 if t == d else 0))
+                          for t in range(3))] for d in range(3)]
+
+
+def mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt, dx,
+                           phys_bc, adv_bc, ng, n_cell, is_vel,
+                           is_conservative, slope_order, use_minion):
+    """The plain PyTorch version of mkflux_update_3d_fused."""
+    sedge, sflux = godunov3d.mkflux_3d(
+        s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc, ng, n_cell,
+        is_vel, is_conservative, slope_order, use_minion)
+    umac = _mac_interior(mac_pads, ng, n_cell)
+    sold = s[(slice(None),) + tuple(slice(ng, ng + n_cell[t])
+                                    for t in range(3))]
+    return _update_vals(sold, umac, sedge, sflux, fupd, dt, dx,
+                        is_conservative)
+
+
+def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
+                           phys_bc, adv_bc, ng, n_cell, is_vel,
+                           is_conservative, slope_order, use_minion, *,
+                           flux_comps=()):
+    """Fused mkflux + conservative/convective update. ``fupd`` is the
+    interior (nc, *n) update-time force; returns snew (nc, *n_cell).
+
+    ``force``, ``fupd`` and ``mac_rhs`` may each be None, meaning
+    statically zero: never read and never allocated. ``flux_comps`` (the
+    conservative fluxes of the AMR flux registers) waits for the AMR
+    slice."""
+    if flux_comps:
+        raise NotImplementedError("flux_comps serves the AMR flux registers, "
+                                  "which are not ported yet")
+    if s.device.type == "cpu":
+        return mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt,
+                                      dx, phys_bc, adv_bc, ng, n_cell, is_vel,
+                                      is_conservative, slope_order,
+                                      use_minion)
+    nc = s.shape[0]
+    P = _padded(n_cell, ng)
+    n = tuple(n_cell)
+    _cuda.check(s, "s", (nc,) + P)
+    if not 1 <= nc <= 4:
+        raise ValueError(f"mkflux_update_3d_fused: {nc} components (1-4)")
+    kw = dict(dtype=s.dtype, device=s.device)
+    for d in range(3):
+        _cuda.check(mac_pads[d], f"mac_pads[{d}]", P, **kw)
+    if force is not None:
+        _cuda.check(force, "force", (nc,) + P, **kw)
+    if mac_rhs is not None:
+        _cuda.check(mac_rhs, "mac_rhs", P, **kw)
+    if fupd is not None:
+        _cuda.check(fupd, "fupd", (nc,) + n, **kw)
+    snew = torch.empty((nc,) + n, **kw)
+    work = torch.empty((15 * nc,) + P, **kw)
+    umax = torch.zeros(1, **kw)
+    cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
+    iv = [*n, ng, slope_order, int(bool(use_minion)), nc, int(bool(is_vel)),
+          cons_mask] + _flat_bc(phys_bc, adv_bc)
+    _cuda.call("mkflux_update", "mkflux_update3d",
+               [s, *mac_pads, force, mac_rhs, fupd, snew, work, umax], iv,
+               [float(dt), *map(float, dx)], s)
+    mkflux_update_3d_fused.launches += 6
+    return snew
+
+
+mkflux_update_3d_fused.launches = 0

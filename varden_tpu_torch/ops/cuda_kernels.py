@@ -1,0 +1,240 @@
+"""Hand-written CUDA kernels for the multigrid hot loops (counterpart of
+varden_tpu.ops.pallas_kernels).
+
+  gsrb_var_sweep_3d  csrc/gsrb_var.cu  cell-centred variable-beta operator:
+                                       exact red-black sweep, residual,
+                                       residual + restriction + max|r|
+  nodal_sweep_3d     csrc/nodal.cu     factored trilinear-FEM nodal operator:
+                                       apply, residual, weighted Jacobi
+
+Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
+runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
+launches the kernel or raises. ``<wrapper>.launches`` counts CUDA launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+# elliptic BC codes (bc.py BC_PER/NEU/DIR + mg.BC_GHOST)
+_BC_PER, _BC_NEU, _BC_DIR, _BC_GHOST = 0, 1, 2, 3
+_EMITS = ("sweep", "residual", "restrict")
+
+
+def _ghost_planes(p, axis, lo_bc, hi_bc, blo, bhi):
+    """Boundary ghost planes of ``p`` along ``axis``: DIR quadratic
+    face-value formula, NEU copy, PER wrap, GHOST zero."""
+    n = p.shape[axis]
+    first, last = p.narrow(axis, 0, 1), p.narrow(axis, n - 1, 1)
+    if lo_bc == _BC_PER:
+        lo = last
+    elif lo_bc == _BC_NEU:
+        lo = first
+    elif lo_bc == _BC_GHOST:
+        lo = torch.zeros_like(first)
+    else:
+        lo = (8.0 / 3.0) * blo - 2.0 * first + (1.0 / 3.0) * p.narrow(axis, 1, 1)
+    if hi_bc == _BC_PER:
+        hi = first
+    elif hi_bc == _BC_NEU:
+        hi = last
+    elif hi_bc == _BC_GHOST:
+        hi = torch.zeros_like(last)
+    else:
+        hi = (8.0 / 3.0) * bhi - 2.0 * last + (1.0 / 3.0) * p.narrow(axis, n - 2, 1)
+    return lo, hi
+
+
+def _lphi(phi, beta, dxi2, ell_bc, bvals, aco, alpha):
+    """alpha*aco*phi - div(beta grad phi) with in-place BC ghosts."""
+    acc = None
+    for d in range(3):
+        n = phi.shape[d]
+        lo_g, hi_g = _ghost_planes(phi, d, ell_bc[d][0], ell_bc[d][1],
+                                   bvals[d][0], bvals[d][1])
+        pm = torch.cat([lo_g, phi.narrow(d, 0, n - 1)], dim=d)
+        pp = torch.cat([phi.narrow(d, 1, n - 1), hi_g], dim=d)
+        blo, bhi = beta[d].narrow(d, 0, n), beta[d].narrow(d, 1, n)
+        term = dxi2[d] * (bhi * (pp - phi) - blo * (phi - pm))
+        acc = term if acc is None else acc + term
+    out = -acc
+    if alpha != 0.0:
+        out = out + alpha * aco * phi
+    return out
+
+
+def _avg_down(f):
+    """2x2x2 cell average, x then y then z (mg._cell_avg_down order)."""
+    for d in range(3):
+        ev = [slice(None)] * 3
+        od = [slice(None)] * 3
+        ev[d], od[d] = slice(0, None, 2), slice(1, None, 2)
+        f = 0.5 * (f[tuple(ev)] + f[tuple(od)])
+    return f
+
+
+def gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
+                            aco=None, alpha=0.0, *, emit="sweep"):
+    """The plain PyTorch version of gsrb_var_sweep_3d."""
+    dxi2 = tuple(1.0 / (float(h) * float(h)) for h in dx)
+
+    def L(p):
+        return _lphi(p, beta, dxi2, ell_bc, bvals, aco, alpha)
+
+    if emit == "residual":
+        return rhs - L(phi)
+    if emit == "restrict":
+        r = rhs - L(phi)
+        return _avg_down(r), r.abs().max()
+    n = phi.shape
+    idx = sum(torch.arange(n[d], device=phi.device).reshape(
+        [-1 if t == d else 1 for t in range(3)]) for d in range(3))
+    for colour in (0, 1):
+        upd = phi + (rhs - L(phi)) * inv_diag
+        phi = torch.where(idx % 2 == colour, upd, phi)
+    return phi
+
+
+def gsrb_var_sweep_3d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
+                      aco=None, alpha=0.0, *, emit="sweep"):
+    """Variable-beta GSRB sweep / residual / residual+restrict of
+    L = alpha*aco*phi - div(beta grad phi).
+
+    phi/rhs/inv_diag/aco: (n0, n1, n2); beta: three face tensors. For
+    emit="restrict" returns (coarse residual (n/2), max|r| as a 0-d tensor);
+    else a tensor of phi's shape. inv_diag is read by the sweep only, aco
+    only when alpha != 0."""
+    if emit not in _EMITS:
+        raise ValueError(f"bad emit {emit!r}")
+    if phi.device.type == "cpu":
+        return gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
+                                       bvals, aco, alpha, emit=emit)
+    n = tuple(phi.shape)
+    if len(n) != 3:
+        raise ValueError(f"gsrb_var_sweep_3d: phi must be 3-D, got {n}")
+    _cuda.check(phi, "phi")
+    kw = dict(dtype=phi.dtype, device=phi.device)
+    _cuda.check(rhs, "rhs", n, **kw)
+    for d in range(3):
+        _cuda.check(beta[d], f"beta[{d}]",
+                    tuple(n[t] + (1 if t == d else 0) for t in range(3)), **kw)
+    if alpha != 0.0:
+        _cuda.check(aco, "aco", n, **kw)
+    else:
+        aco = None
+    if emit == "sweep":
+        _cuda.check(inv_diag, "inv_diag", n, **kw)
+    if emit == "restrict" and any(s % 2 for s in n):
+        raise ValueError(f"restrict needs even extents, got {n}")
+    iv = [*n] + [int(ell_bc[d][s]) for d in range(3) for s in range(2)]
+    iv.append(_EMITS.index(emit))
+    dv = [1.0 / (float(h) * float(h)) for h in dx]
+    dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
+    dv.append(float(alpha))
+    tmp = rmax = None
+    if emit == "restrict":
+        out = torch.empty(tuple(s // 2 for s in n), **kw)
+        rmax = torch.zeros(1, **kw)
+    else:
+        out = torch.empty(n, **kw)
+    if emit == "sweep":
+        tmp = torch.empty(n, **kw)
+    _cuda.call("gsrb_var", "gsrb_var3d",
+               [phi, rhs, inv_diag if emit == "sweep" else None, aco,
+                beta[0], beta[1], beta[2], out, tmp, rmax], iv, dv, phi)
+    gsrb_var_sweep_3d.launches += 2 if emit == "sweep" else 1
+    return (out, rmax[0]) if emit == "restrict" else out
+
+
+gsrb_var_sweep_3d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# nodal
+# ---------------------------------------------------------------------------
+
+_NODAL_EMITS = ("apply", "residual", "jacobi")
+
+
+def nodal_apply_padded(phi_pad, sig_np, dxs):
+    """A(sigma) phi from a ghost-padded node tensor (N+2) and the
+    shifted-padded cell sigma (N+1): the factored FEM apply."""
+    ext = tuple(s - 2 for s in phi_pad.shape)
+    acc = None
+    for d in range(3):
+        tangs = [t for t in range(3) if t != d]
+        g = (phi_pad.narrow(d, 1, ext[d] + 1)
+             - phi_pad.narrow(d, 0, ext[d] + 1))
+        corners = {}
+        for q in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            v = g
+            for qi, t in zip(q, tangs):
+                v = v.narrow(t, qi, ext[t] + 1)
+            corners[q] = v
+        # sequential 1-D mass transform [[2,1],[1,2]] per tangential axis
+        for ti in range(2):
+            new = {}
+            for q in corners:
+                flip = tuple(1 - qq if i == ti else qq
+                             for i, qq in enumerate(q))
+                new[q] = 2.0 * corners[q] + corners[flip]
+            corners = new
+        scale = 1.0 / dxs[d]
+        for t in tangs:
+            scale = scale * (dxs[t] / 6.0)
+        # corners span ext+1 cells on every axis, as sig_np does
+        r = None
+        for q, v in corners.items():
+            w = (scale * sig_np) * v
+            for qi, t in zip(q, tangs):
+                w = w.narrow(t, 1 - qi, ext[t])
+            r = w if r is None else r + w
+        contrib = r.narrow(d, 0, ext[d]) - r.narrow(d, 1, ext[d])
+        acc = contrib if acc is None else acc + contrib
+    return acc
+
+
+def nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
+                         emit="jacobi"):
+    """The plain PyTorch version of nodal_sweep_3d."""
+    acc = nodal_apply_padded(phi_pad, sig_np, dxs)
+    if emit == "apply":
+        return acc
+    if emit == "residual":
+        return rhs - acc
+    center = phi_pad[1:-1, 1:-1, 1:-1]
+    return center + omega * (rhs - acc) * inv_diag
+
+
+def nodal_sweep_3d(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
+                   emit="jacobi"):
+    """One factored nodal pass. phi_pad: (N+2) node tensor with ghosts;
+    sig_np: (N+1) shifted-padded cell sigma; returns an N-node tensor. rhs
+    is read by residual and jacobi, inv_diag by jacobi only."""
+    if emit not in _NODAL_EMITS:
+        raise ValueError(f"bad emit {emit!r}")
+    if phi_pad.device.type == "cpu":
+        return nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv_diag, dxs,
+                                    omega, emit)
+    if phi_pad.ndim != 3:
+        raise ValueError("nodal_sweep_3d: phi_pad must be 3-D")
+    ns = tuple(s - 2 for s in phi_pad.shape)
+    _cuda.check(phi_pad, "phi_pad")
+    kw = dict(dtype=phi_pad.dtype, device=phi_pad.device)
+    _cuda.check(sig_np, "sig_np", tuple(s + 1 for s in ns), **kw)
+    if emit != "apply":
+        _cuda.check(rhs, "rhs", ns, **kw)
+    if emit == "jacobi":
+        _cuda.check(inv_diag, "inv_diag", ns, **kw)
+    out = torch.empty(ns, **kw)
+    _cuda.call("nodal", "nodal3d",
+               [phi_pad, sig_np, rhs if emit != "apply" else None,
+                inv_diag if emit == "jacobi" else None, out],
+               [*ns, _NODAL_EMITS.index(emit)],
+               [*map(float, dxs), float(omega)], phi_pad)
+    nodal_sweep_3d.launches += 1
+    return out
+
+
+nodal_sweep_3d.launches = 0

@@ -1,0 +1,392 @@
+"""Cell-centered geometric multigrid (counterpart of varden_tpu.solvers.mg).
+
+FBoxLib's ml_cc_solve as consumed by the reference's mac_multigrid wrapper
+(src/mac_multigrid.f90:53-62): solves
+    (alpha * aco - div(beta grad)) phi = rhs
+with face-centered beta and periodic / Neumann / Dirichlet (face-value)
+boundaries at stencil_order=2, by V-cycles with red-black Gauss-Seidel
+smoothing and a dense direct bottom solve.
+
+The smoothing sweeps, the residuals and the restriction run through the
+gsrb_var_sweep_3d kernel (ops/cuda_kernels.py); the loops that the JAX
+package runs as lax.while_loop are Python loops here, reading the residual
+norms on the host once per V-cycle. Ported so far: the variable-coefficient
+Poisson path of the MAC projection (alpha = 0, face-array beta). The
+constant-coefficient Helmholtz fast path and the Krylov bottom solvers wait
+for the viscous slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from ..bc import BC_DIR, BC_NEU, BC_PER
+from ..ops import cuda_kernels as ck
+
+# Coarse-fine "ghost Dirichlet": the boundary value lives in the ghost CELL
+BC_GHOST = 3
+
+DEFAULT_NU1 = 2
+DEFAULT_NU2 = 2
+DEFAULT_MAX_CYCLES = 60
+BOTTOM_SIZE = 8
+
+# The reference's mg_bottom_solver / hg_bottom_solver integer codes
+# (_parameters:55-57; FBoxLib mg_tower: 0 = smoothing sweeps, 1/3 =
+# BiCGStab, 2 = CG; -1/4 the dense direct solve, the only one ported so
+# far: advance.check_supported refuses the others).
+BOTTOM_METHODS = {-1: "dense", 0: "smoother", 1: "bicgstab", 2: "cg",
+                  3: "bicgstab", 4: "dense"}
+
+
+def _sl(ndim, axis, s):
+    out = [slice(None)] * ndim
+    out[axis] = s
+    return tuple(out)
+
+
+def _pad_ghost(phi, ell_bc, bvals, dm):
+    """Pad with 1 ghost cell per spatial axis such that the uniform 2-point
+    flux formula realizes the boundary condition:
+      PER: wrap;  NEU: ghost = first interior (zero flux);
+      DIR: ghost = (8/3) b - 2 phi0 + (1/3) phi1  (quadratic, face value b).
+    """
+    for d in range(dm):
+        axis = phi.ndim - dm + d
+        lo_bc, hi_bc = ell_bc[d]
+
+        def take(i0, i1):
+            return phi[_sl(phi.ndim, axis, slice(i0, i1))]
+
+        if lo_bc == BC_PER:
+            lo = take(-1, None)
+        elif lo_bc == BC_NEU:
+            lo = take(0, 1)
+        elif lo_bc == BC_GHOST:
+            lo = torch.zeros_like(take(0, 1))
+        else:  # BC_DIR
+            lo = (8.0 / 3.0) * bvals[d][0] - 2.0 * take(0, 1) + (1.0 / 3.0) * take(1, 2)
+        if hi_bc == BC_PER:
+            hi = take(0, 1)
+        elif hi_bc == BC_NEU:
+            hi = take(-1, None)
+        elif hi_bc == BC_GHOST:
+            hi = torch.zeros_like(take(-1, None))
+        else:
+            hi = (8.0 / 3.0) * bvals[d][1] - 2.0 * take(-1, None) + (1.0 / 3.0) * take(-2, -1)
+        phi = torch.cat([lo, phi, hi], dim=axis)
+    return phi
+
+
+def _interior(q, dm, skip=None):
+    """Crop one ghost per side on every spatial axis except ``skip``."""
+    for t in range(dm):
+        if t != skip:
+            q = q[_sl(q.ndim, q.ndim - dm + t, slice(1, -1))]
+    return q
+
+
+def apply_padded(phi_pad, aco, beta, alpha, dx, dm):
+    """L(phi) = alpha*aco*phi - div(beta grad phi) from a 1-ghost padded phi
+    whose ghosts already realize the boundary conditions."""
+    out = alpha * aco * _interior(phi_pad, dm)
+    for d in range(dm):
+        q = _interior(phi_pad, dm, skip=d)
+        axis = q.ndim - dm + d
+        grad = (q[_sl(q.ndim, axis, slice(1, None))]
+                - q[_sl(q.ndim, axis, slice(0, -1))]) / dx[d]
+        flux = beta[d] * grad
+        out = out - (flux[_sl(flux.ndim, axis, slice(1, None))]
+                     - flux[_sl(flux.ndim, axis, slice(0, -1))]) / dx[d]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CCLevel:
+    """Geometry + coefficients for one MG level."""
+    n: Tuple[int, ...]
+    dx: Tuple[float, ...]
+    ell_bc: Tuple[Tuple[int, int], ...]
+    aco: torch.Tensor                     # cell coefficient (alpha multiplier)
+    beta: Tuple[torch.Tensor, ...]        # beta[d]: faces along d (n_d+1)
+    alpha: float
+    diag: torch.Tensor                    # operator diagonal
+    inv_diag: torch.Tensor                # smoother's 1/diag (0 where diag=0)
+    # per-axis coarsening factor (1 or 2) toward the next coarser level;
+    # None for standalone levels / the bottom
+    cfac: Optional[Tuple[int, ...]] = None
+    # dense inverse of the bottom operator (bottom level only)
+    binv: Optional[torch.Tensor] = None
+
+    @property
+    def dm(self):
+        return len(self.n)
+
+
+def _face_avg_down(beta_d, d, dm, fac=None):
+    """Coarsen a face-centered coefficient: keep coincident planes (even
+    indices along d), average 2-cell tangential blocks."""
+    if fac is None:
+        fac = (2,) * dm
+    out = beta_d
+    if fac[d] == 2:
+        out = out[_sl(out.ndim, out.ndim - dm + d, slice(0, None, 2))]
+    for t in range(dm):
+        if t == d or fac[t] == 1:
+            continue
+        ax = out.ndim - dm + t
+        out = 0.5 * (out[_sl(out.ndim, ax, slice(0, None, 2))]
+                     + out[_sl(out.ndim, ax, slice(1, None, 2))])
+    return out
+
+
+def _cell_avg_down(f, dm, fac=None):
+    if fac is None:
+        fac = (2,) * dm
+    for d in range(dm):
+        if fac[d] == 1:
+            continue
+        ax = f.ndim - dm + d
+        f = 0.5 * (f[_sl(f.ndim, ax, slice(0, None, 2))]
+                   + f[_sl(f.ndim, ax, slice(1, None, 2))])
+    return f
+
+
+def _make_diag(n, dx, ell_bc, aco, beta, alpha, dm):
+    diag = alpha * aco
+    for d in range(dm):
+        axis = aco.ndim - dm + d
+        dxi2 = 1.0 / dx[d] ** 2
+        nf = beta[d].shape[axis]
+        b_lo = beta[d].narrow(axis, 0, nf - 1)
+        b_hi = beta[d].narrow(axis, 1, nf - 1)
+        # boundary-face factors: interior/periodic 1, Dirichlet 3, Neumann 0
+        c_lo = torch.ones_like(b_lo)
+        c_hi = torch.ones_like(b_hi)
+        for side, c in ((0, c_lo), (1, c_hi)):
+            code = ell_bc[d][side]
+            if code in (BC_DIR, BC_NEU):
+                edge = slice(0, 1) if side == 0 else slice(-1, None)
+                c[_sl(c.ndim, axis, edge)] = 3.0 if code == BC_DIR else 0.0
+        diag = diag + dxi2 * (c_lo * b_lo + c_hi * b_hi)
+    return diag
+
+
+def _inv(diag):
+    return torch.where(diag != 0.0,
+                       1.0 / torch.where(diag == 0.0, torch.ones_like(diag),
+                                         diag),
+                       torch.zeros_like(diag))
+
+
+def make_level(n, dx, ell_bc, aco, beta, alpha) -> CCLevel:
+    """Single CCLevel for standalone operator application."""
+    dm = len(n)
+    diag = _make_diag(n, dx, ell_bc, aco, beta, alpha, dm)
+    return CCLevel(tuple(n), tuple(dx), tuple(map(tuple, ell_bc)), aco,
+                   tuple(beta), alpha, diag, _inv(diag))
+
+
+def _coarsen_plan(n, dx, dm):
+    """Per-axis coarsening factors (2 = halve, 1 = keep) toward the next
+    coarser level, or None to stop (semi-coarsening: halve only axes whose
+    dx is near the minimum; stop at prod(n) <= BOTTOM_SIZE^dm)."""
+    prod_n = 1
+    for s in n:
+        prod_n *= s
+    if prod_n <= BOTTOM_SIZE ** dm:
+        return None
+    halvable = [d for d in range(dm) if n[d] % 2 == 0 and n[d] >= 4]
+    if not halvable:
+        return None
+    dmin = min(dx[d] for d in halvable)
+    return tuple(2 if (d in halvable and dx[d] <= 1.5 * dmin) else 1
+                 for d in range(dm))
+
+
+def build_hierarchy(n, dx, ell_bc, aco, beta, alpha) -> List[CCLevel]:
+    """The level stack by factor-2 (semi-)coarsening, finest first; the
+    dense bottom operator's inverse is formed once here."""
+    dm = len(n)
+    levels = []
+    while True:
+        diag = _make_diag(n, dx, ell_bc, aco, beta, alpha, dm)
+        fac = _coarsen_plan(n, dx, dm)
+        levels.append(CCLevel(tuple(n), tuple(dx), tuple(map(tuple, ell_bc)),
+                              aco, tuple(beta), alpha, diag, _inv(diag),
+                              cfac=fac))
+        if fac is None:
+            break
+        n = [n[d] // fac[d] for d in range(dm)]
+        dx = [dx[d] * fac[d] for d in range(dm)]
+        aco = _cell_avg_down(aco, dm, fac)
+        beta = [_face_avg_down(beta[d], d, dm, fac).contiguous()
+                for d in range(dm)]
+    lb = levels[-1]
+    N = 1
+    for s in lb.n:
+        N *= s
+    if N <= 4096:
+        A = _bottom_dense_A(lb, is_singular(ell_bc, alpha))
+        eye = torch.eye(N, dtype=A.dtype, device=A.device)
+        levels[-1] = dataclasses.replace(lb, binv=torch.linalg.solve(A, eye))
+    return levels
+
+
+def cc_apply(level: CCLevel, phi, bvals=None):
+    """L(phi) = alpha*aco*phi - div(beta grad phi) on the interior (leading
+    batch axes broadcast)."""
+    dm = level.dm
+    if bvals is None:
+        bvals = [[0.0, 0.0]] * dm
+    p = _pad_ghost(phi, level.ell_bc, bvals, dm)
+    return apply_padded(p, level.aco, level.beta, level.alpha, level.dx, dm)
+
+
+def _residual(level: CCLevel, phi, rhs, bvals):
+    """rhs - L(phi) through the kernel."""
+    return ck.gsrb_var_sweep_3d(
+        phi, rhs, level.inv_diag, level.beta, level.dx, level.ell_bc, bvals,
+        aco=level.aco, alpha=level.alpha, emit="residual")
+
+
+def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
+    """nsweeps exact red-black Gauss-Seidel sweeps (red: i+j+k even)."""
+    for _ in range(nsweeps):
+        phi = ck.gsrb_var_sweep_3d(phi, rhs, level.inv_diag, level.beta,
+                                   level.dx, level.ell_bc, bvals,
+                                   aco=level.aco, alpha=level.alpha)
+    return phi
+
+
+def _bottom_dense_A(level: CCLevel, singular: bool):
+    """The (tiny) coarsest operator, by applying it to the identity;
+    rank-1 regularized along the constant null space when singular."""
+    N = 1
+    for s in level.n:
+        N *= s
+    eye = torch.eye(N, dtype=level.diag.dtype, device=level.diag.device)
+    cols = cc_apply(level, eye.reshape((N,) + tuple(level.n)),
+                    [[0.0, 0.0]] * level.dm).reshape(N, N)
+    A = cols.T
+    if singular:
+        A = A + 1.0 / N
+    return A
+
+
+def bottom_dense_solve(level: CCLevel, r, singular: bool):
+    """Direct bottom solve: one matvec with the precomputed inverse, or a
+    dense solve when the bottom was too large to invert once."""
+    if level.binv is not None:
+        return (level.binv @ r.reshape(-1)).reshape(level.n)
+    A = _bottom_dense_A(level, singular)
+    return torch.linalg.solve(A, r.reshape(-1)).reshape(level.n)
+
+
+def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
+            nu1=DEFAULT_NU1, nu2=DEFAULT_NU2, singular=False,
+            return_resnorm=False):
+    """One V-cycle. With return_resnorm, also returns the max-norm of the
+    post-pre-smooth fine residual (a 0-d tensor), which the restriction
+    computes anyway."""
+    level = levels[lev]
+    bv = bvals if lev == 0 else [[0.0, 0.0]] * level.dm
+    if lev == len(levels) - 1:
+        r = _residual(level, phi, rhs, bv)
+        if singular:
+            r = r - r.mean()
+        out = phi + bottom_dense_solve(level, r, singular)
+        return (out, r.abs().max()) if return_resnorm else out
+    phi = gsrb(level, phi, rhs, bv, nu1)
+    fac = level.cfac if level.cfac is not None else (2,) * level.dm
+    if fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n):
+        # residual + 2^dm restriction + max|r| in one pass
+        crs, rmax = ck.gsrb_var_sweep_3d(
+            phi, rhs, level.inv_diag, level.beta, level.dx, level.ell_bc, bv,
+            aco=level.aco, alpha=level.alpha, emit="restrict")
+    else:
+        res = _residual(level, phi, rhs, bv)
+        crs = _cell_avg_down(res, level.dm, fac)
+        rmax = res.abs().max()
+    corr = v_cycle(levels, torch.zeros_like(crs), crs, bvals, lev + 1, nu1,
+                   nu2, singular)
+    # piecewise-constant prolongation (only the coarsened axes)
+    for d in range(level.dm):
+        if fac[d] == 2:
+            corr = corr.repeat_interleave(2, dim=corr.ndim - level.dm + d)
+    phi = gsrb(level, phi + corr, rhs, bv, nu2)
+    return (phi, rmax) if return_resnorm else phi
+
+
+def is_singular(ell_bc, alpha) -> bool:
+    return alpha == 0.0 and all(bc in (BC_PER, BC_NEU)
+                                for pair in ell_bc for bc in pair)
+
+
+def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
+          rel_eps=1.0e-12, abs_eps=-1.0, max_cycles=DEFAULT_MAX_CYCLES,
+          nu1=DEFAULT_NU1, nu2=DEFAULT_NU2, return_info=False):
+    """Solve (alpha*aco - div beta grad) phi = rhs. Returns (phi, resnorm),
+    or (phi, (resnorm, cycles, ratio)) with return_info; resnorm and ratio
+    are 0-d tensors.
+
+    The tolerance loop of varden_tpu.solvers.mg.solve (:826-891): an inner
+    loop runs V-cycles while the in-cycle residual monitor keeps falling
+    below 0.7x its previous value; an outer loop re-checks the true
+    residual and stops after two passes without a 0.9x contraction (the
+    dtype's roundoff floor). The effective tolerance includes that floor,
+    4 eps * max|diag| * max|phi|."""
+    if alpha != 0.0 or len(n) != 3:
+        raise NotImplementedError("only the 3-D Poisson form (alpha=0) is "
+                                  "ported; the Helmholtz path waits for the "
+                                  "viscous slice")
+    dm = len(n)
+    if bvals is None:
+        bvals = [[0.0, 0.0]] * dm
+    singular = is_singular(ell_bc, alpha)
+    L0 = make_level(list(n), list(dx), ell_bc, aco, tuple(beta), alpha)
+    if singular:
+        rhs = rhs - rhs.mean()
+    phi = torch.zeros_like(rhs) if phi0 is None else phi0
+    dtype = rhs.dtype
+    bnorm = rhs.abs().max()
+    tol = torch.clamp(rel_eps * bnorm, min=0.0 if abs_eps < 0 else abs_eps)
+    diag_max = L0.diag.abs().max()
+    eps_mach = torch.finfo(dtype).eps
+
+    def tol_eff(p):
+        floor = 4.0 * eps_mach * diag_max * p.abs().max()
+        return float(torch.maximum(tol, floor))
+
+    def resnorm(p):
+        return _residual(L0, p, rhs, bvals).abs().max()
+
+    rn = resnorm(phi)
+    iters = 0
+    if float(rn) > tol_eff(phi):
+        levels = build_hierarchy(list(n), list(dx), ell_bc, aco, list(beta),
+                                 alpha)
+        stall = 0
+        while iters < max_cycles and float(rn) > tol_eff(phi) and stall < 2:
+            tl = tol_eff(phi)
+            phi, mon = v_cycle(levels, phi, rhs, bvals, 0, nu1, nu2,
+                               singular, return_resnorm=True)
+            iters += 1
+            mon, prev = float(mon), float("inf")
+            while iters < max_cycles and mon > tl and mon < 0.7 * prev:
+                phi, mon2 = v_cycle(levels, phi, rhs, bvals, 0, nu1, nu2,
+                                    singular, return_resnorm=True)
+                iters += 1
+                mon, prev = float(mon2), mon
+            rn_new = resnorm(phi)
+            stall = stall + 1 if float(rn_new) > 0.9 * float(rn) else 0
+            rn = rn_new
+    if singular:
+        phi = phi - phi.mean()
+    if return_info:
+        tiny = torch.finfo(dtype).tiny
+        ratio = rn / max(tol_eff(phi), tiny)
+        return phi, (rn, iters, ratio)
+    return phi, rn

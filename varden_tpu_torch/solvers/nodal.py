@@ -1,0 +1,524 @@
+"""Node-centered variable-coefficient Poisson multigrid, the "hg" solver
+(counterpart of varden_tpu.solvers.nodal).
+
+FBoxLib's ml_nd_solve + ND_DENSE nodal stencil as consumed by the
+reference's hg_multigrid wrapper (src/hg_multigrid.f90:95-105): solves the
+weak-form system A(sigma) phi = b(u) with trilinear nodal basis functions
+and cell-wise constant sigma = 1/rho. Periodic axes wrap (n nodes); Neumann
+(walls/inflow) is natural (sigma zero-extended); Dirichlet (outflow) masks
+boundary nodes to 0. Multigrid: weighted-Jacobi smoothing, P^T restriction,
+linear prolongation and a dense direct bottom solve.
+
+Every operator application of the V-cycle, the smoothing and the residuals
+run through the nodal_sweep_3d kernel (ops/cuda_kernels.py); the dense
+bottom matrix is assembled once per hierarchy by the plain factored apply.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import cuda_kernels as ck
+
+JACOBI_OMEGA = 0.85
+DEFAULT_NU1 = 2
+DEFAULT_NU2 = 2
+DEFAULT_MAX_CYCLES = 100  # hg_multigrid.f90:66
+BOTTOM_SIZE = 8
+
+
+def _sl(ndim, axis, s):
+    out = [slice(None)] * ndim
+    out[axis] = s
+    return tuple(out)
+
+
+def element_matrix(dx: Sequence[float]) -> np.ndarray:
+    """FEM element stiffness for a d-linear element, K[(i...),(j...)] with
+    local node multi-indices in {0,1}^dm."""
+    dm = len(dx)
+    S = [np.array([[1.0, -1.0], [-1.0, 1.0]]) / h for h in dx]
+    M = [np.array([[2.0, 1.0], [1.0, 2.0]]) * (h / 6.0) for h in dx]
+    K = np.zeros((2,) * dm * 2)
+    for d in range(dm):
+        mats = [S[t] if t == d else M[t] for t in range(dm)]
+        term = mats[0]
+        for m in mats[1:]:
+            term = np.multiply.outer(term, m)
+        perm = [2 * t for t in range(dm)] + [2 * t + 1 for t in range(dm)]
+        K += np.transpose(term, perm)
+    return K
+
+
+def _pad_cell(f, pmask, dm, fill=0.0):
+    """Pad a cell tensor with one ghost per axis: wrap if periodic else fill."""
+    for d in range(dm):
+        axis = f.ndim - dm + d
+        if pmask[d]:
+            lo, hi = f[_sl(f.ndim, axis, slice(-1, None))], \
+                f[_sl(f.ndim, axis, slice(0, 1))]
+        else:
+            lo = torch.full_like(f[_sl(f.ndim, axis, slice(0, 1))], fill)
+            hi = lo.clone()
+        f = torch.cat([lo, f, hi], dim=axis)
+    return f
+
+
+def _shift_node(phi, offset, pmask, dm):
+    """phi[i+offset] on the node lattice: wrap on periodic axes, zero-extend
+    on physical axes."""
+    out = phi
+    for d in range(dm):
+        o = offset[d]
+        if o == 0:
+            continue
+        axis = out.ndim - dm + d
+        if pmask[d]:
+            out = torch.roll(out, -o, dims=axis)
+        else:
+            n = out.shape[axis]
+            zero = torch.zeros_like(out.narrow(axis, 0, 1))
+            if o == 1:
+                out = torch.cat([out.narrow(axis, 1, n - 1), zero], dim=axis)
+            else:
+                out = torch.cat([zero, out.narrow(axis, 0, n - 1)], dim=axis)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NodalLevel:
+    n: Tuple[int, ...]            # cells per axis
+    dx: Tuple[float, ...]
+    pmask: Tuple[bool, ...]
+    sigma: torch.Tensor           # cell coefficient (1/rho)
+    diag: torch.Tensor            # operator diagonal on nodes
+    mask: Optional[torch.Tensor]  # 1 = solve, 0 = Dirichlet(0) node; None
+    binv: Optional[torch.Tensor] = None  # bottom level only
+
+    @property
+    def dm(self):
+        return len(self.n)
+
+
+def _factored_apply(phi, sigma, dx, pmask, dm):
+    """FEM stencil apply in factored form (leading batch axes broadcast):
+    A phi = sum_d D_d^T [ sigma * (m_t1 x m_t2)(D_d phi) ]."""
+    nd = phi.ndim
+    ax = [nd - dm + d for d in range(dm)]
+    out = None
+    for d in range(dm):
+        tangs = [t for t in range(dm) if t != d]
+        if pmask[d]:
+            g = torch.roll(phi, -1, dims=ax[d]) - phi
+        else:
+            n = phi.shape[ax[d]]
+            g = phi.narrow(ax[d], 1, n - 1) - phi.narrow(ax[d], 0, n - 1)
+
+        def corner(q):
+            v = g
+            for qi, t in zip(q, tangs):
+                n_t = v.shape[ax[t]]
+                if not pmask[t]:
+                    v = v.narrow(ax[t], qi, n_t - 1)
+                elif qi == 1:
+                    v = torch.roll(v, -1, dims=ax[t])
+            return v
+
+        corners = {q: corner(q) for q in itertools.product((0, 1), repeat=dm - 1)}
+        for ti in range(dm - 1):
+            new = {}
+            for q in corners:
+                flip = tuple(1 - qq if i == ti else qq
+                             for i, qq in enumerate(q))
+                new[q] = 2.0 * corners[q] + corners[flip]
+            corners = new
+        scale = 1.0 / dx[d]
+        for t in tangs:
+            scale = scale * (dx[t] / 6.0)
+        r = None
+        for q, w in corners.items():
+            w = (scale * sigma) * w
+            # scatter: node j receives w from cell j - q along tangential axes
+            for qi, t in zip(q, tangs):
+                if pmask[t]:
+                    if qi == 1:
+                        w = torch.roll(w, 1, dims=ax[t])
+                else:
+                    z = torch.zeros_like(w.narrow(ax[t], 0, 1))
+                    w = torch.cat([z, w] if qi == 1 else [w, z], dim=ax[t])
+            r = w if r is None else r + w
+        if pmask[d]:
+            contrib = torch.roll(r, 1, dims=ax[d]) - r
+        else:
+            z = torch.zeros_like(r.narrow(ax[d], 0, 1))
+            contrib = torch.cat([z, r], dim=ax[d]) - torch.cat([r, z], dim=ax[d])
+        out = contrib if out is None else out + contrib
+    return out
+
+
+def _pad_node(phi, pmask, dm):
+    """Pad a node tensor with one ghost per axis: periodic wrap, else zero
+    (physical-side coefficients are exactly zero, so the value is unread)."""
+    for d in range(dm):
+        axis = phi.ndim - dm + d
+        if pmask[d]:
+            lo = phi[_sl(phi.ndim, axis, slice(-1, None))]
+            hi = phi[_sl(phi.ndim, axis, slice(0, 1))]
+        else:
+            lo = torch.zeros_like(phi[_sl(phi.ndim, axis, slice(0, 1))])
+            hi = lo
+        phi = torch.cat([lo, phi, hi], dim=axis)
+    return phi
+
+
+def _sigma_np(sigma, pmask, dm):
+    """Shifted-padded cell sigma: out[k] = sigma_cell[k-1] over the node
+    range (N+1 entries per axis), wrapping on periodic axes, zero outside."""
+    for d in range(dm):
+        axis = sigma.ndim - dm + d
+        if pmask[d]:
+            sigma = torch.cat([sigma[_sl(sigma.ndim, axis, slice(-1, None))],
+                               sigma], dim=axis)
+        else:
+            z = torch.zeros_like(sigma[_sl(sigma.ndim, axis, slice(0, 1))])
+            sigma = torch.cat([z, sigma, z], dim=axis)
+    return sigma
+
+
+def _kernel_nodal(level: NodalLevel, phi, rhs, omega, emit, sig_np=None):
+    """One nodal_sweep_3d pass (apply / residual / jacobi) on a level.
+    ``sig_np`` lets callers hoist the sweep-invariant shifted-padded sigma
+    out of smoothing loops."""
+    phi_pad = _pad_node(phi, level.pmask, level.dm)
+    if sig_np is None:
+        sig_np = _sigma_np(level.sigma, level.pmask, level.dm)
+    inv = None
+    if emit == "jacobi":
+        inv = _inv_diag(level)
+    return ck.nodal_sweep_3d(phi_pad, sig_np, rhs, inv, level.dx,
+                             omega=omega, emit=emit)
+
+
+def _inv_diag(level):
+    d = level.diag
+    return torch.where(d > 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
+                       torch.zeros_like(d))
+
+
+def nd_apply(level: NodalLevel, phi):
+    if level.mask is not None:
+        phi = phi * level.mask
+    out = _kernel_nodal(level, phi, None, 0.0, "apply")
+    if level.mask is not None:
+        out = out * level.mask
+    return out
+
+
+def node_diag(sigma, dx, pmask, dm):
+    """Operator diagonal: diag = c0 * (sum of sigma over adjacent cells)."""
+    c0 = 0.0
+    for d in range(dm):
+        term = 1.0 / dx[d]
+        for t in range(dm):
+            if t != d:
+                term *= dx[t] / 3.0
+        c0 += term
+    sp = _pad_cell(sigma, pmask, dm)
+    ns = node_shape(tuple(sigma.shape[sigma.ndim - dm + d] for d in range(dm)),
+                    pmask)
+    acc = None
+    for c in itertools.product((-1, 0), repeat=dm):
+        sl = [slice(None)] * sp.ndim
+        for d in range(dm):
+            start = c[d] + 1
+            sl[sp.ndim - dm + d] = slice(start, start + ns[d])
+        term = sp[tuple(sl)]
+        acc = term if acc is None else acc + term
+    return c0 * acc
+
+
+def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
+    """Weighted-Jacobi sweeps: the kernel's jacobi emit, or (masked levels)
+    its apply emit with the masked update outside."""
+    if level.mask is None:
+        sig_np = _sigma_np(level.sigma, level.pmask, level.dm)
+        for _ in range(nsweeps):
+            phi = _kernel_nodal(level, phi, rhs, omega, "jacobi",
+                                sig_np=sig_np)
+        return phi
+    inv = _inv_diag(level)
+    for _ in range(nsweeps):
+        r = rhs - nd_apply(level, phi)
+        phi = phi + omega * r * inv * level.mask
+    return phi
+
+
+def _residual(level: NodalLevel, phi, rhs):
+    if level.mask is None:
+        return _kernel_nodal(level, phi, rhs, 0.0, "residual")
+    return rhs - nd_apply(level, phi)
+
+
+def _restrict(r, pmask, dm):
+    """P^T full-weighting with per-axis weights (1/2, 1, 1/2)."""
+    for d in range(dm):
+        axis = r.ndim - dm + d
+        rm = _shift_node(r, tuple(-1 if t == d else 0 for t in range(dm)), pmask, dm)
+        rp = _shift_node(r, tuple(+1 if t == d else 0 for t in range(dm)), pmask, dm)
+        r = r + 0.5 * (rm + rp)
+        r = r[_sl(r.ndim, axis, slice(0, None, 2))]
+    return r.contiguous()
+
+
+def _prolong(c, fine_node_shape, pmask, dm):
+    """Linear interpolation: even fine nodes = coarse, odd = neighbor avg."""
+    for d in range(dm):
+        axis = c.ndim - dm + d
+        cp = _shift_node(c, tuple(+1 if t == d else 0 for t in range(dm)), pmask, dm)
+        mid = 0.5 * (c + cp)
+        stacked = torch.stack([c, mid], dim=axis + 1)
+        new_shape = list(c.shape)
+        new_shape[axis] = 2 * c.shape[axis]
+        out = stacked.reshape(new_shape)
+        if not pmask[d]:
+            out = out[_sl(out.ndim, axis, slice(0, fine_node_shape[d]))]
+        c = out
+    return c
+
+
+def _coarsen_mask(mask, pmask, dm):
+    if mask is None:
+        return None
+    for d in range(dm):
+        mask = mask[_sl(mask.ndim, mask.ndim - dm + d, slice(0, None, 2))]
+    return mask
+
+
+def _cell_avg(f, dm):
+    for d in range(dm):
+        ax = f.ndim - dm + d
+        f = 0.5 * (f[_sl(f.ndim, ax, slice(0, None, 2))]
+                   + f[_sl(f.ndim, ax, slice(1, None, 2))])
+    return f
+
+
+def build_hierarchy(n, dx, pmask, sigma, mask) -> List[NodalLevel]:
+    dm = len(n)
+    levels = []
+    n = list(n)
+    dx = list(dx)
+    while True:
+        diag = node_diag(sigma, dx, pmask, dm)
+        levels.append(NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma,
+                                 diag, mask))
+        if any(s % 2 != 0 or s <= BOTTOM_SIZE for s in n):
+            break
+        n = [s // 2 for s in n]
+        dx = [2.0 * h for h in dx]
+        sigma = _cell_avg(sigma, dm)
+        mask = _coarsen_mask(mask, pmask, dm)
+    lb = levels[-1]
+    N = 1
+    for s in node_shape(lb.n, pmask):
+        N *= s
+    if N <= 4096:
+        A = _bottom_dense_A(lb)
+        eye = torch.eye(N, dtype=A.dtype, device=A.device)
+        levels[-1] = dataclasses.replace(lb, binv=torch.linalg.solve(A, eye))
+    return levels
+
+
+def node_shape(n, pmask):
+    return tuple(nd if p else nd + 1 for nd, p in zip(n, pmask))
+
+
+def _bottom_dense_A(level: NodalLevel):
+    """The (tiny) coarsest nodal operator, by the plain factored apply on
+    the identity: rank-1 regularized (no mask: null space = constants) or
+    with identity rows on Dirichlet nodes."""
+    shape = node_shape(level.n, level.pmask)
+    N = 1
+    for s in shape:
+        N *= s
+    dtype, dev = level.diag.dtype, level.diag.device
+    eye = torch.eye(N, dtype=dtype, device=dev).reshape((N,) + shape)
+    if level.mask is not None:
+        eye = eye * level.mask
+    cols = _factored_apply(eye, level.sigma, level.dx, level.pmask, level.dm)
+    if level.mask is not None:
+        cols = cols * level.mask
+    A = cols.reshape(N, N).T
+    if level.mask is None:
+        A = A + 1.0 / N
+    else:
+        A = A + torch.diag(1.0 - level.mask.reshape(-1))
+    return A
+
+
+def bottom_solve(level: NodalLevel, r):
+    """Direct dense bottom solve (one matvec with the precomputed inverse)."""
+    shape = r.shape
+    if level.mask is None:
+        r = r - r.mean()
+    else:
+        r = r * level.mask
+    if level.binv is not None:
+        out = (level.binv @ r.reshape(-1)).reshape(shape)
+    else:
+        out = torch.linalg.solve(_bottom_dense_A(level),
+                                 r.reshape(-1)).reshape(shape)
+    if level.mask is not None:
+        out = out * level.mask
+    return out
+
+
+def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
+            return_resnorm=False):
+    """One V-cycle. With return_resnorm, also returns the max-norm of the
+    post-pre-smooth fine residual (a 0-d tensor)."""
+    level = levels[lev]
+    if lev == len(levels) - 1:
+        r = _residual(level, phi, rhs)
+        out = phi + bottom_solve(level, r)
+        return (out, r.abs().max()) if return_resnorm else out
+    phi = jacobi(level, phi, rhs, nu1)
+    res = _residual(level, phi, rhs)
+    crs_rhs = _restrict(res, level.pmask, level.dm)
+    nxt = levels[lev + 1]
+    if nxt.mask is not None:
+        crs_rhs = crs_rhs * nxt.mask
+    corr = v_cycle(levels, torch.zeros_like(crs_rhs), crs_rhs, lev + 1, nu1,
+                   nu2)
+    corr_f = _prolong(corr, node_shape(level.n, level.pmask), level.pmask,
+                      level.dm)
+    if level.mask is not None:
+        corr_f = corr_f * level.mask
+    phi = jacobi(level, phi + corr_f, rhs, nu2)
+    return (phi, res.abs().max()) if return_resnorm else phi
+
+
+def divu_rhs(u, dx, pmask, dm, inflow_pad=None):
+    """Weak-form divergence source b_i = sum_cells u_c · ∫_c ∇N_i.
+
+    ``u``: (dm, *cells) interior velocity. ``inflow_pad``: optional function
+    (comp, d, side) -> ghost value for EXT_DIR inflow faces; other physical
+    ghosts are zero (walls via create_uvec zeroing, hgproject.f90:424-427).
+    """
+    comps = []
+    for c in range(dm):
+        f = u[c]
+        for d in range(dm):
+            axis = f.ndim - dm + d
+            if pmask[d]:
+                lo = f[_sl(f.ndim, axis, slice(-1, None))]
+                hi = f[_sl(f.ndim, axis, slice(0, 1))]
+            else:
+                edge = f[_sl(f.ndim, axis, slice(0, 1))]
+                lo = torch.full_like(edge, 0.0 if inflow_pad is None
+                                     else inflow_pad(c, d, 0))
+                hi = torch.full_like(edge, 0.0 if inflow_pad is None
+                                     else inflow_pad(c, d, 1))
+            f = torch.cat([lo, f, hi], dim=axis)
+        comps.append(f)
+
+    rhs = None
+    vol_fac = [np.prod([dx[t] / 2.0 for t in range(dm) if t != d])
+               for d in range(dm)]
+    ns = node_shape(tuple(u.shape[-dm:]), pmask)
+    for d in range(dm):
+        up = comps[d]
+        acc = None
+        for c in itertools.product((-1, 0), repeat=dm):
+            sl = [slice(None)] * up.ndim
+            for t in range(dm):
+                start = c[t] + 1
+                sl[up.ndim - dm + t] = slice(start, start + ns[t])
+            sgn = 1.0 if c[d] == -1 else -1.0
+            term = sgn * up[tuple(sl)]
+            acc = term if acc is None else acc + term
+        term = float(vol_fac[d]) * acc
+        rhs = term if rhs is None else rhs + term
+    return rhs
+
+
+def cell_grad(phi, dx, pmask, dm):
+    """Average nodal->cell gradient (reference mkgphi, hgproject.f90:517-577).
+    Returns (dm, *cells)."""
+    grads = []
+    nshape = phi.shape[phi.ndim - dm:]
+    for d in range(dm):
+        acc = None
+        for corner in itertools.product((0, 1), repeat=dm):
+            out = phi
+            for t in range(dm):
+                o = corner[t]
+                axis = out.ndim - dm + t
+                if pmask[t]:
+                    if o == 1:
+                        out = torch.roll(out, -1, dims=axis)
+                else:
+                    out = out.narrow(axis, o, nshape[t] - 1)
+            sgn = 1.0 if corner[d] == 1 else -1.0
+            term = sgn * out
+            acc = term if acc is None else acc + term
+        grads.append(acc / (2.0 ** (dm - 1) * dx[d]))
+    return torch.stack(grads)
+
+
+def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
+          rel_eps=1.0e-11, abs_eps=-1.0, max_cycles=DEFAULT_MAX_CYCLES,
+          return_info=False):
+    """Solve A(sigma) phi = rhs on the node lattice. Returns (phi, resnorm),
+    or (phi, (resnorm, cycles, ratio)) with return_info.
+
+    The tolerance loop of varden_tpu.solvers.nodal.solve: inner V-cycles
+    while the in-cycle monitor falls below 0.7x its previous value, an outer
+    loop that re-checks the true residual and stops when the inner loop
+    ended above tolerance (stalled), and an effective tolerance that
+    includes the dtype's floor 4 eps * max|diag| * max|phi|."""
+    dm = len(n)
+    singular = mask is None
+    L0 = NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma,
+                    node_diag(sigma, dx, pmask, dm), mask)
+    if mask is not None:
+        rhs = rhs * mask
+    if singular:
+        rhs = rhs - rhs.mean()
+    phi = torch.zeros_like(rhs) if phi0 is None else phi0
+    dtype = rhs.dtype
+    bnorm = rhs.abs().max()
+    tol = torch.clamp(rel_eps * bnorm, min=0.0 if abs_eps < 0 else abs_eps)
+    diag_max = L0.diag.abs().max()
+    eps_mach = torch.finfo(dtype).eps
+
+    def tol_eff(p):
+        floor = 4.0 * eps_mach * diag_max * p.abs().max()
+        return float(torch.maximum(tol, floor))
+
+    rn = _residual(L0, phi, rhs).abs().max()
+    iters = 0
+    if float(rn) > tol_eff(phi):
+        levels = build_hierarchy(list(n), list(dx), list(pmask), sigma, mask)
+        stalled = False
+        while iters < max_cycles and float(rn) > tol_eff(phi) and not stalled:
+            tl = tol_eff(phi)
+            phi, mon = v_cycle(levels, phi, rhs, return_resnorm=True)
+            iters += 1
+            mon, prev = float(mon), float("inf")
+            while iters < max_cycles and mon > tl and mon < 0.7 * prev:
+                phi, mon2 = v_cycle(levels, phi, rhs, return_resnorm=True)
+                iters += 1
+                mon, prev = float(mon2), mon
+            rn = _residual(levels[0], phi, rhs).abs().max()
+            stalled = mon > tl
+    if singular:
+        phi = phi - phi.mean()
+    if return_info:
+        tiny = torch.finfo(dtype).tiny
+        ratio = rn / max(tol_eff(phi), tiny)
+        return phi, (rn, iters, ratio)
+    return phi, rn
