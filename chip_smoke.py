@@ -6,23 +6,30 @@
 Phases, each of which asserts and any failure of which exits non-zero:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
-     four CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at once);
+     five CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at once);
   2. each kernel against its plain PyTorch version on the same inputs at
      the main path's 256^3 shapes, in float32 and again in float64: max abs
      error against the stated tolerance, the kernel's time (CUDA events),
      the plain version's time and the bound (bytes or operations, the
      operations counted by hand from each kernel's body);
-  3. one advance_timestep of the inviscid 3-D bubble at 32^3 in float64 on
-     the card against the plain path on the CPU, from one numpy-made state;
-  4. the main path: Varden on the inviscid 3-D bubble (prob_type 1, 256^3,
-     float32, no-slip walls on all six faces), initial projection, one
-     pressure iteration and STEPS regular steps, with every launch counter set
-     to 0 just before and read just after.
+  3. one advance_timestep of the 3-D bubble at 32^3 in float64 on the card
+     against the plain path on the CPU, from one numpy-made state: once
+     inviscid, once with visc_coef = diff_coef = 1e-3 (Crank-Nicolson);
+  4. the main path, the headline configuration: Varden on the viscous 3-D
+     bubble (prob_type 1, 256^3, float32, no-slip walls on all six faces,
+     visc_coef 1e-3), initial projection, one pressure iteration and STEPS
+     regular steps, with every launch counter set to 0 just before and read
+     just after; all five kernels must have launched;
+  5. the main path once more in float64 for STEPS_SHORT steps: the same
+     gates, and the float32 run's density extrema and max|u| held against it
+     step by step;
+  6. the earlier main path at a smaller depth: the inviscid bubble at 256^3
+     for STEPS_SHORT steps, the same gates, its four kernels launched.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
-one more step runs under torch.profiler and its table of device time by
-kernel is written to FILE. Without a card, or without the package beside
+one more viscous step runs under torch.profiler and its table of device
+time by kernel is written to FILE. Without a card, or without the package beside
 this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -52,11 +59,21 @@ TOL_KERNEL = {"float32": 1e-4, "float64": 1e-11}
 # residuals of rel_eps 1e-10 and 1e-12 of their right-hand sides
 TOL_STEP = 1e-8
 # density of the 3-D bubble lies in [1, densfact=10]; float32 roundoff of
-# values up to 10 in the conservative update
+# values up to 10 in the conservative update. With viscosity the scheme
+# itself undershoots 1 by 1.4e-5 at 256^3 from the second step on, in
+# float64 as in float32 (phase 5 holds the two against each other), so the
+# viscous path's bound is wider.
 TOL_RHO = 1e-5
-# regular steps of the 256^3 main path (depth is the only cut), and
-# launches per float32 kernel timing (a quarter of that in float64)
+TOL_RHO_VISCOUS = 1e-4
+# float32 main path against the same path in float64, per step: density
+# extrema and max|u| relative to their size; the float32 solvers stop at
+# rel_eps 2e-5 of their right-hand sides
+TOL_F32_VS_F64 = 1e-4
+# regular steps of the 256^3 main path, and of its float64 repeat and the
+# inviscid path (depth is the only cut), and launches per float32 kernel
+# timing (a quarter of that in float64)
 STEPS = 4
+STEPS_SHORT = 2
 REPS = 20
 
 REPLACES = {
@@ -64,13 +81,18 @@ REPLACES = {
     "mkflux_update_3d_fused": "varden_tpu/ops/pallas_godunov.py:643",
     "gsrb_var_sweep_3d": "varden_tpu/ops/pallas_kernels.py:587",
     "nodal_sweep_3d": "varden_tpu/ops/pallas_kernels.py:892",
+    "gsrb_const_sweep_3d": "varden_tpu/ops/pallas_kernels.py:401",
 }
 SOURCE = {
     "velpred_3d_fused": "varden_tpu_torch/csrc/velpred.cu",
     "mkflux_update_3d_fused": "varden_tpu_torch/csrc/mkflux_update.cu",
     "gsrb_var_sweep_3d": "varden_tpu_torch/csrc/gsrb_var.cu",
     "nodal_sweep_3d": "varden_tpu_torch/csrc/nodal.cu",
+    "gsrb_const_sweep_3d": "varden_tpu_torch/csrc/gsrb_const.cu",
 }
+# the launch counters of the kernels that the inviscid path runs
+INVISCID = ("velpred_3d_fused", "mkflux_update_3d_fused",
+            "gsrb_var_sweep_3d", "nodal_sweep_3d")
 
 
 class PhaseError(RuntimeError):
@@ -182,6 +204,15 @@ def mkflux_update_ops(cons, force, fupd, order):
 GSRB_OPS = {"sweep": 24, "residual": 22, "restrict": 24 + 14 / 8}
 
 
+def gsrb_const_ops(emit, use_alpha, have_rhs=True):
+    """Constant-coefficient L(phi) per cell and field: per axis the two
+    neighbours' sum, 2 phi, a subtract and the coefficient (4; 2 phi counted
+    once), two adds and the sign (15); the alpha term 3; rhs - L 1; the
+    sweep adds * inv_diag and + phi."""
+    return (15 + (3 if use_alpha else 0) + (1 if have_rhs else 0)
+            + (2 if emit == "sweep" else 0))
+
+
 def nodal_ops(emit):
     """Per node and axis: one node difference, the 2x2 tangential mass
     weighting (16), sigma times the scale and the four products (5), the
@@ -254,7 +285,14 @@ def kernel_cases(torch, dtype_name, n=256):
     fupd = smooth(torch, (3,) + N, 4, 0.2, dev, dt_)
     a3 = (u_pad, mac_pads, f_pad, fupd, None, dt, sim.dx, sim.phys_bc, adv_v,
           ng, N, True, [False] * 3, cfg.slope_order, cfg.use_minion)
+    # the diffusive step's scalars: a tracer force on the edge states and
+    # at the update (density's is zero), advance.advance_timestep's shapes
+    sf = smooth(torch, (2,) + N, 9, 0.1, dev, dt_)
+    sf[0] = 0.0
+    sf_pad, sfupd = sim.fill_extrap(sf, ng), 0.5 * sf
+    a4 = (s_pad, mac_pads, sf_pad, sfupd, *a2[4:])
     for case, a, ins in (("scalars", a2, [s_pad, *mac_pads]),
+                         ("scal+force", a4, [s_pad, *mac_pads, sf_pad, sfupd]),
                          ("velocity", a3, [u_pad, *mac_pads, f_pad, fupd])):
         nc = a[0].shape[0]
         out_b = nc * cells * a[0].element_size()
@@ -282,6 +320,44 @@ def kernel_cases(torch, dtype_name, n=256):
                       (lambda g=g, e=emit: ck.gsrb_var_sweep_3d(*g, emit=e)),
                       (lambda g=g, e=emit: ck.gsrb_var_sweep_3d_plain(*g, emit=e)),
                       b, GSRB_OPS[emit] * cells))
+
+    # kernel 5: the viscous operator rho - mu lap of the headline bubble
+    # (no-slip walls: Dirichlet on every face, one operator for the three
+    # components) at visc_solve's, lap_velocity's and diff_scalar_solve's
+    # shapes; and a smaller grid with periodic x and non-zero Dirichlet values
+    mu = 0.5 * dt * 1.0e-3
+    u3 = smooth(torch, (3,) + N, 10, 0.5, dev, dt_)
+    r3 = smooth(torch, (3,) + N, 11, 2.0, dev, dt_)
+    ones = torch.ones(N, dtype=dt_, device=dev)
+
+    def const_case(case, n_, ell, bvs, p, r, aco, emit):
+        lv = mg.make_level(n_, sim.dx, ell, ones if aco is None else aco,
+                           (mu,) * 3, 0.0 if aco is None else 1.0)
+        coef = ([1.0 / h ** 2 for h in sim.dx] + [0.0] if r is None else
+                [mu / h ** 2 for h in sim.dx] + [1.0])
+        inv = lv.inv_diag if emit == "sweep" else None
+        g = (p, r, inv, coef, ell, bvs)
+        moved = nbytes([p, r, inv, aco]) + nbytes([p])
+        ops = gsrb_const_ops(emit, aco is not None, r is not None) * p.numel()
+        cases.append(("gsrb_const_sweep_3d", case,
+                      (lambda: ck.gsrb_const_sweep_3d(*g, aco=aco, emit=emit)),
+                      (lambda: ck.gsrb_const_sweep_3d_plain(*g, aco=aco,
+                                                            emit=emit)),
+                      moved, ops))
+
+    ell_v, bv_v = projection.comp_bc(sim, 0)
+    const_case("sweep B3", N, ell_v, bv_v, u3, r3, rho, "sweep")
+    const_case("resid B3", N, ell_v, bv_v, u3, r3, rho, "residual")
+    const_case("lap B3", N, ell_v, bv_v, u3, None, None, "residual")
+    ell_t, bv_t = projection.comp_bc(sim, sim.scal_comp(1))
+    const_case("sweep B1", N, ell_t, bv_t, u3[:1], r3[:1], ones, "sweep")
+    ns_ = (n // 4,) * 3
+    sm = [slice(0, s) for s in ns_]
+    const_case("per-x dir", ns_, [(0, 0), (2, 2), (1, 2)],
+               [[0.0, 0.0], [0.3, -0.2], [0.0, 0.5]],
+               u3[(slice(None), *sm)].contiguous(),
+               r3[(slice(None), *sm)].contiguous(),
+               rho[tuple(sm)].contiguous(), "sweep")
 
     # kernel 4: the nodal operator of sigma = 1/rho, walls (no mask)
     pmask = sim.pmask
@@ -321,7 +397,7 @@ def phase_kernels(torch, dtype_name, reps):
                    ref_max=scale, tol=tol * scale, ok=ok, ms=ms,
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=b,
                    ops=ops)
-        print(f"  {name:24s} {case:9s} {dtype_name}: max abs err {err:.3e} "
+        print(f"  {name:24s} {case:10s} {dtype_name}: max abs err {err:.3e} "
               f"(tol {tol:.0e} x max|ref| {scale:.3e}) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
@@ -347,13 +423,13 @@ def bubble_kw(n, dtype_name, **over):
     return kw
 
 
-def phase_step(torch, n=32):
+def phase_step(torch, n=32, **over):
     import numpy as np
     from varden_tpu_torch import advance, problems
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.state import Sim, state_from_numpy, state_to_numpy
 
-    cfg = VardenConfig(**bubble_kw(n, "float64"))
+    cfg = VardenConfig(**bubble_kw(n, "float64", **over))
     cpu, gpu = Sim(cfg, device="cpu"), Sim(cfg, device="cuda")
     st = problems.initdata(cpu)
     rng = np.random.RandomState(11)
@@ -403,14 +479,18 @@ def counters():
     return {"velpred_3d_fused": cg.velpred_3d_fused,
             "mkflux_update_3d_fused": cg.mkflux_update_3d_fused,
             "gsrb_var_sweep_3d": ck.gsrb_var_sweep_3d,
-            "nodal_sweep_3d": ck.nodal_sweep_3d}
+            "nodal_sweep_3d": ck.nodal_sweep_3d,
+            "gsrb_const_sweep_3d": ck.gsrb_const_sweep_3d}
 
 
-def phase_main(torch, n, steps):
+def phase_main(torch, n, steps, expect, dtype_name="float32", **over):
+    """Drive Varden for ``steps`` regular steps; ``expect`` names the
+    kernels that must have launched, every other one must not have."""
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.driver import Varden
 
-    cfg = VardenConfig(**bubble_kw(n, "float32", max_step=steps))
+    cfg = VardenConfig(**bubble_kw(n, dtype_name, max_step=steps, **over))
+    tol_rho = TOL_RHO_VISCOUS if cfg.visc_coef > 0.0 else TOL_RHO
     fns = counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -430,6 +510,7 @@ def phase_main(torch, n, steps):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         d = v.last_diag
+        gamma = visc_gamma(v, state) if cfg.visc_coef > 0.0 else None
         rec = dict(step=v.istep, dt=v.dt, seconds=sec,
                    cells_per_s=math.prod(cfg.n_cell) / sec,
                    div_before=float(d["div_before"]),
@@ -437,6 +518,9 @@ def phase_main(torch, n, steps):
                    mac_ratio=float(d["mac_ratio"]),
                    hg_ratio=float(d["hg_ratio"]),
                    rho_min=float(d["smin"]), rho_max=float(d["smax"]),
+                   umax=float(d["umax"]),
+                   gamma=gamma, visc_cycles=int(d.get("visc_cycles", 0)),
+                   visc_ratio=float(d.get("visc_ratio", 0.0)),
                    launches={k: f.launches - before[k] for k, f in fns.items()})
         per_step.append(rec)
         print(f"  step {rec['step']}: div(umac) before/after MAC "
@@ -454,21 +538,57 @@ def phase_main(torch, n, steps):
           f"{peak} bytes", flush=True)
 
     for k, c in launches.items():
-        need(c > 0, f"kernel {k} was not launched on the main path")
+        if k in expect:
+            need(c > 0, f"kernel {k} was not launched on this path")
+        else:
+            need(c == 0, f"kernel {k} is not on this path but launched {c}x")
     for key in ("u", "s", "gp", "p"):
         need(bool(torch.isfinite(getattr(state, key)).all()),
              f"main path field {key} is not finite")
     rho = state.s[0]
     lo, hi = float(rho.min()), float(rho.max())
-    need(1.0 - TOL_RHO <= lo and hi <= 10.0 + TOL_RHO,
+    need(1.0 - tol_rho <= lo and hi <= 10.0 + tol_rho,
          f"density left [1, 10]: min {lo}, max {hi}")
     for rec in per_step:
         need(rec["mac_ratio"] <= 1.0 and rec["hg_ratio"] <= 1.0,
-             f"step {rec['step']}: a projection stopped above its float32 "
+             f"step {rec['step']}: a projection stopped above its "
              f"tolerance (ratios {rec['mac_ratio']}, {rec['hg_ratio']})")
+        need(rec["visc_ratio"] <= 1.0,
+             f"step {rec['step']}: the viscous solve stopped above its "
+             f"tolerance (ratio {rec['visc_ratio']})")
         need(rec["div_after"] < rec["div_before"],
              f"step {rec['step']}: the MAC projection did not reduce div")
     return v, state, launches, per_step, peak
+
+
+def visc_gamma(v, state):
+    """gamma = max offdiag/diag of the viscous operator rho - mu lap for the
+    step just taken (its dt, the new density): below 0.5 mg.solve smooths
+    with a budget of sweeps, from 0.5 on it goes to V-cycles."""
+    from varden_tpu_torch import projection
+    from varden_tpu_torch.solvers import mg
+    sim = v.sim
+    mu = 0.5 * v.dt * v.cfg.visc_coef
+    ell, _ = projection.comp_bc(sim, 0)
+    rho = state.s[0]
+    lev = mg.make_level(sim.n_cell, sim.dx, ell, rho, (mu,) * 3, 1.0)
+    return float(((lev.diag - rho) / lev.diag).max())
+
+
+def viscous_report(per_step):
+    """How the viscous solve ran on the main path, per step: gamma, the
+    V-cycles it took, its residual over its tolerance, and the launches of
+    the constant-coefficient kernel (lap(u) 1, each residual 1, each sweep
+    2, on every level)."""
+    keys = ("gamma", "visc_cycles", "visc_ratio")
+    out = {k: [rec[k] for rec in per_step] for k in keys}
+    out["launches"] = [rec["launches"]["gsrb_const_sweep_3d"]
+                       for rec in per_step]
+    print(f"  viscous solve per step: gamma {out['gamma']} (>= 0.5: no "
+          f"smoothing-only path); V-cycles {out['visc_cycles']}; residual / "
+          f"tolerance {out['visc_ratio']}; gsrb_const launches "
+          f"{out['launches']}", flush=True)
+    return out
 
 
 def profile_step(torch, v, state, path):
@@ -494,6 +614,7 @@ def main(argv=None) -> int:
                     help="profile one more step; write the table here")
     args = ap.parse_args(argv)
 
+    t_begin = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -524,21 +645,47 @@ def main(argv=None) -> int:
     rows64 = phase_kernels(torch, "float64", max(2, REPS // 4))
     torch.cuda.empty_cache()
 
-    print("phase 3: one float64 step, card vs CPU plain path", flush=True)
+    print("phase 3: one float64 step, card vs CPU plain path: inviscid, "
+          "then visc_coef = diff_coef = 1e-3", flush=True)
     phase_step(torch)
+    phase_step(torch, visc_coef=1.0e-3, diff_coef=1.0e-3)
     torch.cuda.empty_cache()
 
-    print(f"phase 4: main path, inviscid 3-D bubble 256^3 float32, "
-          f"{STEPS} steps", flush=True)
-    v, state, launches, per_step, peak = phase_main(torch, 256, STEPS)
+    print(f"phase 4: main path, viscous 3-D bubble 256^3 float32 "
+          f"(visc_coef 1e-3), {STEPS} steps", flush=True)
+    v, state, launches, per_step, peak = phase_main(
+        torch, 256, STEPS, tuple(REPLACES), visc_coef=1.0e-3)
+    visc = viscous_report(per_step)
     if args.profile:
         profile_step(torch, v, state, args.profile)
+    del v, state
+    torch.cuda.empty_cache()
+
+    print(f"phase 5: the main path in float64, {STEPS_SHORT} steps, and "
+          "the float32 run against it", flush=True)
+    _, _, _, per_step64, _ = phase_main(
+        torch, 256, STEPS_SHORT, tuple(REPLACES), "float64", visc_coef=1.0e-3)
+    for r32, r64 in zip(per_step, per_step64):
+        for key in ("rho_min", "rho_max", "umax"):
+            diff = abs(r32[key] - r64[key])
+            print(f"  step {r32['step']} {key}: float32 {r32[key]:.9f} "
+                  f"float64 {r64[key]:.9f}", flush=True)
+            need(diff <= TOL_F32_VS_F64 * abs(r64[key]),
+                 f"step {r32['step']}: {key} differs by {diff} between the "
+                 "float32 and the float64 main path")
+    torch.cuda.empty_cache()
+
+    print(f"phase 6: the inviscid 3-D bubble 256^3 float32, "
+          f"{STEPS_SHORT} steps", flush=True)
+    _, _, launches0, per_step0, peak0 = phase_main(
+        torch, 256, STEPS_SHORT, INVISCID)
 
     # the JSON line: for each kernel its main case (velocity update, the
     # sweep, the Jacobi emit); max_abs_err the largest over its cases
     main_case = {"velpred_3d_fused": "velocity",
                  "mkflux_update_3d_fused": "velocity",
-                 "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi"}
+                 "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi",
+                 "gsrb_const_sweep_3d": "sweep B3"}
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows32 if x["name"] == name
@@ -551,10 +698,16 @@ def main(argv=None) -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": None})
     steady = per_step[1:] or per_step
+    total_s = time.perf_counter() - t_begin
     detail = {"card": smi, "build_s": build_s, "peak_bytes": peak,
               "cases_f32": rows32, "cases_f64": rows64, "steps": per_step,
-              "mean_step_s": sum(r["seconds"] for r in steady) / len(steady)}
+              "mean_step_s": sum(r["seconds"] for r in steady) / len(steady),
+              "viscous_solve": visc, "steps_f64": per_step64,
+              "inviscid_steps": per_step0,
+              "inviscid_launches": launches0, "inviscid_peak_bytes": peak0,
+              "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
+    print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,6 +108,14 @@ def test_sim_fills_and_masks(bc):
     assert ts.eps(1e-12) == js.eps(1e-12)
 
 
+@pytest.mark.parametrize("code", [-1, 0, 1, 2, 3, 4])
+def test_bottom_solver_codes_match(code):
+    kw = _kw(BC_SETS[0], mg_bottom_solver=code, hg_bottom_solver=code)
+    js, ts = JSim(jcfg.VardenConfig(**kw)), TSim(tcfg.VardenConfig(**kw),
+                                                 device="cpu")
+    assert (ts.mg_bottom, ts.hg_bottom) == (js.mg_bottom, js.hg_bottom)
+
+
 def test_state_round_trip():
     ts = TSim(tcfg.VardenConfig(**_kw(BC_SETS[0])), device="cpu")
     st = tprob.initdata(ts)
@@ -129,10 +137,8 @@ def test_varden_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(visc_coef=1e-3), dict(diff_coef=1e-3), dict(max_levs=2),
-    dict(mesh=2), dict(plot_int=1), dict(chk_int=1), dict(restart=0),
-    dict(use_godunov_debug=True), dict(dim_in=2),
-    dict(mg_bottom_solver=1), dict(hg_bottom_solver=2)])
+    dict(max_levs=2), dict(mesh=2), dict(plot_int=1), dict(chk_int=1),
+    dict(restart=0), dict(use_godunov_debug=True), dict(dim_in=2)])
 def test_unported_paths_raise(extra):
     from varden_tpu_torch.driver import Varden
     with pytest.raises(NotImplementedError):

@@ -1,8 +1,11 @@
-"""The port's driver and CLI: Varden.run of the inviscid 3-D bubble at 16^3
-against varden_tpu's (float64, CPU; initial projection, one pressure
-iteration, three steps), and the CLI on an inputs file. Tolerance 1e-9
-relative to each field's size: both packages take the same dt sequence and
-V-cycle counts, and the solvers converge to rel_eps 1e-10 / 1e-12."""
+"""The port's driver and CLI: Varden.run of the 3-D bubble at 16^3, inviscid
+and viscous (visc_coef 1e-3, the headline configuration), against
+varden_tpu's (float64, CPU; initial projection, one pressure iteration,
+three steps), and the CLI on an inputs file. Tolerance 1e-9 relative to
+each field's size: both packages take the same dt sequence and V-cycle
+counts, and the solvers converge to rel_eps 1e-10 / 1e-12; the viscous
+Helmholtz solve (rel_eps 1e-12, Jacobi sweeps in varden_tpu on the CPU,
+red-black in the port) adds at most 2e-12 of the velocity per step."""
 import os
 import subprocess
 import sys
@@ -22,8 +25,8 @@ KW = dict(dim_in=3, prob_type=1, n_cellx=16, n_celly=16, n_cellz=16,
           max_step=3, plot_int=-1, chk_int=-1, verbose=1)
 
 
-def test_run_matches_three_steps(capsys):
-    jv, tv = JVarden(JCfg(**KW)), TVarden(TCfg(**KW), device="cpu")
+def _run_both(kw):
+    jv, tv = JVarden(JCfg(**kw)), TVarden(TCfg(**kw), device="cpu")
     js, ts = jv.run(), tv.run()
     assert tv.istep == jv.istep == 3
     assert abs(tv.time - jv.time) <= 1e-12 * jv.time
@@ -32,6 +35,11 @@ def test_run_matches_three_steps(capsys):
         a, b = getattr(ts, k).numpy(), np.array(getattr(js, k))
         scale = max(1.0, float(np.max(np.abs(b))))
         assert float(np.max(np.abs(a - b))) <= 1e-9 * scale, k
+    return js, ts
+
+
+def test_run_matches_three_steps(capsys):
+    js, ts = _run_both(KW)
     # density stays in [1, densfact=10] up to the advection undershoot that
     # the reference itself shows at this coarse 16^3 grid (about 2e-4)
     rho_j = np.array(js.s[0])
@@ -42,12 +50,24 @@ def test_run_matches_three_steps(capsys):
     assert "new min/max : density" in capsys.readouterr().out
 
 
+# the headline configuration's viscosity (Crank-Nicolson, dense bottoms),
+# and backward Euler with tracer diffusion and the Krylov bottom solvers
+@pytest.mark.parametrize("extra", [
+    dict(visc_coef=1e-3),
+    dict(visc_coef=1e-2, diff_coef=1e-2, diffusion_type=2,
+         mg_bottom_solver=2, hg_bottom_solver=1)], ids=["headline", "be-krylov"])
+def test_viscous_run_matches_three_steps(extra):
+    js, ts = _run_both(dict(KW, **extra))
+    inviscid = TVarden(TCfg(**KW), device="cpu").run()
+    assert float((ts.u - inviscid.u).abs().max()) > 1e-7
+
+
 @pytest.mark.parametrize("device", ["cpu", None])
 def test_cli_runs_an_inputs_file(device):
     args = [sys.executable, "-m", "varden_tpu_torch",
             os.path.join("inputs", "inputs_bubble_3d"), "--max_levs", "1",
             "--n_cellx", "16", "--n_celly", "16", "--n_cellz", "16",
-            "--visc_coef", "0", "--max_step", "1", "--plot_int", "-1"]
+            "--max_step", "1", "--plot_int", "-1"]
     if device is not None:
         args += ["--device", device]
     env = dict(os.environ)

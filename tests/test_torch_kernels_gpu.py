@@ -154,6 +154,40 @@ def test_gsrb_var_kernel(cuda, dtype, n, ell_bc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((16, 8, 32), [(2, 2), (2, 2), (2, 2)]),
+    ((16, 8, 8), [(1, 2), (2, 1), (0, 0)]),
+    ((8, 16, 8), [(0, 0), (1, 1), (2, 2)]),
+    ((9, 7, 5), [(0, 0), (0, 0), (1, 3)]),
+    ((64, 64, 64), [(2, 2), (2, 2), (2, 2)]),
+])
+def test_gsrb_const_kernel(cuda, dtype, B, n, ell_bc):
+    rng = np.random.RandomState(11)
+    kw = dict(dtype=dtype, device=cuda)
+    dx, mu = (0.1, 0.11, 0.12), 0.03
+    aco = torch.as_tensor(1.0 + 9.0 * rng.rand(*n), **kw)
+    phi = torch.as_tensor(rng.rand(B, *n) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(B, *n) - 0.5, **kw)
+    lev = mg.make_level(n, dx, ell_bc, aco, (mu,) * 3, 1.0)
+    coef = [mu / h ** 2 for h in dx] + [1.0]
+    bv = [[0.2, -0.3], [0.15, 0.0], [0.0, 0.4]]
+    k = cuda_kernels
+    before = k.gsrb_const_sweep_3d.launches
+    for emit, r, a in (("sweep", rhs, aco), ("residual", rhs, aco),
+                       ("residual", None, None)):
+        args = (phi, r, lev.inv_diag, coef, ell_bc, bv)
+        out = k.gsrb_const_sweep_3d(*args, aco=a, emit=emit)
+        torch.cuda.synchronize()
+        ref = k.gsrb_const_sweep_3d_plain(*args, aco=a, emit=emit)
+        _close(out, ref, dtype, f"gsrb_const {emit} n={n} B={B}")
+    assert k.gsrb_const_sweep_3d.launches == before + 4
+    with pytest.raises(ValueError, match="contiguous"):
+        k.gsrb_const_sweep_3d(phi.transpose(2, 3), rhs, lev.inv_diag, coef,
+                              ell_bc, bv, aco=aco)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("pmask", [(False, False, False), (True, False, True)])
 def test_nodal_kernel(cuda, dtype, pmask):
     rng = np.random.RandomState(2)
@@ -176,21 +210,30 @@ def test_nodal_kernel(cuda, dtype, pmask):
     assert cuda_kernels.nodal_sweep_3d.launches == before + 3
 
 
-def test_step_on_card_matches_cpu(cuda):
-    """One inviscid-bubble step in float64 on the card against the plain
-    path on the CPU; the solvers may take other V-cycle counts, so the
-    bound is set by their tolerances (rel_eps 1e-10 / 1e-12)."""
+@pytest.mark.parametrize("extra", [
+    {}, dict(visc_coef=1e-3, diff_coef=1e-3),
+    dict(visc_coef=5.0, diff_coef=5.0, diffusion_type=2,
+         mg_bottom_solver=1, hg_bottom_solver=2)],
+    ids=["inviscid", "viscous", "be-vcycle-krylov"])
+def test_step_on_card_matches_cpu(cuda, extra):
+    """One bubble step in float64 on the card against the plain path on the
+    CPU (inviscid; Crank-Nicolson on the Helmholtz fast path; backward Euler
+    with a viscosity large enough for the V-cycle branch and the Krylov
+    bottoms); the solvers may take other V-cycle counts, so the bound is
+    set by their tolerances (rel_eps 1e-10 / 1e-12)."""
     kw = dict(dim_in=3, prob_type=1, n_cellx=16, n_celly=16, n_cellz=16,
               grav=-9.8, dtype="float64", bcx_lo=15, bcx_hi=15, bcy_lo=15,
-              bcy_hi=15, bcz_lo=15, bcz_hi=15)
+              bcy_hi=15, bcz_lo=15, bcz_hi=15, **extra)
     cfg = VardenConfig(**kw)
     cpu, gpu = Sim(cfg, device="cpu"), Sim(cfg, device=cuda)
     st = problems.initdata(cpu)
     st.u = st.u + torch.as_tensor(_smooth((3, 16, 16, 16), 9, 0.2))
     arrs, _ = state_to_numpy(st)
     st_g, _ = state_from_numpy(gpu, arrs)
+    before = cuda_kernels.gsrb_const_sweep_3d.launches
     out_c, _ = advance.advance_timestep(cpu, st, 1e-3, 4)
     out_g, _ = advance.advance_timestep(gpu, st_g, 1e-3, 4)
+    assert (cuda_kernels.gsrb_const_sweep_3d.launches > before) == bool(extra)
     for k in ("u", "s", "gp", "p"):
         a, b = getattr(out_c, k), getattr(out_g, k).cpu()
         scale = max(1.0, float(a.abs().max()))

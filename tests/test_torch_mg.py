@@ -2,10 +2,13 @@
 plain version on CPU tensors) against varden_tpu on the same inputs
 (float64, CPU): cc_apply, the exact red-black sweep against the jnp
 mg.gsrb, the residual and restrict emits against the TPU kernel in
-interpret mode, and mg.solve on a MAC operator. Tolerances: 1e-11 for
-operator applications and sweeps (the same arithmetic, summed in another
-order); 1e-9 relative for solves (both run the same V-cycles to
-rel_eps 1e-10)."""
+interpret mode, and mg.solve on a MAC operator with each bottom solver.
+Tolerances: 1e-11 for operator applications and sweeps (the same
+arithmetic, summed in another order); 1e-9 relative for solves with the
+dense bottom (both run the same V-cycles to rel_eps 1e-10); 1e-8 relative
+with the iterative bottoms, whose stop tests (1e-3 of the bottom residual)
+may fall on either side of a roundoff-level difference, so that only the
+solver's own tolerance bounds the difference."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,3 +111,77 @@ def test_solve_on_a_mac_operator(ell_bc):
     assert float(ratio) <= 1.0
     scale = float(np.max(np.abs(np.asarray(pj))))
     assert _err(pt, pj) < 1e-9 * scale
+
+
+def _mac_problem(n, seed=5):
+    rng = np.random.RandomState(seed)
+    rho = 1.0 + 9.0 * rng.rand(*[s + 2 for s in n])
+    beta = []
+    for d in range(3):
+        q = rho[tuple(slice(1, -1) if t != d else slice(None)
+                      for t in range(3))]
+        beta.append(2.0 / (q[tuple(slice(1, None) if t == d else slice(None)
+                                   for t in range(3))]
+                           + q[tuple(slice(0, -1) if t == d else slice(None)
+                                     for t in range(3))]))
+    return beta, rng.rand(*n) - 0.5
+
+
+@pytest.mark.parametrize("bottom", ["smoother", "cg", "bicgstab"])
+@pytest.mark.parametrize("ell_bc", [[(1, 1)] * 3, [(2, 1), (1, 1), (0, 0)]])
+def test_solve_with_each_bottom_solver(ell_bc, bottom):
+    n = (16, 16, 16)
+    beta, rhs = _mac_problem(n)
+    dx = (1.0 / 16,) * 3
+    kw = dict(alpha=0.0, rel_eps=1e-10, abs_eps=-1.0, return_info=True,
+              bottom=bottom)
+    pj, (rn_j, it_j, ratio_j) = jax.jit(lambda b, r: jmg.solve(
+        n, dx, ell_bc, jnp.zeros(n), b, r, **kw))(
+        tuple(jnp.asarray(b) for b in beta), jnp.asarray(rhs))
+    pt, (rn_t, it_t, ratio_t) = tmg.solve(
+        n, dx, ell_bc, torch.zeros(n), tuple(torch.as_tensor(b) for b in beta),
+        torch.as_tensor(rhs), **kw)
+    # ten smoothing sweeps are a weak bottom solver: on some of these
+    # problems both packages stall above the tolerance (ratio > 1), after
+    # the same number of cycles; the Krylov bottoms converge
+    assert int(it_t) == int(it_j)
+    assert abs(float(ratio_t) - float(ratio_j)) <= 1e-2 * float(ratio_j)
+    if bottom != "smoother":
+        assert float(ratio_t) <= 1.0
+    scale = float(np.max(np.abs(np.asarray(pj))))
+    assert _err(pt, pj) < 1e-8 * scale
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab"])
+@pytest.mark.parametrize("singular", [False, True])
+def test_krylov_bottom_matches(method, singular):
+    """One bottom solve on an 8^3 level, batched (3 right-hand sides, one of
+    them zero: the frozen-element guard), against the jnp one. Both stop at
+    1e-3 of the residual, after the same iterations: CG agrees to 1e-9;
+    BiCGStab's recurrences enlarge the roundoff of its dot products (summed
+    in another order), so it is held to 1e-6, still a thousandth of the
+    bottom solve's own accuracy."""
+    n = (8, 8, 8)
+    ell_bc = [(1, 1)] * 3 if singular else [(2, 1), (1, 1), (0, 0)]
+    beta, _ = _mac_problem(n, seed=9)
+    rng = np.random.RandomState(4)
+    r = rng.rand(3, *n) - 0.5
+    r[1] = 0.0
+    jl = jmg.make_level(n, DX, ell_bc, jnp.zeros(n),
+                        tuple(jnp.asarray(b) for b in beta), 0.0)
+    tl = tmg.make_level(n, DX, ell_bc, torch.zeros(n),
+                        tuple(torch.as_tensor(b) for b in beta), 0.0)
+    ref = jmg.bottom_solve(jl, jnp.asarray(r), singular, method)
+    out = tmg.bottom_solve(tl, torch.as_tensor(r), singular, method)
+    assert bool(torch.isfinite(out).all())
+    assert float(out[1].abs().max()) == 0.0
+    rtol = 1e-9 if method == "cg" else 1e-6
+    assert _err(out, ref) < rtol * float(np.max(np.abs(np.asarray(ref))))
+    # and it did reduce the residual a thousandfold
+    rr = torch.as_tensor(r)
+    if singular:
+        rr = rr - rr.mean(dim=(1, 2, 3), keepdim=True)
+    res = rr - tmg.cc_apply(tl, out)
+    if singular:
+        res = res - res.mean(dim=(1, 2, 3), keepdim=True)
+    assert float(res.abs().max()) <= 1.0e-3 * float(rr.abs().max())

@@ -4,10 +4,11 @@ the reference's advance_timestep call stack (src/advance_timestep.f90:
 scalar_advance (src/scalar_advance.f90:17-173), make_at_halftime,
 velocity_advance (src/velocity_advance.f90:17-142) and the nodal projection.
 
-Ported so far: dm=3, inviscid and non-diffusive (visc_coef = diff_coef =
-0), the windowed Godunov path (not use_godunov_debug). Both Godunov phases
-run through the kernels of ops/cuda_godunov.py, both projections through
-the solver kernels of ops/cuda_kernels.py.
+Ported so far: dm=3 with the windowed Godunov path (not
+use_godunov_debug), inviscid or viscous and diffusive (Crank-Nicolson or
+backward Euler). Both Godunov phases run through the kernels of
+ops/cuda_godunov.py; both projections, the viscous and diffusive solves and
+the explicit Laplacians through the solver kernels of ops/cuda_kernels.py.
 """
 from __future__ import annotations
 
@@ -26,21 +27,9 @@ def check_supported(cfg) -> None:
     """Raise for the configurations this slice of the port does not run."""
     if cfg.dm != 3:
         raise NotImplementedError("the 2-D path is not ported yet (dm=2)")
-    if cfg.visc_coef > 0.0:
-        raise NotImplementedError("the viscous solve is not ported yet "
-                                  "(visc_coef > 0)")
-    if cfg.diff_coef > 0.0:
-        raise NotImplementedError("tracer diffusion is not ported yet "
-                                  "(diff_coef > 0)")
     if cfg.use_godunov_debug:
         raise NotImplementedError("the full-array Godunov debug oracle is "
                                   "not ported (use_godunov_debug)")
-    for name in ("mg_bottom_solver", "hg_bottom_solver"):
-        method = mg.BOTTOM_METHODS.get(getattr(cfg, name), "dense")
-        if method != "dense":
-            raise NotImplementedError(f"the {method} bottom solver is not "
-                                      f"ported yet ({name}); the dense "
-                                      "direct solve (-1) is")
 
 
 def embed_faces(sim: Sim, umac, ng: int):
@@ -58,6 +47,26 @@ def embed_faces(sim: Sim, umac, ng: int):
         arr[sl] = grown[d]
         out.append(arr)
     return tuple(out)
+
+
+def lap_velocity(sim: Sim, u: torch.Tensor) -> torch.Tensor:
+    """lap(u) per component with its elliptic BCs: one batched pass when
+    all components share them (e.g. no-slip walls)."""
+    bcs = [projection.comp_bc(sim, d) for d in range(sim.dm)]
+    if all(b == bcs[0] for b in bcs[1:]):
+        ell_bc, bvals = bcs[0]
+        return mg.laplacian(u, sim.n_cell, sim.dx, ell_bc, bvals)
+    return torch.stack([projection.get_explicit_diffusive_term(sim, u[d], d)
+                        for d in range(sim.dm)])
+
+
+def lap_tracers(sim: Sim, s: torch.Tensor) -> torch.Tensor:
+    """lap of each tracer; zero for the density (comp 0)."""
+    out = [torch.zeros_like(s[0])]
+    for i in range(1, s.shape[0]):
+        out.append(projection.get_explicit_diffusive_term(sim, s[i],
+                                                          sim.scal_comp(i)))
+    return torch.stack(out)
 
 
 def _warm(hints, cur_key, prev_key):
@@ -89,8 +98,11 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     # mac_rhs is identically zero in this application (no divu sources):
     # it is passed as None throughout, never allocated
 
+    # ---- explicit viscous term at t^n (advance_timestep.f90:85-93)
+    lapu = lap_velocity(sim, uold) if cfg.visc_coef > 0.0 else None
+
     # ---- premac: cell force then Godunov MAC prediction
-    vel_force = basic.mkvelforce(cfg.ext_force, sold, gp, None,
+    vel_force = basic.mkvelforce(cfg.ext_force, sold, gp, lapu,
                                  cfg.visc_coef, 1.0, cfg.boussinesq)
     u_pad = sim.fill_vel(uold)
     vf_pad = sim.fill_extrap(vel_force, ng)
@@ -104,13 +116,24 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
 
     # ---- scalar advance: with diff_coef=0 both scalar forces are zero
     # (mkscalforce), so force and fupd are None
+    laps = sf_pad = scal_force_half = None
+    if cfg.diff_coef > 0.0:
+        laps = lap_tracers(sim, sold)
+        sf_pad = sim.fill_extrap(
+            basic.mkscalforce(None, laps, cfg.diff_coef, 1.0), ng)
+        scal_force_half = basic.mkscalforce(None, laps, cfg.diff_coef, 0.0)
     is_cons = [True] + [False] * (sim.nscal - 1)
     s_pad = sim.fill_scal(sold)
     mac_pads = embed_faces(sim, umac, ng)
     snew = cuda_godunov.mkflux_update_3d_fused(
-        s_pad, mac_pads, None, None, None, dt, dx, sim.phys_bc, adv_bc_scal,
-        ng, n, False, is_cons, cfg.slope_order, cfg.use_minion)
-    del s_pad
+        s_pad, mac_pads, sf_pad, scal_force_half, None, dt, dx, sim.phys_bc,
+        adv_bc_scal, ng, n, False, is_cons, cfg.slope_order, cfg.use_minion)
+    del s_pad, sf_pad, scal_force_half
+    if cfg.diff_coef > 0.0:
+        visc_mu = (0.5 * dt * cfg.diff_coef if cfg.diffusion_type == 1
+                   else dt * cfg.diff_coef)
+        snew = projection.diff_scalar_solve(sim, snew, laps, visc_mu,
+                                            cfg.diffusion_type)
 
     # ---- half-time density
     rhohalf = basic.make_at_halftime(sold[0], snew[0])
@@ -125,9 +148,22 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
         adv_bc_vel, ng, n, True, [False] * dm, cfg.slope_order,
         cfg.use_minion)
     del u_pad, vf_pad, mac_pads
+    if cfg.visc_coef > 0.0:
+        # backward Euler drops the explicit viscous term, Crank-Nicolson
+        # keeps half of it (advance_timestep.f90:116-120)
+        visc_mu = (0.5 * dt * cfg.visc_coef if cfg.diffusion_type == 1
+                   else dt * cfg.visc_coef)
+        unew, (visc_rn, visc_cycles, visc_ratio) = projection.visc_solve(
+            sim, unew, lapu, rhohalf, None, visc_mu, cfg.diffusion_type,
+            return_info=True)
 
     # ---- nodal projection
     diag = {}
+    if cfg.visc_coef > 0.0:
+        # V-cycles the viscous solve took after its smoothing sweeps (0: the
+        # sweeps alone settled it), and its residual over its tolerance
+        diag.update({"visc_resnorm": visc_rn, "visc_cycles": visc_cycles,
+                     "visc_ratio": visc_ratio})
     if cfg.verbose >= 1:
         diag["u_pre_min"] = unew.reshape(dm, -1).min(dim=1).values
         diag["u_pre_max"] = unew.reshape(dm, -1).max(dim=1).values

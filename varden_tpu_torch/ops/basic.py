@@ -82,11 +82,14 @@ def mkvelforce_half(ext_force: Sequence[float], rho: torch.Tensor,
     return ext - gp / rho
 
 
-def mkscalforce(ext_force: torch.Tensor, laps: torch.Tensor, diff_coef: float,
+def mkscalforce(ext_force, laps: torch.Tensor, diff_coef: float,
                 diff_fac: float) -> torch.Tensor:
     """Scalar forcing: ext + diff_fac*diff_coef*laps for tracers; density
-    (comp 0) gets none (reference mkscalforce, src/mkforce.f90:291-334)."""
-    out = ext_force + diff_coef * diff_fac * laps
+    (comp 0) gets none (reference mkscalforce, src/mkforce.f90:291-334).
+    ``ext_force`` may be None (statically zero)."""
+    out = diff_coef * diff_fac * laps
+    if ext_force is not None:
+        out = ext_force + out
     out[0] = 0.0
     return out
 

@@ -4,6 +4,9 @@ varden_tpu.ops.pallas_kernels).
   gsrb_var_sweep_3d  csrc/gsrb_var.cu  cell-centred variable-beta operator:
                                        exact red-black sweep, residual,
                                        residual + restriction + max|r|
+  gsrb_const_sweep_3d csrc/gsrb_const.cu  batched constant-coefficient
+                                       Helmholtz operator: exact red-black
+                                       sweep, residual
   nodal_sweep_3d     csrc/nodal.cu     factored trilinear-FEM nodal operator:
                                        apply, residual, weighted Jacobi
 
@@ -87,9 +90,7 @@ def gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
     if emit == "restrict":
         r = rhs - L(phi)
         return _avg_down(r), r.abs().max()
-    n = phi.shape
-    idx = sum(torch.arange(n[d], device=phi.device).reshape(
-        [-1 if t == d else 1 for t in range(3)]) for d in range(3))
+    idx = _colour_index(phi.shape, phi.device)
     for colour in (0, 1):
         upd = phi + (rhs - L(phi)) * inv_diag
         phi = torch.where(idx % 2 == colour, upd, phi)
@@ -148,6 +149,113 @@ def gsrb_var_sweep_3d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
 
 
 gsrb_var_sweep_3d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# constant-coefficient Helmholtz, batched
+# ---------------------------------------------------------------------------
+
+_CONST_EMITS = ("sweep", "residual")
+
+
+def _colour_index(n, device):
+    """i+j+k over a 3-D grid (red cells: even)."""
+    return sum(torch.arange(n[d], device=device).reshape(
+        [-1 if t == d else 1 for t in range(3)]) for d in range(3))
+
+
+def _lphi_const(phi, coef, ell_bc, bvals, aco):
+    """alpha*aco*phi - sum_d coef[d]*(phi[+1] + phi[-1] - 2 phi) on the
+    trailing three axes of a (B, n0, n1, n2) tensor, BC ghosts built in
+    place; aco None drops the alpha term."""
+    acc = None
+    for d in range(3):
+        ax = d + 1
+        n = phi.shape[ax]
+        lo_g, hi_g = _ghost_planes(phi, ax, ell_bc[d][0], ell_bc[d][1],
+                                   bvals[d][0], bvals[d][1])
+        pm = torch.cat([lo_g, phi.narrow(ax, 0, n - 1)], dim=ax)
+        pp = torch.cat([phi.narrow(ax, 1, n - 1), hi_g], dim=ax)
+        term = coef[d] * (pp + pm - 2.0 * phi)
+        acc = term if acc is None else acc + term
+    out = -acc
+    if aco is not None:
+        out = out + coef[3] * aco * phi
+    return out
+
+
+def gsrb_const_sweep_3d_plain(phi, rhs, inv_diag, coef, ell_bc, bvals,
+                              aco=None, *, emit="sweep"):
+    """The plain PyTorch version of gsrb_const_sweep_3d."""
+    coef = [float(c) for c in coef]
+    bvals = [[float(v) for v in bv] for bv in bvals]
+
+    def res(p):
+        lp = _lphi_const(p, coef, ell_bc, bvals, aco)
+        return -lp if rhs is None else rhs - lp
+
+    if emit == "residual":
+        return res(phi)
+    idx = _colour_index(phi.shape[1:], phi.device)
+    for colour in (0, 1):
+        upd = phi + res(phi) * inv_diag
+        phi = torch.where(idx % 2 == colour, upd, phi)
+    return phi
+
+
+def gsrb_const_sweep_3d(phi, rhs, inv_diag, coef, ell_bc, bvals, aco=None,
+                        *, emit="sweep"):
+    """One exact red-black sweep of (alpha*aco - beta lap) phi = rhs
+    (emit="sweep"), or the residual rhs - L(phi) (emit="residual"), on a
+    batch of fields that share the operator.
+
+    phi/rhs: (B, n0, n1, n2), a leading batch axis is required (phi[None]
+    for one field); inv_diag/aco: (n0, n1, n2), shared over the batch;
+    coef: [beta/dx0^2, beta/dx1^2, beta/dx2^2, alpha] as host numbers. aco
+    None drops the alpha term. rhs None means zero (residual only);
+    inv_diag is read by the sweep only. Returns a tensor of phi's shape."""
+    if emit not in _CONST_EMITS:
+        raise ValueError(f"bad emit {emit!r}")
+    if phi.ndim != 4:
+        raise ValueError("gsrb_const_sweep_3d: phi must be (B, n0, n1, n2), "
+                         f"got {tuple(phi.shape)}")
+    if len(coef) != 4:
+        raise ValueError(f"coef must have 4 entries, got {len(coef)}")
+    if rhs is None and emit != "residual":
+        raise ValueError("rhs=None (zero) is for emit='residual' only")
+    if phi.device.type == "cpu":
+        return gsrb_const_sweep_3d_plain(phi, rhs, inv_diag, coef, ell_bc,
+                                         bvals, aco, emit=emit)
+    shape = tuple(phi.shape)
+    n = shape[1:]
+    _cuda.check(phi, "phi")
+    if max(shape[0], n[0]) > 65535 or n[1] * n[2] >= 2 ** 31:
+        # the launch grid is (plane blocks, n0, B)
+        raise ValueError(f"gsrb_const_sweep_3d: shape {shape} exceeds the "
+                         "launch grid (B, n0 <= 65535, n1*n2 < 2^31)")
+    kw = dict(dtype=phi.dtype, device=phi.device)
+    if rhs is not None:
+        _cuda.check(rhs, "rhs", shape, **kw)
+    if aco is not None:
+        _cuda.check(aco, "aco", n, **kw)
+    tmp = None
+    if emit == "sweep":
+        _cuda.check(inv_diag, "inv_diag", n, **kw)
+        tmp = torch.empty(shape, **kw)
+    else:
+        inv_diag = None
+    out = torch.empty(shape, **kw)
+    iv = [*shape] + [int(ell_bc[d][s]) for d in range(3) for s in range(2)]
+    iv.append(_CONST_EMITS.index(emit))
+    dv = [float(c) for c in coef]
+    dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
+    _cuda.call("gsrb_const", "gsrb_const3d",
+               [phi, rhs, inv_diag, aco, out, tmp], iv, dv, phi)
+    gsrb_const_sweep_3d.launches += 2 if emit == "sweep" else 1
+    return out
+
+
+gsrb_const_sweep_3d.launches = 0
 
 
 # ---------------------------------------------------------------------------

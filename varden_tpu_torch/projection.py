@@ -1,13 +1,13 @@
-"""MAC and nodal (hg) projections, single level (counterpart of
-varden_tpu.projection).
+"""MAC and nodal (hg) projections and the viscous solves, single level
+(counterpart of varden_tpu.projection).
 
   * macproject  — reference src/macproject.f90:20-133 (divumac :137-225,
                   mk_mac_coeffs :280-401, mkumac :403-645)
   * hgproject   — reference src/hgproject.f90:17-177 (create_uvec :374-513,
                   mkgphi :517-577, hg_update :581-698)
-
-The viscous and diffusive solves (visc_solve, diff_scalar_solve,
-get_explicit_diffusive_term) wait for the viscous slice.
+  * visc_solve / diff_scalar_solve — reference src/viscsolve.f90:19-513
+  * get_explicit_diffusive_term — reference
+                  src/explicit_diffusive_term.f90:16-88
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ def macproject(sim: Sim, umac: Tuple[torch.Tensor, ...], rho: torch.Tensor,
     aco = sim.zeros(n)
     phi, (mac_rn, _iters, mac_ratio) = mg.solve(
         n, dx, ell_bc, aco, beta, rhs, alpha=0.0, phi0=phi0, rel_eps=rel_eps,
-        abs_eps=-1.0, return_info=True)
+        abs_eps=-1.0, return_info=True, bottom=sim.mg_bottom)
 
     # subtract beta * grad(phi) on every face; the BC-aware ghost pad makes
     # the 2-point difference realize the one-sided boundary gradient
@@ -121,7 +121,7 @@ def hgproject(sim: Sim, proj_type: int, unew: torch.Tensor,
     rhs = nodal.divu_rhs(vel, dx, pmask, dm, inflow_pad=_inflow_pad(sim))
     phi, (hg_rn, _iters, hg_ratio) = nodal.solve(
         n, dx, pmask, sigma, rhs, mask=mask, phi0=phi0, rel_eps=rel_eps,
-        abs_eps=abs_eps, return_info=True)
+        abs_eps=abs_eps, return_info=True, bottom=sim.hg_bottom)
     gphi = nodal.cell_grad(phi, dx, pmask, dm)
 
     # hg_update (hgproject.f90:581-634)
@@ -138,3 +138,103 @@ def hgproject(sim: Sim, proj_type: int, unew: torch.Tensor,
         p = phi / dt
     return unew, p, gp, phi, hg_rn, hg_ratio
 
+
+def _grad_cc(f_pad1, d, dm, dx_d):
+    """Centered cell gradient from a 1-ghost padded scalar."""
+    q = mg._interior(f_pad1, dm, skip=d)
+    axis = q.ndim - dm + d
+    n = q.shape[axis]
+    return (q.narrow(axis, 2, n - 2) - q.narrow(axis, 0, n - 2)) / (2.0 * dx_d)
+
+
+def comp_bc(sim: Sim, comp: int):
+    """Elliptic BC codes and boundary values of one variable, per axis."""
+    dm = sim.dm
+    ell = [tuple(sim.ell_bc[comp][t]) for t in range(dm)]
+    bv = [[sim.bvals[comp][t][s] for s in range(2)] for t in range(dm)]
+    return ell, bv
+
+
+def visc_solve(sim: Sim, unew: torch.Tensor, lapu: Optional[torch.Tensor],
+               rho: torch.Tensor, mac_rhs: Optional[torch.Tensor],
+               visc_mu: float, diffusion_type: int,
+               rel_eps: Optional[float] = None, return_info: bool = False):
+    """Per-component Helmholtz solve (rho - div mu grad) u = rhs
+    (reference visc_solve, src/viscsolve.f90:19-145; RHS at :194-304).
+
+    visc_mu is dt*mu/2 (Crank-Nicolson, diffusion_type 1, which reads lapu)
+    or dt*mu (backward Euler), as set by velocity_advance. mac_rhs None
+    means statically zero: its (1/3) mu dt grad(divu) term
+    (viscsolve.f90:227-239) is then skipped. With return_info, returns
+    (u, (resnorm, V-cycles, ratio)) as mg.solve does: the worst residual
+    and ratio and the sum of the cycles over the solves it made."""
+    dm, dx, n = sim.dm, sim.dx, sim.n_cell
+    rel_eps = sim.eps(1.0e-12 if rel_eps is None else rel_eps)
+    visc_mu_dt = 2.0 * visc_mu if diffusion_type == 1 else visc_mu
+    mac_rhs_p = None if mac_rhs is None else sim.fill_extrap(mac_rhs, 1)
+
+    rhs_list = []
+    for d in range(dm):
+        rh = unew[d] * rho
+        if diffusion_type == 1:
+            rh = rh + visc_mu * lapu[d]
+        if mac_rhs_p is not None:
+            rh = rh + (1.0 / 3.0) * visc_mu_dt * _grad_cc(mac_rhs_p, d, dm,
+                                                          dx[d])
+        rhs_list.append(rh)
+
+    # constant coefficient: beta stays a number per axis, so the solver
+    # takes its constant-stencil kernel and makes no face tensors
+    beta = (visc_mu,) * dm
+    kw = dict(alpha=1.0, rel_eps=rel_eps, abs_eps=-1.0, bottom=sim.mg_bottom,
+              return_info=True)
+    bcs = [comp_bc(sim, d) for d in range(dm)]
+    if all(b == bcs[0] for b in bcs[1:]):
+        # one operator for all components (e.g. no-slip walls): one batched
+        # solve, one smoothing loop and one tolerance test over the batch
+        ell_bc, bvals = bcs[0]
+        phi, info = mg.solve(n, dx, ell_bc, rho, beta, torch.stack(rhs_list),
+                             bvals=bvals, phi0=unew, **kw)
+        return (phi, info) if return_info else phi
+    out, infos = [], []
+    for d in range(dm):
+        ell_bc, bvals = bcs[d]
+        phi, info = mg.solve(n, dx, ell_bc, rho, beta, rhs_list[d],
+                             bvals=bvals, phi0=unew[d], **kw)
+        out.append(phi)
+        infos.append(info)
+    phi = torch.stack(out)
+    if not return_info:
+        return phi
+    rns, its, ratios = zip(*infos)
+    return phi, (torch.stack(rns).max(), sum(its), torch.stack(ratios).max())
+
+
+def diff_scalar_solve(sim: Sim, snew: torch.Tensor,
+                      laps: Optional[torch.Tensor], visc_mu: float,
+                      diffusion_type: int,
+                      rel_eps: Optional[float] = None) -> torch.Tensor:
+    """Tracer diffusion solve (1 - div mu grad) s = rhs for comps >= 1
+    (reference diff_scalar_solve, src/viscsolve.f90:308-424)."""
+    dm, dx, n = sim.dm, sim.dx, sim.n_cell
+    rel_eps = sim.eps(1.0e-12 if rel_eps is None else rel_eps)
+    aco = torch.ones(n, dtype=sim.dtype, device=sim.device)
+    out = [snew[0]]
+    for i in range(1, snew.shape[0]):
+        rh = snew[i]
+        if diffusion_type == 1:
+            rh = rh + visc_mu * laps[i]
+        ell_bc, bvals = comp_bc(sim, sim.scal_comp(i))
+        phi, _ = mg.solve(n, dx, ell_bc, aco, (visc_mu,) * dm, rh, alpha=1.0,
+                          bvals=bvals, phi0=snew[i], rel_eps=rel_eps,
+                          abs_eps=-1.0, bottom=sim.mg_bottom)
+        out.append(phi)
+    return torch.stack(out)
+
+
+def get_explicit_diffusive_term(sim: Sim, f: torch.Tensor,
+                                comp: int) -> torch.Tensor:
+    """lap(f) for one variable with its elliptic BCs (reference
+    get_explicit_diffusive_term, src/explicit_diffusive_term.f90:16-88)."""
+    ell_bc, bvals = comp_bc(sim, comp)
+    return mg.laplacian(f, sim.n_cell, sim.dx, ell_bc, bvals)

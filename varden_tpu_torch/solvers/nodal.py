@@ -7,7 +7,9 @@ weak-form system A(sigma) phi = b(u) with trilinear nodal basis functions
 and cell-wise constant sigma = 1/rho. Periodic axes wrap (n nodes); Neumann
 (walls/inflow) is natural (sigma zero-extended); Dirichlet (outflow) masks
 boundary nodes to 0. Multigrid: weighted-Jacobi smoothing, P^T restriction,
-linear prolongation and a dense direct bottom solve.
+linear prolongation and a bottom solve that is dense and direct by default,
+or smoothing sweeps, CG or BiCGStab (hg_bottom_solver, see
+mg.BOTTOM_METHODS).
 
 Every operator application of the V-cycle, the smoothing and the residuals
 run through the nodal_sweep_3d kernel (ops/cuda_kernels.py); the dense
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels as ck
+from . import mg as _mg
 
 JACOBI_OMEGA = 0.85
 DEFAULT_NU1 = 2
@@ -306,7 +309,8 @@ def _cell_avg(f, dm):
     return f
 
 
-def build_hierarchy(n, dx, pmask, sigma, mask) -> List[NodalLevel]:
+def build_hierarchy(n, dx, pmask, sigma, mask,
+                    bottom: str = "dense") -> List[NodalLevel]:
     dm = len(n)
     levels = []
     n = list(n)
@@ -325,7 +329,7 @@ def build_hierarchy(n, dx, pmask, sigma, mask) -> List[NodalLevel]:
     N = 1
     for s in node_shape(lb.n, pmask):
         N *= s
-    if N <= 4096:
+    if bottom == "dense" and N <= 4096:
         A = _bottom_dense_A(lb)
         eye = torch.eye(N, dtype=A.dtype, device=A.device)
         levels[-1] = dataclasses.replace(lb, binv=torch.linalg.solve(A, eye))
@@ -359,7 +363,30 @@ def _bottom_dense_A(level: NodalLevel):
     return A
 
 
-def bottom_solve(level: NodalLevel, r):
+def bottom_solve(level: NodalLevel, r, method: str = "dense"):
+    """Bottom-solver dispatch honoring the reference's hg_bottom_solver
+    codes (see mg.BOTTOM_METHODS): dense direct (default), smoothing
+    sweeps, or matrix-free CG/BiCGStab at bottom_solver_eps=1e-3."""
+    if method == "dense":
+        return bottom_dense_solve(level, r)
+    if method == "smoother":
+        return jacobi(level, torch.zeros_like(r), r, 10)
+
+    def apply_fn(x):
+        if level.mask is None:
+            # the dense path's rank-1 regularization along the constant
+            # null space: A + J/N is SPD on the mean-free complement
+            return nd_apply(level, x) + x.mean()
+        return nd_apply(level, x) * level.mask
+
+    r = r - r.mean() if level.mask is None else r * level.mask
+    out = _mg._krylov_bottom(apply_fn, r, tuple(range(r.ndim)), method)
+    if level.mask is not None:
+        out = out * level.mask
+    return out
+
+
+def bottom_dense_solve(level: NodalLevel, r):
     """Direct dense bottom solve (one matvec with the precomputed inverse)."""
     shape = r.shape
     if level.mask is None:
@@ -377,13 +404,13 @@ def bottom_solve(level: NodalLevel, r):
 
 
 def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
-            return_resnorm=False):
+            return_resnorm=False, bottom="dense"):
     """One V-cycle. With return_resnorm, also returns the max-norm of the
     post-pre-smooth fine residual (a 0-d tensor)."""
     level = levels[lev]
     if lev == len(levels) - 1:
         r = _residual(level, phi, rhs)
-        out = phi + bottom_solve(level, r)
+        out = phi + bottom_solve(level, r, bottom)
         return (out, r.abs().max()) if return_resnorm else out
     phi = jacobi(level, phi, rhs, nu1)
     res = _residual(level, phi, rhs)
@@ -392,7 +419,7 @@ def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
     if nxt.mask is not None:
         crs_rhs = crs_rhs * nxt.mask
     corr = v_cycle(levels, torch.zeros_like(crs_rhs), crs_rhs, lev + 1, nu1,
-                   nu2)
+                   nu2, bottom=bottom)
     corr_f = _prolong(corr, node_shape(level.n, level.pmask), level.pmask,
                       level.dm)
     if level.mask is not None:
@@ -471,7 +498,7 @@ def cell_grad(phi, dx, pmask, dm):
 
 def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
           rel_eps=1.0e-11, abs_eps=-1.0, max_cycles=DEFAULT_MAX_CYCLES,
-          return_info=False):
+          return_info=False, bottom="dense"):
     """Solve A(sigma) phi = rhs on the node lattice. Returns (phi, resnorm),
     or (phi, (resnorm, cycles, ratio)) with return_info.
 
@@ -502,15 +529,18 @@ def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
     rn = _residual(L0, phi, rhs).abs().max()
     iters = 0
     if float(rn) > tol_eff(phi):
-        levels = build_hierarchy(list(n), list(dx), list(pmask), sigma, mask)
+        levels = build_hierarchy(list(n), list(dx), list(pmask), sigma, mask,
+                                 bottom=bottom)
         stalled = False
         while iters < max_cycles and float(rn) > tol_eff(phi) and not stalled:
             tl = tol_eff(phi)
-            phi, mon = v_cycle(levels, phi, rhs, return_resnorm=True)
+            phi, mon = v_cycle(levels, phi, rhs, return_resnorm=True,
+                               bottom=bottom)
             iters += 1
             mon, prev = float(mon), float("inf")
             while iters < max_cycles and mon > tl and mon < 0.7 * prev:
-                phi, mon2 = v_cycle(levels, phi, rhs, return_resnorm=True)
+                phi, mon2 = v_cycle(levels, phi, rhs, return_resnorm=True,
+                                    bottom=bottom)
                 iters += 1
                 mon, prev = float(mon2), mon
             rn = _residual(levels[0], phi, rhs).abs().max()

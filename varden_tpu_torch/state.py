@@ -16,6 +16,7 @@ import torch
 from . import bc as bc_mod
 from .config import OUTLET, VardenConfig
 from .solvers import nodal
+from .solvers.mg import BOTTOM_METHODS
 
 
 @dataclasses.dataclass
@@ -60,6 +61,10 @@ class Sim:
         self.press_comp = self.dm + self.nscal
         self.extrap_comp = self.dm + self.nscal + 1
         self.dtype = cfg.torch_dtype
+        # bottom-solver selection, honoring the reference's integer codes
+        # (mg_bottom_solver/hg_bottom_solver, _parameters:55-57)
+        self.mg_bottom = BOTTOM_METHODS.get(cfg.mg_bottom_solver, "dense")
+        self.hg_bottom = BOTTOM_METHODS.get(cfg.hg_bottom_solver, "dense")
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
