@@ -6,11 +6,12 @@
 Phases, each of which asserts and any failure of which exits non-zero:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
-     five CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at once);
+     eight CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at once);
   2. each kernel against its plain PyTorch version on the same inputs at
-     the main path's 256^3 shapes, in float32 and again in float64: max abs
-     error against the stated tolerance, the kernel's time (CUDA events),
-     the plain version's time and the bound (bytes or operations, the
+     the main paths' shapes (256^3 for the five 3-D kernels, 4096^2 for the
+     three 2-D ones), in float32 and again in float64: max abs error
+     against the stated tolerance, the kernel's time (CUDA events), the
+     plain version's time and the bound (bytes or operations, the
      operations counted by hand from each kernel's body);
   3. one advance_timestep of the 3-D bubble at 32^3 in float64 on the card
      against the plain path on the CPU, from one numpy-made state: once
@@ -24,13 +25,29 @@ Phases, each of which asserts and any failure of which exits non-zero:
      gates, and the float32 run's density extrema and max|u| held against it
      step by step;
   6. the earlier main path at a smaller depth: the inviscid bubble at 256^3
-     for STEPS_SHORT steps, the same gates, its four kernels launched.
+     for STEPS_SHORT steps, the same gates, its four kernels launched;
+  7. one advance_timestep of the 2-D bubble at 64^2 in float64 on the card
+     against the plain path on the CPU, inviscid and viscous + diffusive;
+  8. the 2-D main path: Varden on the published viscous 2-D bubble's
+     geometry (walls on four sides, cflfac 0.9) at 4096^2 with nu dt / dx^2
+     held at that configuration's 0.59 (see VISC_2D), float32, initial
+     projection, one pressure iteration and STEPS steps, the gates of
+     phase 4, the three 2-D kernels launched and the 3-D ones not; then the
+     same path in float64 for STEPS_SHORT steps with float32 held to it;
+  9. the published 2-D configurations as they are, STEPS steps each with
+     the same gates: the inviscid bubble at 64^2 and the viscous one
+     (visc_coef 1e-3) at 128^2, the sizes they are published with, and the
+     viscous one at 1024^2, where the scheme is still stable with that
+     visc_coef (at 2048^2 it no longer is).
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
-one more viscous step runs under torch.profiler and its table of device
-time by kernel is written to FILE. Without a card, or without the package beside
-this file, it exits non-zero and prints no result.
+one more step of each main path runs under torch.profiler: the table of
+device time by kernel is written to FILE (3-D) and to FILE with "_2d" before
+its extension (2-D), and the host and device time of each part of the step
+(the ranges that advance.advance_timestep records) is printed. Without a
+card, or without the package beside this file, it exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -58,7 +75,7 @@ TOL_KERNEL = {"float32": 1e-4, "float64": 1e-11}
 # may take other V-cycle counts, and the MAC and nodal solves stop at
 # residuals of rel_eps 1e-10 and 1e-12 of their right-hand sides
 TOL_STEP = 1e-8
-# density of the 3-D bubble lies in [1, densfact=10]; float32 roundoff of
+# density of the bubble lies in [1, densfact] (10 in 3-D, 2 in 2-D): float32 roundoff of
 # values up to 10 in the conservative update. With viscosity the scheme
 # itself undershoots 1 by 1.4e-5 at 256^3 from the second step on, in
 # float64 as in float32 (phase 5 holds the two against each other), so the
@@ -69,6 +86,10 @@ TOL_RHO_VISCOUS = 1e-4
 # extrema and max|u| relative to their size; the float32 solvers stop at
 # rel_eps 2e-5 of their right-hand sides
 TOL_F32_VS_F64 = 1e-4
+# the same for the 2-D main path: the flow starts at rest, so max|u| is 0.02
+# and 0.04 on the two steps compared, and the float32 projections' stopping
+# error (1.5e-6 absolute in max|u|, measured) is 8e-5 of it
+TOL_F32_VS_F64_2D = 2e-4
 # regular steps of the 256^3 main path, and of its float64 repeat and the
 # inviscid path (depth is the only cut), and launches per float32 kernel
 # timing (a quarter of that in float64)
@@ -82,6 +103,9 @@ REPLACES = {
     "gsrb_var_sweep_3d": "varden_tpu/ops/pallas_kernels.py:587",
     "nodal_sweep_3d": "varden_tpu/ops/pallas_kernels.py:892",
     "gsrb_const_sweep_3d": "varden_tpu/ops/pallas_kernels.py:401",
+    "gsrb_sweep_2d": "varden_tpu/ops/pallas_kernels.py:210",
+    "velpred_2d_fused": "varden_tpu/ops/pallas_godunov.py:909",
+    "mkflux_2d_fused": "varden_tpu/ops/pallas_godunov.py:952",
 }
 SOURCE = {
     "velpred_3d_fused": "varden_tpu_torch/csrc/velpred.cu",
@@ -89,10 +113,31 @@ SOURCE = {
     "gsrb_var_sweep_3d": "varden_tpu_torch/csrc/gsrb_var.cu",
     "nodal_sweep_3d": "varden_tpu_torch/csrc/nodal.cu",
     "gsrb_const_sweep_3d": "varden_tpu_torch/csrc/gsrb_const.cu",
+    "gsrb_sweep_2d": "varden_tpu_torch/csrc/gsrb2d.cu",
+    "velpred_2d_fused": "varden_tpu_torch/csrc/velpred2d.cu",
+    "mkflux_2d_fused": "varden_tpu_torch/csrc/mkflux2d.cu",
 }
-# the launch counters of the kernels that the inviscid path runs
-INVISCID = ("velpred_3d_fused", "mkflux_update_3d_fused",
-            "gsrb_var_sweep_3d", "nodal_sweep_3d")
+# the kernels that each path runs: the viscous 3-D bubble, the inviscid 3-D
+# bubble, and every 2-D run (viscous or not: in 2-D the Helmholtz solves
+# run on plain tensor code, as in varden_tpu)
+KERNELS_3D = ("velpred_3d_fused", "mkflux_update_3d_fused",
+              "gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
+INVISCID = KERNELS_3D[:4]
+KERNELS_2D = ("gsrb_sweep_2d", "velpred_2d_fused", "mkflux_2d_fused")
+N_2D = 4096  # 16.8 M cells, the cell count of 256^3
+# The viscous 2-D bubble is published at 128^2 with visc_coef 1e-3, where
+# nu dt / dx^2 is 0.59 on its first step (dt = cflfac sqrt(2 dx / |g|)). The
+# predictor takes the viscous term explicitly, and at 4096^2 the same
+# visc_coef makes that number 107: the scheme then blows up within three
+# steps, in varden_tpu as in the port (tests/test_torch_run2d.py holds the
+# two together at 32^2 with visc_coef 1.4, the same number;
+# tests/test_torch_kernels_gpu.py shows it on the card). So the 4096^2 run
+# is not the published configuration: it keeps its geometry and scales
+# visc_coef by (128/n)^1.5, which holds nu dt / dx^2 at 0.59. The published
+# visc_coef itself is driven at 128^2 and at N_2D_PUBLISHED^2 (nu dt / dx^2
+# 11 to 15, stable) in phase 9.
+VISC_2D = 1.0e-3 * (128.0 / N_2D) ** 1.5
+N_2D_PUBLISHED = 1024
 
 
 class PhaseError(RuntimeError):
@@ -119,23 +164,26 @@ def smi_name_power() -> str:
 # inputs, timing, counting
 # ---------------------------------------------------------------------------
 
-def smooth(torch, shape, seed, amp, device, dtype):
-    """A sum of three low sine modes over the last three axes per leading
+def smooth(torch, shape, seed, amp, device, dtype, dm=3):
+    """A sum of three low sine modes over the last ``dm`` axes per leading
     index; mode numbers and phases from a numpy seed, the field built on the
-    device (separable, so no 256^3 array is made on the host)."""
+    device (separable, so no full-size array is made on the host)."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    lead, sp = tuple(shape[:-3]), tuple(shape[-3:])
+    lead, sp = tuple(shape[:-dm]), tuple(shape[-dm:])
     out = torch.zeros(tuple(shape), dtype=torch.float64, device=device)
     axes = [torch.linspace(0.0, 1.0, s, dtype=torch.float64, device=device)
             for s in sp]
     for idx in np.ndindex(*lead):
         f = torch.zeros(sp, dtype=torch.float64, device=device)
         for _ in range(3):
-            k, ph = rng.randint(1, 4, size=3), rng.rand(3) * 2 * math.pi
+            k, ph = rng.randint(1, 4, size=dm), rng.rand(dm) * 2 * math.pi
             w = [torch.sin(float(k[d]) * math.pi * axes[d] + float(ph[d]))
-                 for d in range(3)]
-            f += w[0][:, None, None] * w[1][None, :, None] * w[2][None, None, :]
+                 for d in range(dm)]
+            mode = w[0]
+            for wd in w[1:]:
+                mode = mode[..., None] * wd
+            f += mode
         out[idx] = amp * f / 3.0
     return out.to(dtype)
 
@@ -218,6 +266,35 @@ def nodal_ops(emit):
     weighting (16), sigma times the scale and the four products (5), the
     transpose difference into eight nodes (8); then the emit."""
     return 3 * (1 + 16 + 5 + 8) + NODAL_EMIT_OPS[emit]
+
+
+def velpred2d_ops(order):
+    """max|u| (4); 4 slopes; per axis the hat states (two fractions 8, l/r
+    of 2 components 8, one normal and one transverse solve); per face set
+    the full state (the correction 4, l/r minus it 2, force 4, normal
+    solve)."""
+    hat = 8 + 8 + RIEMANN_NORMAL + RIEMANN_TRANSVERSE
+    return 4 + 4 * SLOPE_OPS[order] + 2 * hat + 2 * (4 + 2 + 4 + RIEMANN_NORMAL)
+
+
+def mkflux2d_ops(cons, force, order):
+    """max|mac| (4); per component (cons[c]: conservative) 2 slopes, 2 hat
+    states (l/r 10, transverse solve) and 2 edge states (the correction 8
+    conservative or 4 convective, l/r minus it 2, force 4, transverse
+    solve, the flux 1)."""
+    ops = 4
+    for c in cons:
+        ops += (2 * SLOPE_OPS[order] + 2 * (10 + RIEMANN_TRANSVERSE)
+                + 2 * ((8 if c else 4) + 2 + (4 if force else 0)
+                       + RIEMANN_TRANSVERSE + (1 if c else 0)))
+    return ops
+
+
+def gsrb2d_ops(emit, use_alpha):
+    """L(phi) per cell: per axis two differences, two beta products, a
+    subtract and the 1/dx^2 scale (6), one add and the sign (14); the alpha
+    term 3; rhs - L 1; the sweep adds * inv_diag and + phi."""
+    return 15 + (3 if use_alpha else 0) + (2 if emit == "sweep" else 0)
 
 
 def nbytes(ts):
@@ -380,10 +457,117 @@ def kernel_cases(torch, dtype_name, n=256):
     return cases
 
 
-def phase_kernels(torch, dtype_name, reps):
+def kernel_cases_2d(torch, dtype_name, n=N_2D):
+    """The same for the three 2-D kernels at the 2-D main path's 4096^2
+    shapes: the wall-bounded viscous bubble's Sim, smooth seeded fields;
+    beside it an inlet/outlet Sim for the Godunov kernels, and for the
+    sweep a periodic-x grid with non-zero Dirichlet values and an alpha
+    term, and a grid of odd extents."""
+    from varden_tpu_torch import advance, problems, projection
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.ops import cuda_godunov as cg
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.solvers import mg
+    from varden_tpu_torch.state import Sim
+
+    walls = Sim(VardenConfig(**bubble2d_kw(n, dtype_name)), device="cuda")
+    flow = Sim(VardenConfig(**bubble2d_kw(
+        n, dtype_name, bcx_lo=11, bcx_hi=12, bcy_lo=14, bcy_hi=14,
+        u_bc=((0.7, 0.0), (0.0, 0.0), (0.0, 0.0)),
+        rho_bc=((1.3, 0.0), (0.0, 0.0), (0.0, 0.0)))), device="cuda")
+    dev, dt_ = walls.device, walls.dtype
+    N, ng, order = walls.n_cell, walls.ng, walls.cfg.slope_order
+    cells = math.prod(N)
+    dt = 0.9 * walls.dx[0] / 0.5
+    cases = []
+
+    def sm(shape, seed, amp):
+        return smooth(torch, shape, seed, amp, dev, dt_, dm=2)
+
+    u, f = sm((2,) + N, 21, 0.5), sm((2,) + N, 22, 0.3)
+    s0 = problems.initdata(walls).s + sm((2,) + N, 23, 0.05)
+    sf = sm((2,) + N, 24, 0.1)
+    sf[0] = 0.0
+    rho = s0[0].contiguous()
+    for case, sim in (("walls", walls), ("inlet/outlet", flow)):
+        cfg = sim.cfg
+        # kernel 9: velpred on u, force with ng ghosts
+        u_pad, f_pad = sim.fill_vel(u), sim.fill_extrap(f, ng)
+        adv_v = [sim.adv_bc[d] for d in range(2)]
+        a1 = (u_pad, f_pad, dt, sim.dx, sim.phys_bc, adv_v, ng, N,
+              cfg.slope_order, cfg.use_minion)
+        outs = cg.velpred_2d_plain(*a1)
+        cases.append(("velpred_2d_fused", case,
+                      (lambda a=a1: cg.velpred_2d_fused(*a)),
+                      (lambda a=a1: cg.velpred_2d_plain(*a)),
+                      nbytes([u_pad, f_pad, *outs]),
+                      velpred2d_ops(order) * cells))
+        # kernel 10 on the predicted faces: the scalars (conservative
+        # density + tracer) without forces as the viscous step passes them
+        # and with the diffusive step's tracer force, and the velocity
+        # (convective, with its force)
+        mac_pads = advance.embed_faces(sim, outs, ng)
+        s_pad = sim.fill_scal(s0)
+        adv_s = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+        tail = (dt, sim.dx, sim.phys_bc)
+        opts = (cfg.slope_order, cfg.use_minion)
+        variants = [
+            ("scalars", (s_pad, *mac_pads, None, None, *tail, adv_s, ng, N,
+                         False, [True, False], *opts)),
+            ("velocity", (u_pad, *mac_pads, f_pad, None, *tail, adv_v, ng, N,
+                          True, [False, False], *opts))]
+        if sim is walls:
+            variants.insert(1, ("scal+force", (
+                s_pad, *mac_pads, sim.fill_extrap(sf, ng), None, *tail,
+                adv_s, ng, N, False, [True, False], *opts)))
+        for vname, a in variants:
+            face = a[0].element_size() * 2 * (cells + N[0])
+            cases.append(("mkflux_2d_fused",
+                          vname if sim is walls else f"{vname} {case}",
+                          (lambda a=a: cg.mkflux_2d_fused(*a)),
+                          (lambda a=a: cg.mkflux_2d_plain(*a)),
+                          nbytes(a[:4]) + 4 * face,
+                          mkflux2d_ops(a[12], a[3] is not None, order) * cells))
+
+    # kernel 8: the MAC operator of the bubble's density, Neumann walls
+    beta = projection.mk_mac_coeffs(walls, rho)
+    ell_bc = [tuple(walls.ell_bc[walls.press_comp][d]) for d in range(2)]
+    phi, rhs = sm(N, 25, 0.5), sm(N, 26, 50.0)
+
+    def gsrb_case(case, n_, ell, bvs, alpha, emit):
+        sl = tuple(slice(0, e) for e in n_)
+        cut = [t[tuple(slice(0, e + (1 if d == a else 0))
+                       for d, e in enumerate(n_))].contiguous()
+               for a, t in enumerate(beta)]
+        aco = rho[sl].contiguous() if alpha else None
+        lv = mg.make_level(n_, walls.dx, ell,
+                           aco if alpha else walls.zeros(n_), cut, alpha)
+        inv = lv.inv_diag if emit == "sweep" else None
+        g = (phi[sl].contiguous(), rhs[sl].contiguous(), inv, lv.beta,
+             lv.dx, ell, bvs)
+        kw = dict(aco=aco, alpha=alpha, emit=emit)
+        cases.append(("gsrb_sweep_2d", case,
+                      (lambda: ck.gsrb_sweep_2d(*g, **kw)),
+                      (lambda: ck.gsrb_sweep_2d_plain(*g, **kw)),
+                      nbytes([g[0], g[1], inv, aco, *lv.beta]) + nbytes(g[:1]),
+                      gsrb2d_ops(emit, bool(alpha)) * math.prod(n_)))
+
+    zero_bv = [[0.0, 0.0]] * 2
+    gsrb_case("sweep", N, ell_bc, zero_bv, 0.0, "sweep")
+    gsrb_case("residual", N, ell_bc, zero_bv, 0.0, "residual")
+    gsrb_case("per-x dir", (n // 2, n // 4), [(0, 0), (2, 2)],
+              [[0.0, 0.0], [0.3, -0.2]], 1.0, "sweep")
+    gsrb_case("odd", (n // 4 - 1, n // 2 + 1), [(1, 2), (2, 1)],
+              [[0.0, 0.5], [-0.4, 0.0]], 0.0, "sweep")
+    gsrb_case("odd resid", (n // 4 - 1, n // 2 + 1), [(1, 2), (2, 1)],
+              [[0.0, 0.5], [-0.4, 0.0]], 0.0, "residual")
+    return cases
+
+
+def phase_kernels(torch, dtype_name, reps, cases_fn=kernel_cases):
     tol = TOL_KERNEL[dtype_name]
     rows = []
-    for name, case, kern, plain, b, ops in kernel_cases(torch, dtype_name):
+    for name, case, kern, plain, b, ops in cases_fn(torch, dtype_name):
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -397,7 +581,7 @@ def phase_kernels(torch, dtype_name, reps):
                    ref_max=scale, tol=tol * scale, ok=ok, ms=ms,
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=b,
                    ops=ops)
-        print(f"  {name:24s} {case:10s} {dtype_name}: max abs err {err:.3e} "
+        print(f"  {name:24s} {case:12s} {dtype_name}: max abs err {err:.3e} "
               f"(tol {tol:.0e} x max|ref| {scale:.3e}) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
@@ -423,23 +607,37 @@ def bubble_kw(n, dtype_name, **over):
     return kw
 
 
-def phase_step(torch, n=32, **over):
+def bubble2d_kw(n, dtype_name, **over):
+    """The 2-D bubble between four no-slip walls, viscous (visc_coef 1e-3,
+    cflfac 0.9): the published viscous 2-D configuration, at n^2."""
+    kw = dict(dim_in=2, prob_type=1, n_cellx=n, n_celly=n, grav=-9.8,
+              dtype=dtype_name, visc_coef=1.0e-3, diff_coef=0.0, cflfac=0.9,
+              init_iter=1, plot_int=-1, chk_int=-1, max_levs=1,
+              bcx_lo=15, bcx_hi=15, bcy_lo=15, bcy_hi=15)
+    kw.update(over)
+    return kw
+
+
+def phase_step(torch, kw):
+    """One float64 step of the configuration ``kw`` on the card against the
+    plain path on the CPU, from one numpy-made state."""
     import numpy as np
     from varden_tpu_torch import advance, problems
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.state import Sim, state_from_numpy, state_to_numpy
 
-    cfg = VardenConfig(**bubble_kw(n, "float64", **over))
+    cfg = VardenConfig(**kw)
+    dm, n = cfg.dm, cfg.n_cell[0]
     cpu, gpu = Sim(cfg, device="cpu"), Sim(cfg, device="cuda")
     st = problems.initdata(cpu)
     rng = np.random.RandomState(11)
     arrs, _ = state_to_numpy(st)
     k = np.pi * (np.arange(n) + 0.5) / n
-    for c in range(3):  # a smooth seeded velocity so that the step moves
-        a, b, d = rng.randint(1, 3, size=3)
-        arrs["u"][c] = 0.2 * (np.sin(a * k)[:, None, None]
-                              * np.sin(b * k)[None, :, None]
-                              * np.sin(d * k)[None, None, :])
+    for c in range(dm):  # a smooth seeded velocity so that the step moves
+        mode = np.float64(0.2)
+        for m in rng.randint(1, 3, size=dm):
+            mode = mode[..., None] * np.sin(m * k)
+        arrs["u"][c] = mode
     st_c, _ = state_from_numpy(cpu, arrs)
     st_g, _ = state_from_numpy(gpu, arrs)
     dt = advance.estdt(cpu, st_c, -1.0)
@@ -457,7 +655,7 @@ def phase_step(torch, n=32, **over):
         scale = max(1.0, float(a.abs().max()))
         err = float((a - b).abs().max())
         res[key] = err
-        print(f"  step {n}^3 float64 {key:2s}: max abs err {err:.3e} "
+        print(f"  step {n}^{dm} float64 {key:2s}: max abs err {err:.3e} "
               f"(tol {TOL_STEP:.0e} x {scale:.3e})", flush=True)
         need(err <= TOL_STEP * scale, f"step field {key} on the card differs "
                                       f"from the CPU path by {err}")
@@ -480,17 +678,22 @@ def counters():
             "mkflux_update_3d_fused": cg.mkflux_update_3d_fused,
             "gsrb_var_sweep_3d": ck.gsrb_var_sweep_3d,
             "nodal_sweep_3d": ck.nodal_sweep_3d,
-            "gsrb_const_sweep_3d": ck.gsrb_const_sweep_3d}
+            "gsrb_const_sweep_3d": ck.gsrb_const_sweep_3d,
+            "gsrb_sweep_2d": ck.gsrb_sweep_2d,
+            "velpred_2d_fused": cg.velpred_2d_fused,
+            "mkflux_2d_fused": cg.mkflux_2d_fused}
 
 
-def phase_main(torch, n, steps, expect, dtype_name="float32", **over):
-    """Drive Varden for ``steps`` regular steps; ``expect`` names the
-    kernels that must have launched, every other one must not have."""
+def phase_main(torch, kw, steps, expect):
+    """Drive Varden on the configuration ``kw`` for ``steps`` regular steps;
+    ``expect`` names the kernels that must have launched, every other one
+    must not have."""
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.driver import Varden
 
-    cfg = VardenConfig(**bubble_kw(n, dtype_name, max_step=steps, **over))
+    cfg = VardenConfig(**kw, max_step=steps)
     tol_rho = TOL_RHO_VISCOUS if cfg.visc_coef > 0.0 else TOL_RHO
+    rho_hi = 10.0 if cfg.dm == 3 else 2.0  # the bubble's densfact
     fns = counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -511,7 +714,7 @@ def phase_main(torch, n, steps, expect, dtype_name="float32", **over):
         sec = time.perf_counter() - t0
         d = v.last_diag
         gamma = visc_gamma(v, state) if cfg.visc_coef > 0.0 else None
-        rec = dict(step=v.istep, dt=v.dt, seconds=sec,
+        rec = dict(step=v.istep, dt=v.dt, seconds=sec, cells=list(cfg.n_cell),
                    cells_per_s=math.prod(cfg.n_cell) / sec,
                    div_before=float(d["div_before"]),
                    div_after=float(d["div_after"]),
@@ -547,8 +750,8 @@ def phase_main(torch, n, steps, expect, dtype_name="float32", **over):
              f"main path field {key} is not finite")
     rho = state.s[0]
     lo, hi = float(rho.min()), float(rho.max())
-    need(1.0 - tol_rho <= lo and hi <= 10.0 + tol_rho,
-         f"density left [1, 10]: min {lo}, max {hi}")
+    need(1.0 - tol_rho <= lo and hi <= rho_hi + tol_rho,
+         f"density left [1, {rho_hi}]: min {lo}, max {hi}")
     for rec in per_step:
         need(rec["mac_ratio"] <= 1.0 and rec["hg_ratio"] <= 1.0,
              f"step {rec['step']}: a projection stopped above its "
@@ -561,6 +764,25 @@ def phase_main(torch, n, steps, expect, dtype_name="float32", **over):
     return v, state, launches, per_step, peak
 
 
+def mean_steady(per_step):
+    """Mean seconds of the regular steps after the first."""
+    steady = per_step[1:] or per_step
+    return sum(r["seconds"] for r in steady) / len(steady)
+
+
+def hold_f32_to_f64(per_step, per_step64, tol=TOL_F32_VS_F64):
+    """The float32 run's density extrema and max|u| against the float64
+    run's, step by step, within ``tol`` of their size."""
+    for r32, r64 in zip(per_step, per_step64):
+        for key in ("rho_min", "rho_max", "umax"):
+            diff = abs(r32[key] - r64[key])
+            print(f"  step {r32['step']} {key}: float32 {r32[key]:.9f} "
+                  f"float64 {r64[key]:.9f}", flush=True)
+            need(diff <= tol * abs(r64[key]),
+                 f"step {r32['step']}: {key} differs by {diff} between the "
+                 "float32 and the float64 main path")
+
+
 def visc_gamma(v, state):
     """gamma = max offdiag/diag of the viscous operator rho - mu lap for the
     step just taken (its dt, the new density): below 0.5 mg.solve smooths
@@ -571,15 +793,16 @@ def visc_gamma(v, state):
     mu = 0.5 * v.dt * v.cfg.visc_coef
     ell, _ = projection.comp_bc(sim, 0)
     rho = state.s[0]
-    lev = mg.make_level(sim.n_cell, sim.dx, ell, rho, (mu,) * 3, 1.0)
+    lev = mg.make_level(sim.n_cell, sim.dx, ell, rho, (mu,) * sim.dm, 1.0)
     return float(((lev.diag - rho) / lev.diag).max())
 
 
 def viscous_report(per_step):
-    """How the viscous solve ran on the main path, per step: gamma, the
-    V-cycles it took, its residual over its tolerance, and the launches of
-    the constant-coefficient kernel (lap(u) 1, each residual 1, each sweep
-    2, on every level)."""
+    """How the viscous solve ran on a main path, per step: gamma, the
+    V-cycles it took, its residual over its tolerance, and (3-D; in 2-D it
+    runs on plain tensor code and the count is 0) the launches of the
+    constant-coefficient kernel (lap(u) 1, each residual 1, each sweep 2,
+    on every level)."""
     keys = ("gamma", "visc_cycles", "visc_ratio")
     out = {k: [rec[k] for rec in per_step] for k in keys}
     out["launches"] = [rec["launches"]["gsrb_const_sweep_3d"]
@@ -592,18 +815,56 @@ def viscous_report(per_step):
 
 
 def profile_step(torch, v, state, path):
-    """One more step under torch.profiler; the kernel table to ``path``."""
+    """One more step under torch.profiler; the kernel table to ``path``.
+    Returns the step's wall seconds (the profiler slows the host), the
+    device time summed over the kernels, the share of it in the package's
+    own kernels (namespace vt), and per part of the step (the ranges
+    advance_timestep records) the host seconds spent inside it and the
+    device seconds of the PyTorch ops started inside it. The profiler does
+    not put a kernel launched from outside a PyTorch op under a range, so
+    the package's own kernels are not in any part's device seconds;
+    "other" is the rest of the step."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from varden_tpu_torch.advance import RANGES
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         v.step(state)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=80)
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="cuda_time_total", row_limit=80)
     with open(path, "w") as fh:
         fh.write(table)
     print(f"  profile of step {v.istep} written to {path}", flush=True)
     print("\n".join(table.splitlines()[:30]), flush=True)
+    # the kernels' own rows only: a host op's row repeats its kernels'
+    # time, and so does a range's mirror on the device
+    rows = [e for e in avgs if e.device_type == DeviceType.CUDA
+            and e.key not in RANGES]
+    busy = sum(e.self_device_time_total for e in rows) * 1e-6
+    own = sum(e.self_device_time_total for e in rows
+              if " vt::" in e.key) * 1e-6
+    parts = {e.key.split("::")[1]: {
+                 "host_s": e.cpu_time_total * 1e-6,
+                 "torch_device_s": e.device_time_total * 1e-6}
+             for e in avgs
+             if e.key in RANGES and e.device_type == DeviceType.CPU}
+    parts["other"] = {
+        "host_s": wall - sum(p["host_s"] for p in parts.values()),
+        "torch_device_s": busy - own - sum(p["torch_device_s"]
+                                           for p in parts.values())}
+    print(f"  profiled step: {wall:.4f} s on the host's clock, device busy "
+          f"{busy:.4f} s (idle share {1.0 - busy / wall:.3f}), {own:.4f} s "
+          "of it in the package's own kernels; by part, host seconds / "
+          "device seconds of its PyTorch ops: "
+          + ", ".join(f"{k} {p['host_s']:.4f} / {p['torch_device_s']:.4f}"
+                      for k, p in parts.items()), flush=True)
+    return {"wall_s": wall, "device_s": busy, "own_kernels_device_s": own,
+            "parts": parts}
 
 
 # ---------------------------------------------------------------------------
@@ -640,52 +901,95 @@ def main(argv=None) -> int:
           f"{build_s:.2f} s ({time.perf_counter() - t0:.2f} s with loading)",
           flush=True)
 
-    print("phase 2: kernels vs plain versions at 256^3", flush=True)
-    rows32 = phase_kernels(torch, "float32", REPS)
-    rows64 = phase_kernels(torch, "float64", max(2, REPS // 4))
-    torch.cuda.empty_cache()
+    print(f"phase 2: kernels vs plain versions at 256^3 and {N_2D}^2",
+          flush=True)
+    rows32, rows64 = [], []
+    for cases_fn in (kernel_cases, kernel_cases_2d):
+        rows32 += phase_kernels(torch, "float32", REPS, cases_fn)
+        rows64 += phase_kernels(torch, "float64", max(2, REPS // 4), cases_fn)
+        torch.cuda.empty_cache()
 
     print("phase 3: one float64 step, card vs CPU plain path: inviscid, "
           "then visc_coef = diff_coef = 1e-3", flush=True)
-    phase_step(torch)
-    phase_step(torch, visc_coef=1.0e-3, diff_coef=1.0e-3)
+    phase_step(torch, bubble_kw(32, "float64"))
+    phase_step(torch, bubble_kw(32, "float64", visc_coef=1.0e-3,
+                                diff_coef=1.0e-3))
     torch.cuda.empty_cache()
 
     print(f"phase 4: main path, viscous 3-D bubble 256^3 float32 "
           f"(visc_coef 1e-3), {STEPS} steps", flush=True)
     v, state, launches, per_step, peak = phase_main(
-        torch, 256, STEPS, tuple(REPLACES), visc_coef=1.0e-3)
+        torch, bubble_kw(256, "float32", visc_coef=1.0e-3), STEPS, KERNELS_3D)
     visc = viscous_report(per_step)
-    if args.profile:
-        profile_step(torch, v, state, args.profile)
+    prof3 = (profile_step(torch, v, state, args.profile) if args.profile
+             else None)
     del v, state
     torch.cuda.empty_cache()
 
     print(f"phase 5: the main path in float64, {STEPS_SHORT} steps, and "
           "the float32 run against it", flush=True)
     _, _, _, per_step64, _ = phase_main(
-        torch, 256, STEPS_SHORT, tuple(REPLACES), "float64", visc_coef=1.0e-3)
-    for r32, r64 in zip(per_step, per_step64):
-        for key in ("rho_min", "rho_max", "umax"):
-            diff = abs(r32[key] - r64[key])
-            print(f"  step {r32['step']} {key}: float32 {r32[key]:.9f} "
-                  f"float64 {r64[key]:.9f}", flush=True)
-            need(diff <= TOL_F32_VS_F64 * abs(r64[key]),
-                 f"step {r32['step']}: {key} differs by {diff} between the "
-                 "float32 and the float64 main path")
+        torch, bubble_kw(256, "float64", visc_coef=1.0e-3), STEPS_SHORT,
+        KERNELS_3D)
+    hold_f32_to_f64(per_step, per_step64)
     torch.cuda.empty_cache()
 
     print(f"phase 6: the inviscid 3-D bubble 256^3 float32, "
           f"{STEPS_SHORT} steps", flush=True)
     _, _, launches0, per_step0, peak0 = phase_main(
-        torch, 256, STEPS_SHORT, INVISCID)
+        torch, bubble_kw(256, "float32"), STEPS_SHORT, INVISCID)
+    torch.cuda.empty_cache()
+
+    print("phase 7: one float64 2-D step at 64^2, card vs CPU plain path: "
+          "inviscid, then visc_coef = diff_coef = 1e-3", flush=True)
+    phase_step(torch, bubble2d_kw(64, "float64", visc_coef=0.0))
+    phase_step(torch, bubble2d_kw(64, "float64", diff_coef=1.0e-3))
+
+    print(f"phase 8: the 2-D main path, the viscous 2-D bubble's geometry at "
+          f"{N_2D}^2 float32 with nu dt / dx^2 held at 0.59 (visc_coef "
+          f"{VISC_2D:.4e}, cflfac 0.9), {STEPS} steps", flush=True)
+    v, state, launches2, per_step2, peak2 = phase_main(
+        torch, bubble2d_kw(N_2D, "float32", visc_coef=VISC_2D), STEPS,
+        KERNELS_2D)
+    visc2 = viscous_report(per_step2)
+    prof2 = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        prof2 = profile_step(torch, v, state, root + "_2d" + ext)
+    del v, state
+    torch.cuda.empty_cache()
+    print(f"  the same path in float64, {STEPS_SHORT} steps, and the "
+          "float32 run against it", flush=True)
+    _, _, _, per_step2_64, peak2_64 = phase_main(
+        torch, bubble2d_kw(N_2D, "float64", visc_coef=VISC_2D), STEPS_SHORT,
+        KERNELS_2D)
+    hold_f32_to_f64(per_step2, per_step2_64, TOL_F32_VS_F64_2D)
+    torch.cuda.empty_cache()
+
+    print(f"phase 9: the published 2-D configurations, float32, {STEPS} "
+          f"steps each: inviscid 64^2, viscous (visc_coef 1e-3) 128^2 and "
+          f"{N_2D_PUBLISHED}^2", flush=True)
+    small = {}
+    for key, kw in (("inviscid-64", bubble2d_kw(64, "float32", visc_coef=0.0)),
+                    ("viscous-128", bubble2d_kw(128, "float32")),
+                    (f"viscous-{N_2D_PUBLISHED}",
+                     bubble2d_kw(N_2D_PUBLISHED, "float32"))):
+        _, _, ln, steps_small, _ = phase_main(torch, kw, STEPS, KERNELS_2D)
+        small[key] = {"launches": ln, "steps": steps_small,
+                      "mean_step_s": mean_steady(steps_small)}
+        if kw["visc_coef"] > 0.0:
+            small[key]["viscous_solve"] = viscous_report(steps_small)
+        torch.cuda.empty_cache()
 
     # the JSON line: for each kernel its main case (velocity update, the
     # sweep, the Jacobi emit); max_abs_err the largest over its cases
     main_case = {"velpred_3d_fused": "velocity",
                  "mkflux_update_3d_fused": "velocity",
                  "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi",
-                 "gsrb_const_sweep_3d": "sweep B3"}
+                 "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
+                 "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity"}
+    launches_3d = dict(launches)
+    launches.update({k: launches2[k] for k in KERNELS_2D})
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows32 if x["name"] == name
@@ -697,16 +1001,37 @@ def main(argv=None) -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": None})
-    steady = per_step[1:] or per_step
     total_s = time.perf_counter() - t_begin
     detail = {"card": smi, "build_s": build_s, "peak_bytes": peak,
               "cases_f32": rows32, "cases_f64": rows64, "steps": per_step,
-              "mean_step_s": sum(r["seconds"] for r in steady) / len(steady),
+              "mean_step_s": mean_steady(per_step),
               "viscous_solve": visc, "steps_f64": per_step64,
               "inviscid_steps": per_step0,
               "inviscid_launches": launches0, "inviscid_peak_bytes": peak0,
-              "total_s": total_s}
+              "steps_2d": per_step2, "launches_2d": launches2,
+              "peak_bytes_2d": peak2, "peak_bytes_2d_f64": peak2_64,
+              "mean_step_s_2d": mean_steady(per_step2),
+              "viscous_solve_2d": visc2, "steps_2d_f64": per_step2_64,
+              "profiled_step": prof3, "profiled_step_2d": prof2,
+              "small_2d": small, "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
+    # the main paths once more in short, where the end of the output keeps them
+    runs = [("3-D main path (phase 4)", per_step, launches_3d, prof3),
+            ("2-D main path (phase 8)", per_step2, launches2, prof2)]
+    runs += [(f"published 2-D {key} (phase 9)", r["steps"], r["launches"],
+              None) for key, r in small.items()]
+    for tag, ps, ln, pr in runs:
+        mean = mean_steady(ps)
+        line = (f"summary {tag}: steady step {mean:.4f} s, "
+                f"{math.prod(ps[0]['cells']) / mean:.4e} cells/s; density "
+                f"min/max {min(r['rho_min'] for r in ps):.8f} / "
+                f"{max(r['rho_max'] for r in ps):.8f}; launches "
+                f"{ {k: c for k, c in ln.items() if c} }")
+        if pr:
+            line += (f"; profiled step {pr['wall_s']:.4f} s, device busy "
+                     f"{pr['device_s']:.4f} s, own kernels "
+                     f"{pr['own_kernels_device_s']:.4f} s")
+        print(line, flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

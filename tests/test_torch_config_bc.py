@@ -138,7 +138,7 @@ def test_varden_without_device_needs_a_card():
 
 @pytest.mark.parametrize("extra", [
     dict(max_levs=2), dict(mesh=2), dict(plot_int=1), dict(chk_int=1),
-    dict(restart=0), dict(use_godunov_debug=True), dict(dim_in=2)])
+    dict(restart=0), dict(use_godunov_debug=True)])
 def test_unported_paths_raise(extra):
     from varden_tpu_torch.driver import Varden
     with pytest.raises(NotImplementedError):

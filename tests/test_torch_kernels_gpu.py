@@ -238,3 +238,185 @@ def test_step_on_card_matches_cpu(cuda, extra):
         a, b = getattr(out_c, k), getattr(out_g, k).cpu()
         scale = max(1.0, float(a.abs().max()))
         assert float((a - b).abs().max()) <= 1e-8 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# the 2-D kernels
+# ---------------------------------------------------------------------------
+
+# (x lo, x hi, y lo, y hi): walls; periodic; periodic x with slip walls;
+# inlet/outlet in x with slip walls; symmetry in x, wall below, outlet on top
+BCS_2D = [(15, 15, 15, 15), (-1, -1, -1, -1), (-1, -1, 14, 14),
+          (11, 12, 14, 14), (13, 13, 15, 12)]
+# odd, small and thin extents beside an ordinary one
+SIZES_2D = [(24, 40), (37, 19), (5, 8), (3, 130)]
+
+
+def _sim_2d(bc, n, dtype, device, **extra):
+    kw = dict(dim_in=2, prob_type=1, n_cellx=n[0], n_celly=n[1],
+              prob_hi_y=n[1] / n[0], bcx_lo=bc[0], bcx_hi=bc[1], bcy_lo=bc[2],
+              bcy_hi=bc[3], grav=-9.8, dtype=dtype,
+              u_bc=((0.7, 0.0), (0.0, 0.0), (0.0, 0.0)),
+              rho_bc=((1.3, 0.0), (0.0, 0.0), (0.0, 0.0)), **extra)
+    return Sim(VardenConfig(**kw), device=device)
+
+
+def _smooth2(shape, seed, amp=0.5):
+    return _smooth(shape, seed, amp, dm=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("use_minion,order", [(False, 4), (True, 2)])
+@pytest.mark.parametrize("n", SIZES_2D)
+@pytest.mark.parametrize("bc", BCS_2D)
+def test_velpred_2d_kernel(cuda, bc, n, use_minion, order, dtype):
+    sim = _sim_2d(bc, n, dtype, cuda)
+    ng = sim.ng
+    u = sim.tensor(_smooth2((2,) + n, 1))
+    f = sim.tensor(_smooth2((2,) + n, 2, amp=0.3))
+    u_pad, f_pad = sim.fill_vel(u), sim.fill_extrap(f, ng)
+    adv = [sim.adv_bc[d] for d in range(2)]
+    args = (u_pad, f_pad, 2e-3, sim.dx, sim.phys_bc, adv, ng, n, order,
+            use_minion)
+    before = cuda_godunov.velpred_2d_fused.launches
+    out = cuda_godunov.velpred_2d_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_godunov.velpred_2d_fused.launches == before + 4
+    ref = cuda_godunov.velpred_2d_plain(*args)
+    for d in range(2):
+        assert out[d].shape == ref[d].shape
+        _close(out[d], ref[d], sim.dtype, f"velpred_2d bc={bc} n={n} face {d}")
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_godunov.velpred_2d_fused(
+            u_pad.transpose(1, 2).contiguous().transpose(1, 2), *args[1:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("is_vel,use_minion,sources", [
+    (False, False, False), (False, False, True), (False, True, True),
+    (True, False, True), (True, True, True)])
+@pytest.mark.parametrize("n", SIZES_2D[:3])
+@pytest.mark.parametrize("bc", BCS_2D)
+def test_mkflux_2d_kernel(cuda, bc, n, is_vel, use_minion, sources, dtype):
+    sim = _sim_2d(bc, n, dtype, cuda)
+    ng = sim.ng
+    umac = (sim.tensor(_smooth2((n[0] + 1, n[1]), 10)),
+            sim.tensor(_smooth2((n[0], n[1] + 1), 11)))
+    mac_pads = advance.embed_faces(sim, umac, ng)
+    if is_vel:
+        s_pad = sim.fill_vel(sim.tensor(_smooth2((2,) + n, 3)))
+        adv = [sim.adv_bc[d] for d in range(2)]
+        cons = [False, False]
+    else:
+        s_pad = sim.fill_scal(sim.tensor(1.5 + _smooth2((2,) + n, 6, 0.05)))
+        adv = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+        cons = [True, False]
+    force = rhs = None
+    if sources:
+        force = sim.fill_extrap(sim.tensor(_smooth2((2,) + n, 4, 0.2)), ng)
+        rhs = sim.fill_extrap(sim.tensor(_smooth2(n, 5, 0.2)), ng)
+    args = (s_pad, mac_pads[0], mac_pads[1], force, rhs, 2e-3, sim.dx,
+            sim.phys_bc, adv, ng, n, is_vel, cons, 4, use_minion)
+    before = cuda_godunov.mkflux_2d_fused.launches
+    out = cuda_godunov.mkflux_2d_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_godunov.mkflux_2d_fused.launches == before + 4
+    ref = cuda_godunov.mkflux_2d_plain(*args)
+    for i, nm in enumerate(("sedgex", "sedgey", "fluxx", "fluxy")):
+        assert out[i].shape == ref[i].shape
+        _close(out[i], ref[i], sim.dtype,
+               f"mkflux_2d bc={bc} n={n} vel={is_vel} {nm}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("alpha", [0.0, 0.7])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((32, 48), [(1, 1), (1, 1)]),
+    ((16, 8), [(1, 2), (2, 1)]),
+    ((15, 9), [(0, 0), (2, 2)]),
+    ((7, 300), [(2, 3), (0, 0)]),
+    ((2, 2), [(2, 2), (1, 1)]),
+    ((1, 5), [(1, 1), (2, 2)]),
+    ((8, 8), [(0, 0), (0, 0)]),
+])
+def test_gsrb_2d_kernel(cuda, dtype, alpha, n, ell_bc):
+    rng = np.random.RandomState(5)
+    kw = dict(dtype=dtype, device=cuda)
+    dx = (0.1, 0.13)
+    beta = (torch.as_tensor(0.5 + rng.rand(n[0] + 1, n[1]), **kw),
+            torch.as_tensor(0.5 + rng.rand(n[0], n[1] + 1), **kw))
+    aco = torch.as_tensor(1.0 + rng.rand(*n), **kw)
+    lev = mg.make_level(n, dx, ell_bc, aco, beta, alpha)
+    phi = torch.as_tensor(rng.rand(*n) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(*n) - 0.5, **kw)
+    bv = [[0.2, -0.3], [0.15, 0.4]]
+    args = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
+    k = cuda_kernels
+    before = k.gsrb_sweep_2d.launches
+    for emit in ("sweep", "residual"):
+        out = k.gsrb_sweep_2d(*args, aco=aco, alpha=alpha, emit=emit)
+        torch.cuda.synchronize()
+        ref = k.gsrb_sweep_2d_plain(*args, aco=aco, alpha=alpha, emit=emit)
+        _close(out, ref, dtype, f"gsrb_2d {emit} n={n} alpha={alpha}")
+    assert k.gsrb_sweep_2d.launches == before + 3
+    if n[0] > 1:
+        with pytest.raises(ValueError, match="contiguous"):
+            k.gsrb_sweep_2d(phi.t().contiguous().t(), *args[1:])
+
+
+@pytest.mark.parametrize("extra", [
+    {}, dict(visc_coef=1e-4, diff_coef=1e-4),
+    dict(visc_coef=1e-1, diff_coef=1e-1, diffusion_type=2)],
+    ids=["inviscid", "viscous-jacobi", "be-vcycle"])
+@pytest.mark.parametrize("bc", [BCS_2D[0], BCS_2D[3]], ids=["walls", "inflow"])
+def test_step_2d_on_card_matches_cpu(cuda, bc, extra):
+    """One 2-D step in float64 on the card against the plain path on the
+    CPU: inviscid; Crank-Nicolson on the Jacobi fast path; backward Euler
+    with a viscosity that sends the Helmholtz solves to V-cycles. The bound
+    is set by the solvers' tolerances (rel_eps 1e-10 / 1e-12)."""
+    n = (32, 32)
+    cpu = _sim_2d(bc, n, "float64", "cpu", **extra)
+    gpu = _sim_2d(bc, n, "float64", cuda, **extra)
+    st = problems.initdata(cpu)
+    st.u = st.u + torch.as_tensor(_smooth2((2,) + n, 9, 0.2))
+    arrs, _ = state_to_numpy(st)
+    st_g, _ = state_from_numpy(gpu, arrs)
+    fns = (cuda_godunov.velpred_2d_fused, cuda_godunov.mkflux_2d_fused,
+           cuda_kernels.gsrb_sweep_2d)
+    before = [f.launches for f in fns]
+    out_c, _ = advance.advance_timestep(cpu, st, 1e-3, 4)
+    assert [f.launches for f in fns] == before  # CPU tensors: plain versions
+    out_g, _ = advance.advance_timestep(gpu, st_g, 1e-3, 4)
+    assert all(f.launches > b for f, b in zip(fns, before))
+    for k in ("u", "s", "gp", "p"):
+        a, b = getattr(out_c, k), getattr(out_g, k).cpu()
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-8 * scale, k
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_bubble_2d_published_viscosity_leaves_the_stable_range(cuda, n):
+    """The viscous 2-D bubble (walls, cflfac 0.9) with its published
+    visc_coef 1e-3, far above its published 128^2: the predictor takes the
+    viscous term explicitly, nu dt / dx^2 grows with the grid (33 and more
+    at 2048^2, 107 and more at 4096^2) and the run loses the density bound
+    [1, 2] by its third step. Run with -s for the readings per step."""
+    from varden_tpu_torch.driver import Varden
+    cfg = VardenConfig(dim_in=2, prob_type=1, n_cellx=n, n_celly=n,
+                       grav=-9.8, dtype="float32", visc_coef=1.0e-3,
+                       cflfac=0.9, init_iter=1, plot_int=-1, chk_int=-1,
+                       max_levs=1, max_step=3, verbose=0, bcx_lo=15,
+                       bcx_hi=15, bcy_lo=15, bcy_hi=15)
+    v = Varden(cfg, device=cuda)
+    state = v.initialize()
+    rho_min = []
+    while v.istep < 3:
+        state = v.step(state)
+        d = v.last_diag
+        rho_min.append(float(d["smin"]))
+        print(f"{n}^2 step {v.istep}: nu dt/dx^2 "
+              f"{cfg.visc_coef * v.dt * n * n:.1f}; density min/max "
+              f"{rho_min[-1]:.6f} / {float(d['smax']):.6f}; max|u| "
+              f"{float(d['umax']):.4e}; div(umac) before MAC "
+              f"{float(d['div_before']):.3e}")
+    assert rho_min[-1] < 1.0 - 1e-3

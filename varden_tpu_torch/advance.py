@@ -1,20 +1,26 @@
-"""One full single-level 3-D timestep (counterpart of varden_tpu.advance):
+"""One full single-level timestep (counterpart of varden_tpu.advance):
 the reference's advance_timestep call stack (src/advance_timestep.f90:
 26-170) — premac (src/advance_premac.f90:17-61), MAC projection,
 scalar_advance (src/scalar_advance.f90:17-173), make_at_halftime,
 velocity_advance (src/velocity_advance.f90:17-142) and the nodal projection.
 
-Ported so far: dm=3 with the windowed Godunov path (not
+Ported so far: dm=2 and dm=3 with the windowed Godunov path (not
 use_godunov_debug), inviscid or viscous and diffusive (Crank-Nicolson or
 backward Euler). Both Godunov phases run through the kernels of
-ops/cuda_godunov.py; both projections, the viscous and diffusive solves and
-the explicit Laplacians through the solver kernels of ops/cuda_kernels.py.
+ops/cuda_godunov.py: fused with the update in 3-D, followed by the plain
+basic.update in 2-D, as in varden_tpu. The projections, the viscous and
+diffusive solves and the explicit Laplacians run through the solvers, whose
+modules say which of their passes are kernels of ops/cuda_kernels.py.
+
+The parts of a step are named torch.profiler ranges (RANGES), so that a
+profile of a step gives host and device time by part.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from . import projection
 from .bc import grow_mac
@@ -23,10 +29,12 @@ from .solvers import mg
 from .state import Sim, State
 
 
+RANGES = ("step::velpred", "step::macproject", "step::scalar_advance",
+          "step::velocity_advance", "step::visc_solve", "step::hgproject")
+
+
 def check_supported(cfg) -> None:
     """Raise for the configurations this slice of the port does not run."""
-    if cfg.dm != 3:
-        raise NotImplementedError("the 2-D path is not ported yet (dm=2)")
     if cfg.use_godunov_debug:
         raise NotImplementedError("the full-array Godunov debug oracle is "
                                   "not ported (use_godunov_debug)")
@@ -82,6 +90,23 @@ def _warm(hints, cur_key, prev_key):
     return cur
 
 
+def _mkflux_update(sim: Sim, sold, s_pad, umac, mac_pads, force, fupd, dt,
+                   adv_bc, is_vel, is_cons):
+    """Godunov edge states and the conservative/convective update of the
+    components of ``sold``: one fused kernel in 3-D; in 2-D the edge-state
+    kernel and then basic.update. mac_rhs is None (zero) in both."""
+    cfg = sim.cfg
+    tail = (dt, sim.dx, sim.phys_bc, adv_bc, sim.ng, sim.n_cell, is_vel,
+            is_cons, cfg.slope_order, cfg.use_minion)
+    if sim.dm == 3:
+        return cuda_godunov.mkflux_update_3d_fused(s_pad, mac_pads, force,
+                                                   fupd, None, *tail)
+    ex, ey, fx, fy = cuda_godunov.mkflux_2d_fused(
+        s_pad, mac_pads[0], mac_pads[1], force, None, *tail)
+    return basic.update(sold, umac, (ex, ey), (fx, fy), fupd, dt, sim.dx,
+                        is_cons)
+
+
 def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
                      hints: Dict = None
                      ) -> Tuple[State, Dict[str, torch.Tensor]]:
@@ -106,13 +131,18 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
                                  cfg.visc_coef, 1.0, cfg.boussinesq)
     u_pad = sim.fill_vel(uold)
     vf_pad = sim.fill_extrap(vel_force, ng)
-    umac = cuda_godunov.velpred_3d_fused(
-        u_pad, vf_pad, dt, dx, sim.phys_bc, adv_bc_vel, ng, n,
-        cfg.slope_order, cfg.use_minion)
+    velpred = (cuda_godunov.velpred_2d_fused if dm == 2
+               else cuda_godunov.velpred_3d_fused)
+    with record_function("step::velpred"):
+        umac = velpred(u_pad, vf_pad, dt, dx, sim.phys_bc, adv_bc_vel, ng, n,
+                       cfg.slope_order, cfg.use_minion)
 
     # ---- MAC projection
-    umac, div_b, div_a, phi_mac, mac_rn, mac_ratio = projection.macproject(
-        sim, umac, sold[0], None, phi0=_warm(hints, "phi_mac", "phi_mac_prev"))
+    with record_function("step::macproject"):
+        (umac, div_b, div_a, phi_mac, mac_rn,
+         mac_ratio) = projection.macproject(
+            sim, umac, sold[0], None,
+            phi0=_warm(hints, "phi_mac", "phi_mac_prev"))
 
     # ---- scalar advance: with diff_coef=0 both scalar forces are zero
     # (mkscalforce), so force and fupd are None
@@ -125,9 +155,10 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     is_cons = [True] + [False] * (sim.nscal - 1)
     s_pad = sim.fill_scal(sold)
     mac_pads = embed_faces(sim, umac, ng)
-    snew = cuda_godunov.mkflux_update_3d_fused(
-        s_pad, mac_pads, sf_pad, scal_force_half, None, dt, dx, sim.phys_bc,
-        adv_bc_scal, ng, n, False, is_cons, cfg.slope_order, cfg.use_minion)
+    with record_function("step::scalar_advance"):
+        snew = _mkflux_update(sim, sold, s_pad, umac, mac_pads, sf_pad,
+                              scal_force_half, dt, adv_bc_scal, False,
+                              is_cons)
     del s_pad, sf_pad, scal_force_half
     if cfg.diff_coef > 0.0:
         visc_mu = (0.5 * dt * cfg.diff_coef if cfg.diffusion_type == 1
@@ -143,19 +174,20 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     vel_force_half = basic.mkvelforce_half(
         cfg.ext_force, rhohalf, sold[1] if cfg.boussinesq == 1 else None,
         gp, cfg.boussinesq)
-    unew = cuda_godunov.mkflux_update_3d_fused(
-        u_pad, mac_pads, vf_pad, vel_force_half, None, dt, dx, sim.phys_bc,
-        adv_bc_vel, ng, n, True, [False] * dm, cfg.slope_order,
-        cfg.use_minion)
+    with record_function("step::velocity_advance"):
+        unew = _mkflux_update(sim, uold, u_pad, umac, mac_pads, vf_pad,
+                              vel_force_half, dt, adv_bc_vel, True,
+                              [False] * dm)
     del u_pad, vf_pad, mac_pads
     if cfg.visc_coef > 0.0:
         # backward Euler drops the explicit viscous term, Crank-Nicolson
         # keeps half of it (advance_timestep.f90:116-120)
         visc_mu = (0.5 * dt * cfg.visc_coef if cfg.diffusion_type == 1
                    else dt * cfg.visc_coef)
-        unew, (visc_rn, visc_cycles, visc_ratio) = projection.visc_solve(
-            sim, unew, lapu, rhohalf, None, visc_mu, cfg.diffusion_type,
-            return_info=True)
+        with record_function("step::visc_solve"):
+            unew, (visc_rn, visc_cycles, visc_ratio) = projection.visc_solve(
+                sim, unew, lapu, rhohalf, None, visc_mu, cfg.diffusion_type,
+                return_info=True)
 
     # ---- nodal projection
     diag = {}
@@ -167,9 +199,10 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     if cfg.verbose >= 1:
         diag["u_pre_min"] = unew.reshape(dm, -1).min(dim=1).values
         diag["u_pre_max"] = unew.reshape(dm, -1).max(dim=1).values
-    unew, p, gp, phi_hg, hg_rn, hg_ratio = projection.hgproject(
-        sim, proj_type, unew, uold, rhohalf, p, gp, dt,
-        phi0=_warm(hints, "phi_hg", "phi_hg_prev"))
+    with record_function("step::hgproject"):
+        unew, p, gp, phi_hg, hg_rn, hg_ratio = projection.hgproject(
+            sim, proj_type, unew, uold, rhohalf, p, gp, dt,
+            phi0=_warm(hints, "phi_hg", "phi_hg_prev"))
     if cfg.verbose >= 1:
         diag["u_post_min"] = unew.reshape(dm, -1).min(dim=1).values
         diag["u_post_max"] = unew.reshape(dm, -1).max(dim=1).values

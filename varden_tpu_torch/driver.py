@@ -2,7 +2,7 @@
 reference's varden() program flow (src/varden.f90:1-665) — init, initial
 projection, initial pressure iterations, main step loop.
 
-Ported so far: single-level 3-D runs without I/O. Multi-level AMR, the
+Ported so far: single-level 2-D and 3-D runs without I/O. Multi-level AMR, the
 device mesh, restarts and plotfile/checkpoint output raise
 NotImplementedError.
 """

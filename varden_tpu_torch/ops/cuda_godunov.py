@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels for the 3-D Godunov hot loops (counterpart of
+"""Hand-written CUDA kernels for the Godunov hot loops (counterpart of
 varden_tpu.ops.pallas_godunov).
 
   velpred_3d_fused        csrc/velpred.cu        = godunov3d.velpred_3d
   mkflux_update_3d_fused  csrc/mkflux_update.cu  = godunov3d.mkflux_3d
                                                    followed by _update_vals
+  velpred_2d_fused        csrc/velpred2d.cu      = godunov.velpred_2d
+  mkflux_2d_fused         csrc/mkflux2d.cu       = godunov.mkflux_2d
 
 Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
@@ -14,14 +16,14 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda, godunov3d
+from . import _cuda, godunov, godunov3d
 from .basic import _fdiff, _fmean
 
 
-def _flat_bc(phys_bc, adv_bc):
-    iv = [int(phys_bc[a][s]) for a in range(3) for s in range(2)]
+def _flat_bc(phys_bc, adv_bc, dm=3):
+    iv = [int(phys_bc[a][s]) for a in range(dm) for s in range(2)]
     iv += [int(adv_bc[c][a][s]) for c in range(len(adv_bc))
-           for a in range(3) for s in range(2)]
+           for a in range(dm) for s in range(2)]
     return iv
 
 
@@ -159,3 +161,92 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
 
 
 mkflux_update_3d_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2-D: velpred, and mkflux (edge states and fluxes, no update)
+# ---------------------------------------------------------------------------
+
+def velpred_2d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                     slope_order, use_minion):
+    """The plain PyTorch version of velpred_2d_fused."""
+    return godunov.velpred_2d(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
+                              n_cell, slope_order, use_minion)
+
+
+def velpred_2d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                     slope_order, use_minion):
+    """BCG MAC predictor, 2-D. u, force: (2, nx+2ng, ny+2ng). Returns
+    interior (umac (nx+1, ny), vmac (nx, ny+1)) exactly as
+    godunov.velpred_2d, at any size and in both dtypes."""
+    if u.device.type == "cpu":
+        return velpred_2d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
+                                n_cell, slope_order, use_minion)
+    nx, ny = n_cell
+    P = _padded(n_cell, ng)
+    _cuda.check(u, "u", (2,) + P)
+    _cuda.check(force, "force", (2,) + P, u.dtype, u.device)
+    opts = dict(dtype=u.dtype, device=u.device)
+    umac = torch.empty((nx + 1, ny), **opts)
+    vmac = torch.empty((nx, ny + 1), **opts)
+    work = torch.empty((8,) + P, **opts)
+    umax = torch.zeros(1, **opts)
+    iv = [nx, ny, ng, slope_order, int(bool(use_minion))]
+    iv += _flat_bc(phys_bc, adv_bc_vel, 2)
+    _cuda.call("velpred2d", "velpred2d", [u, force, umac, vmac, work, umax],
+               iv, [float(dt), *map(float, dx)], u)
+    velpred_2d_fused.launches += 4
+    return umac, vmac
+
+
+velpred_2d_fused.launches = 0
+
+
+def mkflux_2d_plain(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
+                    adv_bc, ng, n_cell, is_vel, is_conservative, slope_order,
+                    use_minion):
+    """The plain PyTorch version of mkflux_2d_fused."""
+    return godunov.mkflux_2d(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
+                             phys_bc, adv_bc, ng, n_cell, is_vel,
+                             is_conservative, slope_order, use_minion)
+
+
+def mkflux_2d_fused(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
+                    adv_bc, ng, n_cell, is_vel, is_conservative, slope_order,
+                    use_minion):
+    """Godunov edge states and fluxes of nc components, 2-D: returns
+    (sedgex, sedgey, fluxx, fluxy) exactly as godunov.mkflux_2d, at any size
+    and in both dtypes. ``force`` and ``mac_rhs`` may each be None, meaning
+    statically zero: never read and never allocated."""
+    if s.device.type == "cpu":
+        return mkflux_2d_plain(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
+                               phys_bc, adv_bc, ng, n_cell, is_vel,
+                               is_conservative, slope_order, use_minion)
+    nc = s.shape[0]
+    nx, ny = n_cell
+    P = _padded(n_cell, ng)
+    _cuda.check(s, "s", (nc,) + P)
+    if not 1 <= nc <= 4:
+        raise ValueError(f"mkflux_2d_fused: {nc} components (1-4)")
+    kw = dict(dtype=s.dtype, device=s.device)
+    _cuda.check(umac_pad, "umac_pad", P, **kw)
+    _cuda.check(vmac_pad, "vmac_pad", P, **kw)
+    if force is not None:
+        _cuda.check(force, "force", (nc,) + P, **kw)
+    if mac_rhs is not None:
+        _cuda.check(mac_rhs, "mac_rhs", P, **kw)
+    outs = [torch.empty(shape, **kw)
+            for shape in ((nc, nx + 1, ny), (nc, nx, ny + 1)) * 2]
+    work = torch.empty((4 * nc,) + P, **kw)
+    umax = torch.zeros(1, **kw)
+    cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
+    iv = [nx, ny, ng, slope_order, int(bool(use_minion)), nc,
+          int(bool(is_vel)), cons_mask] + _flat_bc(phys_bc, adv_bc, 2)
+    _cuda.call("mkflux2d", "mkflux2d",
+               [s, umac_pad, vmac_pad, force, mac_rhs, *outs, work, umax],
+               iv, [float(dt), *map(float, dx)], s)
+    mkflux_2d_fused.launches += 4
+    return tuple(outs)
+
+
+mkflux_2d_fused.launches = 0

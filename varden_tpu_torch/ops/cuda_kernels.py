@@ -9,6 +9,8 @@ varden_tpu.ops.pallas_kernels).
                                        sweep, residual
   nodal_sweep_3d     csrc/nodal.cu     factored trilinear-FEM nodal operator:
                                        apply, residual, weighted Jacobi
+  gsrb_sweep_2d      csrc/gsrb2d.cu    the 2-D variable-beta operator: exact
+                                       red-black sweep, residual
 
 Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
 runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
@@ -50,9 +52,10 @@ def _ghost_planes(p, axis, lo_bc, hi_bc, blo, bhi):
 
 
 def _lphi(phi, beta, dxi2, ell_bc, bvals, aco, alpha):
-    """alpha*aco*phi - div(beta grad phi) with in-place BC ghosts."""
+    """alpha*aco*phi - div(beta grad phi) with in-place BC ghosts, on a
+    2-D or 3-D phi."""
     acc = None
-    for d in range(3):
+    for d in range(phi.ndim):
         n = phi.shape[d]
         lo_g, hi_g = _ghost_planes(phi, d, ell_bc[d][0], ell_bc[d][1],
                                    bvals[d][0], bvals[d][1])
@@ -79,7 +82,9 @@ def _avg_down(f):
 
 def gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
                             aco=None, alpha=0.0, *, emit="sweep"):
-    """The plain PyTorch version of gsrb_var_sweep_3d."""
+    """The plain PyTorch version of gsrb_var_sweep_3d (and, without the
+    restrict emit, of gsrb_sweep_2d: the arithmetic is written on phi's own
+    number of axes)."""
     dxi2 = tuple(1.0 / (float(h) * float(h)) for h in dx)
 
     def L(p):
@@ -159,9 +164,10 @@ _CONST_EMITS = ("sweep", "residual")
 
 
 def _colour_index(n, device):
-    """i+j+k over a 3-D grid (red cells: even)."""
+    """The sum of the cell indices over a grid (red cells: even)."""
+    dm = len(n)
     return sum(torch.arange(n[d], device=device).reshape(
-        [-1 if t == d else 1 for t in range(3)]) for d in range(3))
+        [-1 if t == d else 1 for t in range(dm)]) for d in range(dm))
 
 
 def _lphi_const(phi, coef, ell_bc, bvals, aco):
@@ -346,3 +352,65 @@ def nodal_sweep_3d(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
 
 
 nodal_sweep_3d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2-D variable-beta operator
+# ---------------------------------------------------------------------------
+
+_EMITS_2D = ("sweep", "residual")
+
+
+def gsrb_sweep_2d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
+                        aco=None, alpha=0.0, *, emit="sweep"):
+    """The plain PyTorch version of gsrb_sweep_2d."""
+    return gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
+                                   bvals, aco, alpha, emit=emit)
+
+
+def gsrb_sweep_2d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco=None,
+                  alpha=0.0, *, emit="sweep"):
+    """One exact red-black sweep (emit="sweep") or the residual rhs - L(phi)
+    (emit="residual") of L = alpha*aco*phi - div(beta grad phi) in 2-D.
+
+    phi/rhs/inv_diag/aco: (n0, n1), phi without ghosts: the boundary ghosts
+    come from ell_bc and bvals, afresh for each colour; beta: the (n0+1, n1)
+    and (n0, n1+1) face tensors. inv_diag is read by the sweep only, aco
+    only when alpha != 0. Returns a tensor of phi's shape."""
+    if emit not in _EMITS_2D:
+        raise ValueError(f"bad emit {emit!r}")
+    n = tuple(phi.shape)
+    if len(n) != 2:
+        raise ValueError(f"gsrb_sweep_2d: phi must be 2-D, got {n}")
+    if phi.device.type == "cpu":
+        return gsrb_sweep_2d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
+                                   bvals, aco, alpha, emit=emit)
+    _cuda.check(phi, "phi")
+    kw = dict(dtype=phi.dtype, device=phi.device)
+    _cuda.check(rhs, "rhs", n, **kw)
+    _cuda.check(beta[0], "beta[0]", (n[0] + 1, n[1]), **kw)
+    _cuda.check(beta[1], "beta[1]", (n[0], n[1] + 1), **kw)
+    if alpha != 0.0:
+        _cuda.check(aco, "aco", n, **kw)
+    else:
+        aco = None
+    tmp = None
+    if emit == "sweep":
+        _cuda.check(inv_diag, "inv_diag", n, **kw)
+        tmp = torch.empty(n, **kw)
+    else:
+        inv_diag = None
+    out = torch.empty(n, **kw)
+    iv = [*n] + [int(ell_bc[d][s]) for d in range(2) for s in range(2)]
+    iv.append(_EMITS_2D.index(emit))
+    dv = [1.0 / (float(h) * float(h)) for h in dx]
+    dv += [float(bvals[d][s]) for d in range(2) for s in range(2)]
+    dv.append(float(alpha))
+    _cuda.call("gsrb2d", "gsrb2d",
+               [phi, rhs, inv_diag, aco, beta[0], beta[1], out, tmp], iv, dv,
+               phi)
+    gsrb_sweep_2d.launches += 2 if emit == "sweep" else 1
+    return out
+
+
+gsrb_sweep_2d.launches = 0

@@ -22,7 +22,8 @@ from typing import Sequence, Tuple
 import torch
 
 from ..config import INLET, NO_SLIP_WALL, OUTLET, PERIODIC, SLIP_WALL, SYMMETRY
-from .godunov import ABS_EPS, _riemann_normal, _riemann_transverse, mac_wins
+from .godunov import (_crop, _eps_from, _put, _riemann_normal,
+                      _riemann_transverse, mac_wins)
 from .slopes import plane, shift, slope
 
 _OTHERS = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
@@ -30,23 +31,6 @@ _OTHERS = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
 
 def _third(a, b):
     return 3 - a - b
-
-
-def _put(f, axis, i, val):
-    """In-place: the plane at index i along axis := val."""
-    sl = [slice(None)] * f.ndim
-    sl[axis] = slice(i, i + 1)
-    f[tuple(sl)] = val
-
-
-def _eps_from(umax):
-    return torch.where(umax == 0.0, torch.full_like(umax, ABS_EPS),
-                       ABS_EPS * umax)
-
-
-def _crop(f, a, ng, n_cell):
-    return f[tuple(slice(ng, ng + n_cell[t] + (1 if t == a else 0))
-                   for t in range(3))]
 
 
 def vel_slopes_3d(u, adv_bc_vel, ng, n_cell, slope_order):

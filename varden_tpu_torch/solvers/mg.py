@@ -7,14 +7,18 @@ with face-centered beta and periodic / Neumann / Dirichlet (face-value)
 boundaries at stencil_order=2, by V-cycles with red-black Gauss-Seidel
 smoothing and a dense direct bottom solve.
 
-The smoothing sweeps, the residuals and the restriction run through two
-kernels of ops/cuda_kernels.py: gsrb_var_sweep_3d where beta is a face
+In 3-D the smoothing sweeps, the residuals and the restriction run through
+two kernels of ops/cuda_kernels.py: gsrb_var_sweep_3d where beta is a face
 tensor per axis (the MAC projection, alpha = 0), gsrb_const_sweep_3d where
 beta is one number per axis (the viscous and diffusive Helmholtz solves,
 whose right-hand side may carry a leading batch axis, and the explicit
-Laplacian). The loops that the JAX package runs as lax.while_loop are
-Python loops here, reading the residual norms on the host once per V-cycle.
-Only dm = 3 is ported.
+Laplacian). In 2-D the face-tensor operator runs through gsrb_sweep_2d
+(sweeps and residuals; the restriction is the plain cell average), and the
+one-number-per-axis operator runs as plain tensor code, as it does in
+varden_tpu, which has no 2-D kernel for it: masked red-black sweeps inside
+V-cycles, Jacobi sweeps on the Helmholtz fast path. The loops that the JAX
+package runs as lax.while_loop are Python loops here, reading the residual
+norms on the host once per V-cycle.
 """
 from __future__ import annotations
 
@@ -231,12 +235,15 @@ def laplacian(f, n, dx, ell_bc, bvals=None):
     """lap(f) with BC-corrected boundary stencils: cc_applyop with alpha=0,
     beta=-1 (reference explicit_diffusive_term.f90:55-60). The residual of
     -lap with a zero right-hand side is lap(f): one pass of the
-    constant-coefficient kernel. ``f`` may carry a leading batch axis."""
+    constant-coefficient kernel in 3-D, the plain operator in 2-D. ``f``
+    may carry a leading batch axis."""
     dm = len(n)
-    if dm != 3:
-        raise NotImplementedError("only the 3-D Laplacian is ported")
     if bvals is None:
         bvals = [[0.0, 0.0]] * dm
+    if dm == 2:
+        aco = torch.zeros(tuple(n), dtype=f.dtype, device=f.device)
+        level = make_level(n, dx, ell_bc, aco, (1.0,) * dm, 0.0)
+        return -cc_apply(level, f, bvals)
     coef = [1.0 / dx[d] ** 2 for d in range(dm)] + [0.0]
     fb = f if f.ndim > dm else f[None]
     r = ck.gsrb_const_sweep_3d(fb, None, None, coef, ell_bc, bvals,
@@ -314,25 +321,50 @@ def _const_sweep(level: CCLevel, phi, rhs, bvals, emit):
     return out if batched else out[0]
 
 
+def _var_sweep(level: CCLevel, phi, rhs, bvals, emit):
+    """One pass of the face-tensor-beta kernel of the level's dimension."""
+    kernel = ck.gsrb_var_sweep_3d if level.dm == 3 else ck.gsrb_sweep_2d
+    return kernel(phi, rhs, level.inv_diag, level.beta, level.dx,
+                  level.ell_bc, bvals, aco=level.aco, alpha=level.alpha,
+                  emit=emit)
+
+
 def _residual(level: CCLevel, phi, rhs, bvals):
-    """rhs - L(phi) through the level's kernel."""
-    if _scalar_beta(level.beta):
+    """rhs - L(phi): through the level's kernel, or (2-D, scalar beta) the
+    plain operator."""
+    if not _scalar_beta(level.beta):
+        return _var_sweep(level, phi, rhs, bvals, "residual")
+    if level.dm == 3:
         return _const_sweep(level, phi, rhs, bvals, "residual")
-    return ck.gsrb_var_sweep_3d(
-        phi, rhs, level.inv_diag, level.beta, level.dx, level.ell_bc, bvals,
-        aco=level.aco, alpha=level.alpha, emit="residual")
+    return rhs - cc_apply(level, phi, bvals)
 
 
 def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
-    """nsweeps exact red-black Gauss-Seidel sweeps (red: i+j+k even)."""
-    const = _scalar_beta(level.beta)
-    for _ in range(nsweeps):
-        if const:
+    """nsweeps exact red-black Gauss-Seidel sweeps (red: index sum even)."""
+    if not _scalar_beta(level.beta):
+        for _ in range(nsweeps):
+            phi = _var_sweep(level, phi, rhs, bvals, "sweep")
+        return phi
+    if level.dm == 3:
+        for _ in range(nsweeps):
             phi = _const_sweep(level, phi, rhs, bvals, "sweep")
-        else:
-            phi = ck.gsrb_var_sweep_3d(phi, rhs, level.inv_diag, level.beta,
-                                       level.dx, level.ell_bc, bvals,
-                                       aco=level.aco, alpha=level.alpha)
+        return phi
+    # 2-D scalar beta: the masked sweep on the plain operator
+    colour = ck._colour_index(level.n, phi.device) % 2
+    for _ in range(nsweeps):
+        for c in (0, 1):
+            r = rhs - cc_apply(level, phi, bvals)
+            phi = torch.where(colour == c, phi + r * level.inv_diag, phi)
+    return phi
+
+
+def jacobi(level: CCLevel, phi, rhs, bvals, nsweeps):
+    """Plain (undamped) Jacobi sweeps on the plain operator: the smoother
+    of the 2-D Helmholtz fast path, where the Jacobi iteration matrix norm
+    gamma = |offdiag|/diag is already well below 1."""
+    for _ in range(nsweeps):
+        r = rhs - cc_apply(level, phi, bvals)
+        phi = phi + r * level.inv_diag
     return phi
 
 
@@ -470,12 +502,10 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
         return (out, r.abs().max()) if return_resnorm else out
     phi = gsrb(level, phi, rhs, bv, nu1)
     fac = level.cfac if level.cfac is not None else (2,) * level.dm
-    if (not _scalar_beta(level.beta) and fac == (2,) * level.dm
-            and all(s % 2 == 0 for s in level.n)):
+    if (level.dm == 3 and not _scalar_beta(level.beta)
+            and fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)):
         # residual + 2^dm restriction + max|r| in one pass
-        crs, rmax = ck.gsrb_var_sweep_3d(
-            phi, rhs, level.inv_diag, level.beta, level.dx, level.ell_bc, bv,
-            aco=level.aco, alpha=level.alpha, emit="restrict")
+        crs, rmax = _var_sweep(level, phi, rhs, bv, "restrict")
     else:
         res = _residual(level, phi, rhs, bv)
         crs = _cell_avg_down(res, level.dm, fac)
@@ -511,10 +541,12 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
     The Helmholtz fast path of varden_tpu.solvers.mg.solve (:768-824): when
     alpha != 0 and the operator is strongly diagonally dominant (gamma =
     max offdiag/diag < 0.5, the viscous solves at a CFL-limited dt), a
-    budget of at most 40 fine-level red-black sweeps, sized from the
-    measured starting residual and the contraction bound gamma^2 per sweep,
-    replaces V-cycles; the V-cycle loop below stays as the safety net and
-    builds its hierarchy only if the smoothed residual still misses the
+    budget of at most 40 fine-level sweeps, sized from the measured starting
+    residual and the contraction bound per sweep, replaces V-cycles:
+    red-black sweeps (gamma^2 per sweep) through the level's kernel, or, in
+    2-D with scalar beta, Jacobi sweeps (gamma per sweep) as varden_tpu runs
+    there on every backend. The V-cycle loop below stays as the safety net
+    and builds its hierarchy only if the smoothed residual still misses the
     tolerance.
 
     The tolerance loop (:826-891): an inner loop runs V-cycles while the
@@ -522,8 +554,6 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
     an outer loop re-checks the true residual and stops after two passes
     without a 0.9x contraction (the dtype's roundoff floor). The effective
     tolerance includes that floor, 4 eps * max|diag| * max|phi|."""
-    if len(n) != 3:
-        raise NotImplementedError("only the 3-D solver is ported (dm=3)")
     dm = len(n)
     if bvals is None:
         bvals = [[0.0, 0.0]] * dm
@@ -560,14 +590,18 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
         gamma = min(max(gamma, 1.0e-6), 1.0)
         target = max(tol_eff(phi), 1.0e-14 * bn)
         k_smooth = 0
+        use_jacobi = dm == 2 and _scalar_beta(beta)
+        per_sweep = 1.0 if use_jacobi else 2.0
         # a non-finite rin (diverged prior state, bad warm start) falls
         # through to the V-cycle branch with no sweeps
         if gamma < 0.5 and math.isfinite(rin) and rin > target:
             ratio = target / max(rin, torch.finfo(dtype).tiny)
-            k_need = math.ceil(math.log(ratio) / (2.0 * math.log(gamma))) + 2
+            k_need = math.ceil(math.log(ratio)
+                               / (per_sweep * math.log(gamma))) + 2
             k_smooth = min(max(k_need, 0), 40)
         if k_smooth > 0:
-            phi = gsrb(L0, phi, rhs, bvals, k_smooth)
+            smooth = jacobi if use_jacobi else gsrb
+            phi = smooth(L0, phi, rhs, bvals, k_smooth)
             rn = resnorm(phi)
     iters = 0
     if float(rn) > tol_eff(phi):

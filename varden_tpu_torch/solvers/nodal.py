@@ -11,9 +11,11 @@ linear prolongation and a bottom solve that is dense and direct by default,
 or smoothing sweeps, CG or BiCGStab (hg_bottom_solver, see
 mg.BOTTOM_METHODS).
 
-Every operator application of the V-cycle, the smoothing and the residuals
-run through the nodal_sweep_3d kernel (ops/cuda_kernels.py); the dense
-bottom matrix is assembled once per hierarchy by the plain factored apply.
+In 3-D every operator application of the V-cycle, the smoothing and the
+residuals run through the nodal_sweep_3d kernel (ops/cuda_kernels.py); the
+dense bottom matrix is assembled once per hierarchy by the plain factored
+apply. In 2-D, where varden_tpu has no nodal kernel either, they all run
+through the plain factored apply.
 """
 from __future__ import annotations
 
@@ -215,7 +217,11 @@ def _inv_diag(level):
 def nd_apply(level: NodalLevel, phi):
     if level.mask is not None:
         phi = phi * level.mask
-    out = _kernel_nodal(level, phi, None, 0.0, "apply")
+    if level.dm == 3:
+        out = _kernel_nodal(level, phi, None, 0.0, "apply")
+    else:
+        out = _factored_apply(phi, level.sigma, level.dx, level.pmask,
+                              level.dm)
     if level.mask is not None:
         out = out * level.mask
     return out
@@ -245,9 +251,9 @@ def node_diag(sigma, dx, pmask, dm):
 
 
 def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
-    """Weighted-Jacobi sweeps: the kernel's jacobi emit, or (masked levels)
-    its apply emit with the masked update outside."""
-    if level.mask is None:
+    """Weighted-Jacobi sweeps: the kernel's jacobi emit, or (masked levels,
+    and 2-D) the operator apply with the update outside."""
+    if level.mask is None and level.dm == 3:
         sig_np = _sigma_np(level.sigma, level.pmask, level.dm)
         for _ in range(nsweeps):
             phi = _kernel_nodal(level, phi, rhs, omega, "jacobi",
@@ -256,12 +262,13 @@ def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
     inv = _inv_diag(level)
     for _ in range(nsweeps):
         r = rhs - nd_apply(level, phi)
-        phi = phi + omega * r * inv * level.mask
+        upd = omega * r * inv
+        phi = phi + (upd if level.mask is None else upd * level.mask)
     return phi
 
 
 def _residual(level: NodalLevel, phi, rhs):
-    if level.mask is None:
+    if level.mask is None and level.dm == 3:
         return _kernel_nodal(level, phi, rhs, 0.0, "residual")
     return rhs - nd_apply(level, phi)
 
