@@ -38,14 +38,31 @@ Phases, each of which asserts and any failure of which exits non-zero:
      the same gates: the inviscid bubble at 64^2 and the viscous one
      (visc_coef 1e-3) at 128^2, the sizes they are published with, and the
      viscous one at 1024^2, where the scheme is still stable with that
-     visc_coef (at 2048^2 it no longer is).
+     visc_coef (at 2048^2 it no longer is);
+ 10. multi-level AMR on the card against the plain path on the CPU,
+     float64: BASELINE config 5 at a 32^3 base (three levels: 32^3, 48^3,
+     64^3), Varden.run for STEPS_SHORT steps, every field of every level;
+ 11. the AMR main path, BASELINE config 5 as bench.py sets it (3-D bubble,
+     256^3 base, max_levs 3, no regrid, visc_coef 1e-3, cflfac 0.5,
+     init_shrink 0.5, no pressure iteration, no-slip walls, float32):
+     initialization and STEPS_AMR regular steps, every launch counter set
+     to 0 just before and read just after; kernels 1-6 and 11 must have
+     launched, the 2-D ones not; every composite solve at or below its
+     tolerance, div(umac) falling across the MAC projection, every field
+     finite and density in [1, 10] on every level;
+ 12. regrids in the loop: inputs/inputs_3d-regt (64^3, 3 levels, regrid
+     every 2 steps) for 4 steps, float32, and BASELINE config 3 (2-D 64^2,
+     2 levels, regrid every 4) for 6 steps, each with at least one regrid
+     and the gates of phase 11.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
 one more step of each main path runs under torch.profiler: the table of
-device time by kernel is written to FILE (3-D) and to FILE with "_2d" before
-its extension (2-D), and the host and device time of each part of the step
-(the ranges that advance.advance_timestep records) is printed. Without a
+device time by kernel is written to FILE (3-D), to FILE with "_2d" before
+its extension (2-D) and with "_amr" (the AMR main path), and the host and
+device time of each part of the step (the ranges that
+advance.advance_timestep and amr.advance_ml.ml_advance record) is
+printed. Without a
 card, or without the package beside this file, it exits non-zero and prints
 no result.
 """
@@ -96,6 +113,8 @@ TOL_F32_VS_F64_2D = 2e-4
 STEPS = 4
 STEPS_SHORT = 2
 REPS = 20
+# regular steps of the AMR main path (depth is its only cut)
+STEPS_AMR = 3
 
 REPLACES = {
     "velpred_3d_fused": "varden_tpu/ops/pallas_godunov.py:281",
@@ -106,6 +125,8 @@ REPLACES = {
     "gsrb_sweep_2d": "varden_tpu/ops/pallas_kernels.py:210",
     "velpred_2d_fused": "varden_tpu/ops/pallas_godunov.py:909",
     "mkflux_2d_fused": "varden_tpu/ops/pallas_godunov.py:952",
+    "update_3d": "varden_tpu/ops/pallas_kernels.py:738",
+    "mkflux_3d_fused": "varden_tpu/ops/pallas_godunov.py:402",
 }
 SOURCE = {
     "velpred_3d_fused": "varden_tpu_torch/csrc/velpred.cu",
@@ -116,6 +137,8 @@ SOURCE = {
     "gsrb_sweep_2d": "varden_tpu_torch/csrc/gsrb2d.cu",
     "velpred_2d_fused": "varden_tpu_torch/csrc/velpred2d.cu",
     "mkflux_2d_fused": "varden_tpu_torch/csrc/mkflux2d.cu",
+    "update_3d": "varden_tpu_torch/csrc/update.cu",
+    "mkflux_3d_fused": "varden_tpu_torch/csrc/mkflux.cu",
 }
 # the kernels that each path runs: the viscous 3-D bubble, the inviscid 3-D
 # bubble, and every 2-D run (viscous or not: in 2-D the Helmholtz solves
@@ -124,6 +147,12 @@ KERNELS_3D = ("velpred_3d_fused", "mkflux_update_3d_fused",
               "gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
 INVISCID = KERNELS_3D[:4]
 KERNELS_2D = ("gsrb_sweep_2d", "velpred_2d_fused", "mkflux_2d_fused")
+# the 3-D AMR path adds the face kernel and the update of the scalars;
+# a 2-D AMR run takes the 2-D kernels
+KERNELS_AMR = KERNELS_3D + ("update_3d", "mkflux_3d_fused")
+# BASELINE config 5's patch extents at its 256^3 base (the hierarchy that
+# initialize_adaptive builds: 256^3, 240^3 at 136, 384^3 at 320)
+N_AMR_PATCHES = (256, 240, 384)
 N_2D = 4096  # 16.8 M cells, the cell count of 256^3
 # The viscous 2-D bubble is published at 128^2 with visc_coef 1e-3, where
 # nu dt / dx^2 is 0.59 on its first step (dt = cflfac sqrt(2 dx / |g|)). The
@@ -295,6 +324,27 @@ def gsrb2d_ops(emit, use_alpha):
     subtract and the 1/dx^2 scale (6), one add and the sign (14); the alpha
     term 3; rhs - L 1; the sweep adds * inv_diag and + phi."""
     return 15 + (3 if use_alpha else 0) + (2 if emit == "sweep" else 0)
+
+
+def update_ops(cons, force):
+    """Per cell and component (cons[c]: conservative): three face
+    differences and divisions and two adds (8), or three MAC averages (two
+    each), face differences, products and divisions and two adds (17); the
+    dt product and subtract (2); the force 2."""
+    return sum((8 if c else 17) + 2 + (2 if force else 0) for c in cons)
+
+
+def mkflux_ops(cons, force, order):
+    """mkflux_update_ops without the update: max|mac| (6); per component 3
+    slopes, 3 hat states, 6 double-hat states, 3 edge states, and the flux
+    product of a conservative component on each face set (3)."""
+    ops = 6
+    for c in cons:
+        ops += (3 * SLOPE_OPS[order] + 3 * (10 + RIEMANN_TRANSVERSE)
+                + 6 * ((3 if c else 4) + 2 + RIEMANN_TRANSVERSE)
+                + 3 * ((15 if c else 9) + 2 + (3 if force else 0)
+                       + RIEMANN_TRANSVERSE) + (3 if c else 0))
+    return ops
 
 
 def nbytes(ts):
@@ -564,6 +614,92 @@ def kernel_cases_2d(torch, dtype_name, n=N_2D):
     return cases
 
 
+def kernel_cases_amr(torch, dtype_name):
+    """Kernels 6 and 11 at the AMR main path's shapes: BASELINE config 5's
+    patches (256^3 with its walls; 240^3 and 384^3, interior patches whose
+    every side is coarse-fine) in float32, the first two in float64 (the
+    plain versions' temporaries at 384^3 would not fit), and an odd, thin
+    grid: smooth seeded fields on seeded MAC faces."""
+    from varden_tpu_torch import advance, problems
+    from varden_tpu_torch.config import INTERIOR, VardenConfig
+    from varden_tpu_torch.ops import cuda_godunov as cg
+    from varden_tpu_torch.ops import cuda_update as cu
+    from varden_tpu_torch.state import Sim
+
+    shapes = [(n,) * 3 for n in N_AMR_PATCHES]
+    if dtype_name == "float64":
+        shapes = shapes[:2]
+    shapes.append((37, 5, 61))
+    cases = []
+    for n in shapes:
+        sim = Sim(VardenConfig(**cfg5_kw(n[0], dtype_name, n_celly=n[1],
+                                         n_cellz=n[2])), device="cuda")
+        dev, dt_, ng, order = sim.device, sim.dtype, sim.ng, \
+            sim.cfg.slope_order
+        cells = math.prod(n)
+        # a cfg5 fine patch has coarse-fine ghosts on every side
+        pbc = (sim.phys_bc if n[0] == N_AMR_PATCHES[0] or n[0] == 37
+               else ((INTERIOR, INTERIOR),) * 3)
+        tag = f"{n[0]}x{n[1]}x{n[2]}"
+        dt = 0.5 * sim.dx[0] / 0.5
+        faces = [tuple(n[t] + (1 if t == d else 0) for t in range(3))
+                 for d in range(3)]
+        umac = tuple(smooth(torch, faces[d], 40 + d, 0.5, dev, dt_)
+                     for d in range(3))
+        mac_pads = advance.embed_faces(sim, umac, ng)
+        s_pad = sim.fill_scal(problems.initdata(sim).s
+                              + smooth(torch, (2,) + n, 43, 0.05, dev, dt_))
+        sf = smooth(torch, (2,) + n, 44, 0.1, dev, dt_)
+        sf[0] = 0.0
+        sf_pad = sim.fill_extrap(sf, ng)
+        del sf
+        u_pad = sim.fill_vel(smooth(torch, (3,) + n, 45, 0.5, dev, dt_))
+        uf_pad = sim.fill_extrap(smooth(torch, (3,) + n, 46, 0.3, dev, dt_),
+                                 ng)
+        adv_s = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+        adv_v = [sim.adv_bc[d] for d in range(3)]
+        tail = (dt, sim.dx, pbc)
+        for case, a in (
+                ("scalars", (s_pad, mac_pads, None, None, *tail, adv_s, ng,
+                             n, False, [True, False], order, False)),
+                ("scal+force", (s_pad, mac_pads, sf_pad, None, *tail, adv_s,
+                                ng, n, False, [True, False], order, False)),
+                ("velocity", (u_pad, mac_pads, uf_pad, None, *tail, adv_v,
+                              ng, n, True, [False] * 3, order, False))):
+            nc = a[0].shape[0]
+            face_b = sum(math.prod(f) for f in faces) * nc * \
+                a[0].element_size()
+            cases.append(("mkflux_3d_fused", f"{case} {tag}",
+                          (lambda a=a: cg.mkflux_3d_fused(*a)),
+                          (lambda a=a: cg.mkflux_3d_plain(*a)),
+                          nbytes([a[0], *a[1], a[2]]) + 2 * face_b,
+                          mkflux_ops(a[11], a[2] is not None, order) * cells))
+        del s_pad, sf_pad, u_pad, uf_pad, mac_pads
+        # kernel 6: the scalars' update (density conservative, a tracer
+        # convective; no force, as the inviscid scalar step passes it) and
+        # three convective components with a force
+        for case, cons, with_f in (("nc2 [T,F]", [True, False], False),
+                                   ("nc3 conv+force", [False] * 3, True)):
+            nc = len(cons)
+            sold = smooth(torch, (nc,) + n, 47, 1.0, dev, dt_) + 1.5
+            force = (smooth(torch, (nc,) + n, 48, 0.2, dev, dt_) if with_f
+                     else None)
+            per_c = [smooth(torch, (nc,) + f, 49 + d, 1.0, dev, dt_)
+                     for d, f in enumerate(faces)]
+            sedge = None if all(cons) else per_c
+            flux = None if not any(cons) else per_c
+            a = (sold, umac, sedge, flux, force, dt, sim.dx, cons)
+            read = nbytes([sold, force, *umac]) + sum(
+                math.prod(f) for f in faces) * nc * sold.element_size()
+            cases.append(("update_3d", f"{case} {tag}",
+                          (lambda a=a: cu.update_3d(*a)),
+                          (lambda a=a: cu.update_3d_plain(*a)),
+                          read + nbytes([sold]), update_ops(cons, with_f)
+                          * cells))
+        del umac
+    return cases
+
+
 def phase_kernels(torch, dtype_name, reps, cases_fn=kernel_cases):
     tol = TOL_KERNEL[dtype_name]
     rows = []
@@ -618,6 +754,24 @@ def bubble2d_kw(n, dtype_name, **over):
     return kw
 
 
+def cfg5_kw(n, dtype_name, **over):
+    """BASELINE config 5 as bench.py:314-320 sets it (cfg5_config): the 3-D
+    bubble on an n^3 base with two refined levels, no regrid, visc_coef
+    1e-3, cflfac 0.5, init_shrink 0.5, no pressure iteration, no-slip walls
+    on all six faces."""
+    kw = bubble_kw(n, dtype_name, max_levs=3, regrid_int=-1,
+                   visc_coef=1.0e-3, cflfac=0.5, init_shrink=0.5, init_iter=0)
+    kw.update(over)
+    return kw
+
+
+def cfg3_kw(dtype_name):
+    """BASELINE config 3 (bench.py:298-302): the viscous 2-D bubble on a
+    64^2 base, max_levs 2, regrid every 4 steps, init_shrink 0.1."""
+    return bubble2d_kw(64, dtype_name, max_levs=2, regrid_int=4,
+                       init_shrink=0.1)
+
+
 def phase_step(torch, kw):
     """One float64 step of the configuration ``kw`` on the card against the
     plain path on the CPU, from one numpy-made state."""
@@ -667,6 +821,43 @@ def phase_step(torch, kw):
     return res
 
 
+def phase_step_ml(torch, kw, steps):
+    """Varden.run of the multi-level configuration ``kw`` for ``steps``
+    steps on the card and on the CPU plain path, float64: the same boxes,
+    every field of every level within TOL_STEP of its size."""
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.driver import Varden
+    cfg = VardenConfig(**kw, max_step=steps)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", None)):
+        t0 = time.perf_counter()
+        v = Varden(cfg, device=dev)
+        states = v.run()
+        if dev is None:
+            torch.cuda.synchronize()
+        out[name] = (v, states, time.perf_counter() - t0)
+    (vc, sc, tc), (vg, sg, tg) = out["cpu"], out["card"]
+    boxes = [(s.lo, s.n) for s in vg.geom.specs]
+    need(boxes == [(s.lo, s.n) for s in vc.geom.specs],
+         f"AMR boxes differ between the card and the CPU: {boxes}")
+    errs = {}
+    for lev, (a, b) in enumerate(zip(sc, sg)):
+        for key in ("u", "s", "gp", "p"):
+            x, y = getattr(a, key), getattr(b, key).cpu()
+            scale = max(1.0, float(x.abs().max()))
+            err = float((x - y).abs().max())
+            errs[f"{lev}:{key}"] = err
+            need(bool(torch.isfinite(y).all()), f"level {lev} {key} not "
+                                                "finite on the card")
+            need(err <= TOL_STEP * scale, f"AMR level {lev} field {key} on "
+                 f"the card differs from the CPU path by {err}")
+    print(f"  AMR {steps} steps float64, levels {[b[1] for b in boxes]}: "
+          f"max abs err card vs CPU {max(errs.values()):.3e} (tol "
+          f"{TOL_STEP:.0e} x field size); wall card {tg:.3f} s (kernels "
+          f"loaded), CPU {tc:.3f} s", flush=True)
+    return {"levels": boxes, "max_abs_err": errs, "card_s": tg, "cpu_s": tc}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -674,6 +865,7 @@ def phase_step(torch, kw):
 def counters():
     from varden_tpu_torch.ops import cuda_godunov as cg
     from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.ops import cuda_update as cu
     return {"velpred_3d_fused": cg.velpred_3d_fused,
             "mkflux_update_3d_fused": cg.mkflux_update_3d_fused,
             "gsrb_var_sweep_3d": ck.gsrb_var_sweep_3d,
@@ -681,7 +873,9 @@ def counters():
             "gsrb_const_sweep_3d": ck.gsrb_const_sweep_3d,
             "gsrb_sweep_2d": ck.gsrb_sweep_2d,
             "velpred_2d_fused": cg.velpred_2d_fused,
-            "mkflux_2d_fused": cg.mkflux_2d_fused}
+            "mkflux_2d_fused": cg.mkflux_2d_fused,
+            "update_3d": cu.update_3d,
+            "mkflux_3d_fused": cg.mkflux_3d_fused}
 
 
 def phase_main(torch, kw, steps, expect):
@@ -764,6 +958,93 @@ def phase_main(torch, kw, steps, expect):
     return v, state, launches, per_step, peak
 
 
+def phase_main_ml(torch, cfg, steps, expect, label):
+    """Drive the multi-level Varden (initialize_ml, then step_ml) on
+    ``cfg`` for ``steps`` regular steps on the card; ``expect`` names the
+    kernels that must have launched, every other one must not have. Gates:
+    each composite solve at or below its tolerance, div(umac) falling
+    across the MAC projection, every field of every level finite and the
+    density inside [1, densfact]."""
+    from varden_tpu_torch.driver import Varden
+    tol_rho = TOL_RHO_VISCOUS if cfg.visc_coef > 0.0 else TOL_RHO
+    rho_hi = 10.0 if cfg.dm == 3 else 2.0
+    fns = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in fns.values():
+        f.launches = 0
+    t_start = time.perf_counter()
+    v = Varden(cfg)  # the card: no device named
+    states = v.initialize_ml()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_start
+    init_counts = {k: f.launches for k, f in fns.items()}
+    print(f"  {label}: levels {[s.n for s in v.geom.specs]} at "
+          f"{[s.lo for s in v.geom.specs]} ({v.geom.cells()} cells); init "
+          f"{t_init:.3f} s, launches {init_counts}", flush=True)
+    per_step = []
+    while v.istep < steps:
+        before = {k: f.launches for k, f in fns.items()}
+        regrids = v.regrids
+        t0 = time.perf_counter()
+        states = v.step_ml(states)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        d = v.last_diag
+        rho = [(float(st.s[0].min()), float(st.s[0].max())) for st in states]
+        rec = dict(step=v.istep, dt=v.dt, seconds=sec,
+                   levels=[list(s.n) for s in v.geom.specs],
+                   cells=v.geom.cells(), cells_per_s=v.geom.cells() / sec,
+                   regrid=v.regrids > regrids,
+                   div_before=float(d["div_before"]),
+                   div_after=float(d["div_after"]),
+                   mac_ratio=float(d["mac_ratio"]),
+                   hg_ratio=float(d["hg_ratio"]),
+                   visc_ratio=float(d.get("visc_ratio", 0.0)),
+                   mac_outer=int(d["mac_outer"]), hg_outer=int(d["hg_outer"]),
+                   visc_outer=[int(k) for k in d.get("visc_outer", [])],
+                   rho_min=min(r[0] for r in rho),
+                   rho_max=max(r[1] for r in rho), umax=float(d["umax"]),
+                   launches={k: f.launches - before[k]
+                             for k, f in fns.items()})
+        per_step.append(rec)
+        print(f"  step {rec['step']}{' (regrid)' if rec['regrid'] else ''}:"
+              f" div(umac) before/after MAC {rec['div_before']:.6e} / "
+              f"{rec['div_after']:.6e}; outer cycles MAC {rec['mac_outer']} "
+              f"HG {rec['hg_outer']} visc {rec['visc_outer']} (ratios "
+              f"{rec['mac_ratio']:.3f} {rec['hg_ratio']:.3f} "
+              f"{rec['visc_ratio']:.3f}); density min/max over levels "
+              f"{rec['rho_min']:.9f} / {rec['rho_max']:.9f}; {sec:.4f} s; "
+              f"{rec['cells_per_s']:.6e} cells/s; launches "
+              f"{ {k: c for k, c in rec['launches'].items() if c} }",
+              flush=True)
+    launches = {k: f.launches for k, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label} launches {launches}; peak device memory {peak} bytes",
+          flush=True)
+    for k, c in launches.items():
+        if k in expect:
+            need(c > 0, f"kernel {k} was not launched on this path")
+        else:
+            need(c == 0, f"kernel {k} is not on this path but launched {c}x")
+    for lev, st in enumerate(states):
+        for key in ("u", "s", "gp", "p"):
+            need(bool(torch.isfinite(getattr(st, key)).all()),
+                 f"{label} level {lev} field {key} is not finite")
+    for rec in per_step:
+        need(1.0 - tol_rho <= rec["rho_min"] and
+             rec["rho_max"] <= rho_hi + tol_rho,
+             f"step {rec['step']}: density left [1, {rho_hi}]: "
+             f"{rec['rho_min']}, {rec['rho_max']}")
+        need(max(rec["mac_ratio"], rec["hg_ratio"], rec["visc_ratio"]) <= 1.0,
+             f"step {rec['step']}: a composite solve stopped above its "
+             f"tolerance ({rec['mac_ratio']}, {rec['hg_ratio']}, "
+             f"{rec['visc_ratio']})")
+        need(rec["div_after"] < rec["div_before"],
+             f"step {rec['step']}: the MAC projection did not reduce div")
+    return v, states, launches, per_step, peak, t_init
+
+
 def mean_steady(per_step):
     """Mean seconds of the regular steps after the first."""
     steady = per_step[1:] or per_step
@@ -819,7 +1100,8 @@ def profile_step(torch, v, state, path):
     Returns the step's wall seconds (the profiler slows the host), the
     device time summed over the kernels, the share of it in the package's
     own kernels (namespace vt), and per part of the step (the ranges
-    advance_timestep records) the host seconds spent inside it and the
+    advance_timestep and ml_advance record) the host seconds spent inside
+    it and the
     device seconds of the PyTorch ops started inside it. The profiler does
     not put a kernel launched from outside a PyTorch op under a range, so
     the package's own kernels are not in any part's device seconds;
@@ -832,7 +1114,7 @@ def profile_step(torch, v, state, path):
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        v.step(state)
+        (v.step_ml if v.ml else v.step)(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -901,10 +1183,10 @@ def main(argv=None) -> int:
           f"{build_s:.2f} s ({time.perf_counter() - t0:.2f} s with loading)",
           flush=True)
 
-    print(f"phase 2: kernels vs plain versions at 256^3 and {N_2D}^2",
-          flush=True)
+    print(f"phase 2: kernels vs plain versions at 256^3, {N_2D}^2 and the "
+          f"AMR patches {N_AMR_PATCHES}", flush=True)
     rows32, rows64 = [], []
-    for cases_fn in (kernel_cases, kernel_cases_2d):
+    for cases_fn in (kernel_cases, kernel_cases_2d, kernel_cases_amr):
         rows32 += phase_kernels(torch, "float32", REPS, cases_fn)
         rows64 += phase_kernels(torch, "float64", max(2, REPS // 4), cases_fn)
         torch.cuda.empty_cache()
@@ -981,15 +1263,55 @@ def main(argv=None) -> int:
             small[key]["viscous_solve"] = viscous_report(steps_small)
         torch.cuda.empty_cache()
 
+    print(f"phase 10: AMR on the card vs the CPU plain path, float64: "
+          f"BASELINE config 5 at a 32^3 base, {STEPS_SHORT} steps",
+          flush=True)
+    amr_check = phase_step_ml(torch, cfg5_kw(32, "float64"), STEPS_SHORT)
+    torch.cuda.empty_cache()
+
+    print(f"phase 11: the AMR main path, BASELINE config 5 at 256^3 + 2 "
+          f"levels, float32, initialization and {STEPS_AMR} steps",
+          flush=True)
+    from varden_tpu_torch.config import VardenConfig, load_config
+    v, states, launches_amr, per_step_amr, peak_amr, init_amr = \
+        phase_main_ml(torch, VardenConfig(**cfg5_kw(256, "float32")),
+                      STEPS_AMR, KERNELS_AMR, "config 5")
+    prof_amr = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        prof_amr = profile_step(torch, v, states, root + "_amr" + ext)
+    del v, states
+    torch.cuda.empty_cache()
+
+    print("phase 12: regrids in the loop: inputs/inputs_3d-regt (64^3, 3 "
+          "levels, regrid every 2) for 4 steps, then BASELINE config 3 (2-D "
+          "64^2, 2 levels, regrid every 4) for 6 steps, float32", flush=True)
+    regrid_runs = {}
+    for key, cfg, steps, expect in (
+            ("3d-regt", load_config(os.path.join(HERE, "inputs",
+                                                 "inputs_3d-regt"),
+                                    dtype="float32", plot_int=-1,
+                                    max_step=4), 4, KERNELS_AMR),
+            ("config 3", VardenConfig(**cfg3_kw("float32")), 6, KERNELS_2D)):
+        _, _, ln, ps, pk, _ = phase_main_ml(torch, cfg, steps, expect, key)
+        need(any(r["regrid"] for r in ps), f"{key}: no regrid happened")
+        regrid_runs[key] = {"launches": ln, "steps": ps, "peak_bytes": pk}
+        torch.cuda.empty_cache()
+
     # the JSON line: for each kernel its main case (velocity update, the
-    # sweep, the Jacobi emit); max_abs_err the largest over its cases
+    # sweep, the Jacobi emit; the AMR kernels at the finest patch);
+    # max_abs_err the largest over its cases
     main_case = {"velpred_3d_fused": "velocity",
                  "mkflux_update_3d_fused": "velocity",
                  "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi",
                  "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
-                 "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity"}
+                 "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
+                 "update_3d": "nc2 [T,F] 384x384x384",
+                 "mkflux_3d_fused": "scalars 384x384x384"}
     launches_3d = dict(launches)
     launches.update({k: launches2[k] for k in KERNELS_2D})
+    launches.update({k: launches_amr[k] for k in ("update_3d",
+                                                  "mkflux_3d_fused")})
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows32 if x["name"] == name
@@ -1013,25 +1335,39 @@ def main(argv=None) -> int:
               "mean_step_s_2d": mean_steady(per_step2),
               "viscous_solve_2d": visc2, "steps_2d_f64": per_step2_64,
               "profiled_step": prof3, "profiled_step_2d": prof2,
-              "small_2d": small, "total_s": total_s}
+              "small_2d": small, "amr_card_vs_cpu": amr_check,
+              "steps_amr": per_step_amr, "launches_amr": launches_amr,
+              "peak_bytes_amr": peak_amr, "init_s_amr": init_amr,
+              "profiled_step_amr": prof_amr, "regrid_runs": regrid_runs,
+              "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
     runs = [("3-D main path (phase 4)", per_step, launches_3d, prof3),
             ("2-D main path (phase 8)", per_step2, launches2, prof2)]
     runs += [(f"published 2-D {key} (phase 9)", r["steps"], r["launches"],
               None) for key, r in small.items()]
+    runs.append(("AMR main path, config 5 256^3 + 2 levels (phase 11)",
+                 per_step_amr, launches_amr, prof_amr))
+    runs += [(f"AMR {key} (phase 12)", r["steps"], r["launches"], None)
+             for key, r in regrid_runs.items()]
     for tag, ps, ln, pr in runs:
         mean = mean_steady(ps)
+        cells = ps[-1]["cells"]
+        cells = cells if isinstance(cells, int) else math.prod(cells)
         line = (f"summary {tag}: steady step {mean:.4f} s, "
-                f"{math.prod(ps[0]['cells']) / mean:.4e} cells/s; density "
+                f"{cells / mean:.4e} cells/s; density "
                 f"min/max {min(r['rho_min'] for r in ps):.8f} / "
                 f"{max(r['rho_max'] for r in ps):.8f}; launches "
                 f"{ {k: c for k, c in ln.items() if c} }")
+        if "levels" in ps[-1]:
+            line += f"; levels {ps[-1]['levels']}"
         if pr:
             line += (f"; profiled step {pr['wall_s']:.4f} s, device busy "
                      f"{pr['device_s']:.4f} s, own kernels "
                      f"{pr['own_kernels_device_s']:.4f} s")
         print(line, flush=True)
+    print(f"summary AMR main path (phase 11): initialization {init_amr:.3f} s;"
+          f" peak device memory {peak_amr} bytes", flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

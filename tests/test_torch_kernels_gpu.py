@@ -420,3 +420,115 @@ def test_bubble_2d_published_viscosity_leaves_the_stable_range(cuda, n):
               f"{float(d['umax']):.4e}; div(umac) before MAC "
               f"{float(d['div_before']):.3e}")
     assert rho_min[-1] < 1.0 - 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the AMR slice: update_3d (kernel 6), mkflux_3d_fused (kernel 11) and one
+# multi-level step
+# ---------------------------------------------------------------------------
+
+def _face_tensors(lead, n, seed, device, dtype, shift=0.0):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.as_tensor(rng.rand(*(lead + tuple(
+        n[t] + (1 if t == d else 0) for t in range(3)))) - shift,
+        dtype=dtype, device=device) for d in range(3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [(1, 1, 1), (5, 7, 9), (3, 1, 6), (2, 33, 4)])
+@pytest.mark.parametrize("cons,with_force", [
+    ([True, False], True), ([False] * 3, False), ([True], False)])
+def test_update_kernel(cuda, dtype, n, cons, with_force):
+    from varden_tpu_torch.ops import cuda_update
+    nc = len(cons)
+    rng = np.random.RandomState(3)
+    kw = dict(dtype=dtype, device=cuda)
+    sold = torch.as_tensor(rng.rand(nc, *n), **kw)
+    force = (torch.as_tensor(rng.rand(nc, *n) - 0.5, **kw) if with_force
+             else None)
+    umac = _face_tensors((), n, 4, cuda, dtype, 0.5)
+    sedge = None if all(cons) else _face_tensors((nc,), n, 5, cuda, dtype)
+    flux = None if not any(cons) else _face_tensors((nc,), n, 6, cuda, dtype)
+    args = (sold, umac, sedge, flux, force, 2e-3, (0.1, 0.11, 0.12), cons)
+    before = cuda_update.update_3d.launches
+    out = cuda_update.update_3d(*args)
+    torch.cuda.synchronize()
+    assert cuda_update.update_3d.launches == before + 1
+    _close(out, cuda_update.update_3d_plain(*args), dtype,
+           f"update n={n} cons={cons}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+@pytest.mark.parametrize("n", [(24, 40, 16), (5, 3, 7), (3, 3, 3)])
+@pytest.mark.parametrize("kind", ["scal", "scal+force", "vel"])
+def test_mkflux_kernel(cuda, bc, dtype, n, kind):
+    sim = _sim(bc, n, dtype, cuda)
+    ng = sim.ng
+    umac = tuple(sim.tensor(_smooth(tuple(n[t] + (1 if t == d else 0)
+                                          for t in range(3)), 10 + d))
+                 for d in range(3))
+    mac_pads = advance.embed_faces(sim, umac, ng)
+    force = None
+    if kind == "vel":
+        s_pad = sim.fill_vel(sim.tensor(_smooth((3,) + n, 3)))
+        adv = [sim.adv_bc[d] for d in range(3)]
+        cons = [False] * 3
+        force = sim.fill_extrap(sim.tensor(_smooth((3,) + n, 4, 0.2)), ng)
+    else:
+        s = problems.initdata(sim).s + sim.tensor(_smooth((2,) + n, 6, 0.05))
+        s_pad = sim.fill_scal(s)
+        adv = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+        cons = [True, False]
+        if kind == "scal+force":
+            f = _smooth((2,) + n, 7, 0.1)
+            f[0] = 0.0
+            force = sim.fill_extrap(sim.tensor(f), ng)
+    args = (s_pad, mac_pads, force, None, 2e-3, sim.dx, sim.phys_bc, adv, ng,
+            n, kind == "vel", cons, 4, False)
+    before = cuda_godunov.mkflux_3d_fused.launches
+    out = cuda_godunov.mkflux_3d_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_godunov.mkflux_3d_fused.launches == before + 5
+    ref = cuda_godunov.mkflux_3d_plain(*args)
+    for part, o, r in zip(("sedge", "sflux"), out, ref):
+        for d in range(3):
+            _close(o[d], r[d], sim.dtype, f"mkflux {part}[{d}] bc={bc} n={n}")
+
+
+def test_amr_step_on_card_matches_cpu(cuda):
+    """One viscous 3-D ml_advance on a two-level hierarchy (16^3 base, a
+    refined patch inside the domain), float64, the card against the plain
+    path on the CPU from one numpy-made state: 1e-8 of each field's size
+    (the composite solves stop at 1e-10 and 1e-12 of their right-hand
+    sides and may take other cycle counts)."""
+    from varden_tpu_torch.amr import advance_ml
+    from varden_tpu_torch.amr.fill import hierarchy_from_numpy
+    from varden_tpu_torch.amr.hierarchy import LevelSpec
+    from varden_tpu_torch.ops import cuda_update
+    kw = dict(dim_in=3, prob_type=1, n_cellx=16, n_celly=16, n_cellz=16,
+              max_levs=2, grav=-9.8, dtype="float64", visc_coef=1e-3,
+              cflfac=0.5, bcx_lo=15, bcx_hi=15, bcy_lo=15, bcy_hi=15,
+              bcz_lo=15, bcz_hi=15)
+    cfg = VardenConfig(**kw)
+    cpu = Sim(cfg, device="cpu")
+    specs = [((0, 0, 0), (16, 16, 16)), ((8, 8, 4), (16, 16, 16))]
+    arrays = []
+    for l, (lo, n) in enumerate(specs):
+        st = problems.initdata_on_spec(cpu, LevelSpec(lo, n), l)
+        a = {k: getattr(st, k).numpy() for k in ("u", "s", "gp", "p")}
+        a["u"] = a["u"] + _smooth(a["u"].shape, 20 + l, 0.3)
+        arrays.append(a)
+    out = {}
+    for name, sim in (("cpu", cpu), ("card", Sim(cfg, device=cuda))):
+        geom, states = hierarchy_from_numpy(sim, specs, [-1, 0], [0, 1],
+                                            arrays)
+        before = cuda_update.update_3d.launches
+        new, diag = advance_ml.ml_advance(geom, states, 5e-3, 4)
+        out[name] = (new, diag, cuda_update.update_3d.launches - before)
+    assert out["card"][2] == 2 and out["cpu"][2] == 0
+    for a, b in zip(out["cpu"][0], out["card"][0]):
+        for k in ("u", "s", "gp", "p"):
+            x, y = getattr(a, k), getattr(b, k).cpu()
+            scale = max(1.0, float(x.abs().max()))
+            assert float((x - y).abs().max()) <= 1e-8 * scale, k

@@ -93,7 +93,8 @@ def test_cli_runs_the_2d_bubble_inputs_file():
     for parts in dens:
         lo, hi = float(parts[-2]), float(parts[-1])
         assert 1.0 - 1e-6 <= lo and hi <= 2.0 + 1e-6
-    # the file's own max_levs = 3: AMR is not ported
-    res = subprocess.run(args[:4] + ["--device", "cpu"], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300, env=env)
-    assert res.returncode != 0 and "multi-level AMR" in res.stderr
+    # plotfile output is not ported
+    res = subprocess.run(args[:-4] + ["--plot_int", "1", "--device", "cpu"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert res.returncode != 0 and "plotfile output" in res.stderr

@@ -1,6 +1,8 @@
 """Inputs shared by the tests of varden_tpu_torch: made with numpy from a
 seed, so that both packages (and the card) see the same numbers."""
 import numpy as np
+import pytest
+import torch
 
 
 def smooth(shape, seed, amp=0.5, dm=3):
@@ -20,3 +22,34 @@ def smooth(shape, seed, amp=0.5, dm=3):
                           for d in range(dm)], axis=0)
         out[idx] = amp * f / 3.0
     return out
+
+
+def state_arrays(states):
+    """Per-patch dicts of numpy arrays (u, s, gp, p) of a list of States of
+    either package."""
+    return [{k: np.array(getattr(st, k)) for k in ("u", "s", "gp", "p")}
+            for st in states]
+
+
+def two_blob_rho(n, dx, centers, radius=0.08):
+    """A density of 1 plus tanh blobs of height 1 at ``centers`` on a grid
+    of n cells of width dx (any dimension)."""
+    X = np.meshgrid(*[(np.arange(n[d]) + 0.5) * dx[d] for d in range(len(n))],
+                    indexing="ij")
+    rho = np.ones(n)
+    for c in centers:
+        r = np.sqrt(sum((X[d] - c[d]) ** 2 for d in range(len(n))))
+        rho += 0.5 * (1.0 - np.tanh((r - radius) / 0.02))
+    return rho
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's plain-path tensors on one thread: at the tests' small
+    sizes a thread pool only contends with the other test processes.
+    Imported by the modules that use it; the pool size is restored
+    after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel
 // varden_tpu/ops/pallas_godunov.py:mkflux_update_3d_fused (kernel
 // _mkflux_update_kernel :591, pallas_call at :778). Computes exactly the
-// plain function godunov3d.mkflux_3d followed by cuda_godunov._update_vals:
+// plain function godunov3d.mkflux_3d followed by basic.update_plain:
 //     snew = sold - dt*(u.grad s | div(s u)) + dt*fupd
 // with conservative or convective form per component. force, mac_rhs and
 // fupd may be absent (null pointer): an absent input is statically zero, is
@@ -13,189 +13,17 @@
 // What bounds it on the card: bytes. The function reads s and the three MAC
 // fields (plus force / fupd where present) and writes snew: a few
 // floating-point operations per byte. This first version is staged through
-// device memory (tie epsilon, slopes, hat, double-hat, edge, update: six
-// launches), one thread per padded point, interior face or interior cell.
+// device memory (tie epsilon, slopes, hat, double-hat, edge: the stages of
+// mkflux3d.cuh; then the update: six launches), one thread per padded
+// point, interior face or interior cell.
 // The 15 intermediate fields per component multiply the bytes over the bound
 // by about ten; a shared-memory brick pipeline is the planned speed-up. As
 // on the TPU, the edge states never leave the kernel's own scratch: the
 // caller gets snew only. The x/y slab stitching of the TPU kernel has no
 // counterpart: boundaries are handled in the same launch as the interior.
-#include "common.cuh"
+#include "mkflux3d.cuh"
 
 namespace vt {
-
-struct MK {
-  Grid g;
-  int pbc[3][2];
-  int use_minion;
-  int nc;
-  int is_vel;
-  int cons_mask;  // bit c set: component c is conservative
-  double dt;
-  double dx[3];
-};
-
-struct MKPtrs {
-  const void* s;
-  const void* mac[3];
-  const void* force;  // may be null
-  const void* rhs;    // may be null
-  const void* fupd;   // may be null
-};
-
-__device__ __forceinline__ int other(int n, int k) {
-  return k == 0 ? (n == 0 ? 1 : 0) : (n == 2 ? 1 : 2);
-}
-
-// hat-stage l/r states of component c on axis-a faces at padded point x,
-// with the mkflux.f90 face overrides (godunov3d.mkflux_3d face_bc)
-template <typename T>
-__device__ void mk_lr(const MK& m, const MKPtrs& P, const T* slopes, int a,
-                      int c, const int* x, T& l, T& r) {
-  const Grid& g = m.g;
-  const T* sc = (const T*)P.s + c * g.N;
-  const T* adv = (const T*)P.mac[a];
-  const T* sl = slopes + (i64)(a * m.nc + c) * g.N;
-  i64 p = at(g, x[0], x[1], x[2]);
-  i64 pm = at_off(g, x, a, -1);
-  T dt2 = (T)(0.5 * m.dt);
-  T advp = adv[p];
-  l = (sc[pm] + (T)0.5 * sl[pm]) - (T)(0.5 * m.dt / m.dx[a]) * advp * sl[pm];
-  r = sc[p] - ((T)0.5 + dt2 * advp / (T)m.dx[a]) * sl[p];
-  bool cons = (m.cons_mask >> c) & 1;
-  if (m.use_minion && P.force) {
-    const T* fc = (const T*)P.force + c * g.N;
-    l = l + dt2 * fc[pm];
-    r = r + dt2 * fc[p];
-  }
-  if (m.use_minion && cons && P.rhs) {
-    const T* rh = (const T*)P.rhs;
-    l = l - dt2 * (sc[pm] * rh[pm]);
-    r = r - dt2 * sc[p] * rh[p];
-  }
-  int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-  if (side < 0) return;
-  int pb = m.pbc[a][side];
-  bool normal_vel = m.is_vel && c == a;
-  bool copy = false;
-  switch (pb) {
-    case INLET:
-      l = r = sc[side == 0 ? pm : p];
-      break;
-    case SLIP_WALL:
-    case SYMMETRY:
-      if (normal_vel) l = r = (T)0;
-      else copy = true;
-      break;
-    case NO_SLIP_WALL:
-      if (m.is_vel) l = r = (T)0;
-      else copy = true;
-      break;
-    case OUTLET:
-      if (normal_vel) {
-        T w = side == 0 ? fmin(r, (T)0) : fmax(l, (T)0);
-        l = r = w;
-      } else {
-        copy = true;
-      }
-      break;
-    default:
-      break;
-  }
-  if (copy) {
-    if (side == 0) l = r;
-    else r = l;
-  }
-}
-
-// stage 1: simh[(a*nc+c)*N + p]
-template <typename T>
-__global__ void mk_hat_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
-                              T* __restrict__ simh,
-                              const T* __restrict__ umax) {
-  const Grid& g = m.g;
-  i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.N) return;
-  int x[3];
-  unflat(g, p, x);
-  T eps = eps_from(umax);
-  for (int c = 0; c < m.nc; ++c)
-    for (int a = 0; a < 3; ++a) {
-      T l, r;
-      mk_lr(m, P, slopes, a, c, x, l, r);
-      simh[(a * m.nc + c) * g.N + p] =
-          riemann_transverse(l, r, ((const T*)P.mac[a])[p], eps);
-    }
-}
-
-// stage 2: dh[((c*3+a)*2+k)*N + p] = comp c on a-faces corrected along
-// b = OTHERS[a][k]
-template <typename T>
-__global__ void mk_dhat_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
-                               const T* __restrict__ simh,
-                               T* __restrict__ dh,
-                               const T* __restrict__ umax) {
-  const Grid& g = m.g;
-  i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.N) return;
-  int x[3];
-  unflat(g, p, x);
-  T eps = eps_from(umax);
-  for (int c = 0; c < m.nc; ++c) {
-    bool cons = (m.cons_mask >> c) & 1;
-    for (int a = 0; a < 3; ++a) {
-      for (int k = 0; k < 2; ++k) {
-        int b = other(a, k);
-        const T* mb = (const T*)P.mac[b];
-        const T* hb = simh + (i64)(b * m.nc + c) * g.N;
-        auto corr = [&](const int* xq) {
-          i64 q = at(g, xq[0], xq[1], xq[2]);
-          i64 qb = at_off(g, xq, b, 1);
-          if (cons)
-            return (T)(m.dt / 3.0 / m.dx[b]) * (hb[qb] * mb[qb] - hb[q] * mb[q]);
-          return (T)(m.dt / 6.0 / m.dx[b]) * (mb[q] + mb[qb]) * (hb[qb] - hb[q]);
-        };
-        int xm[3] = {x[0], x[1], x[2]};
-        xm[a] -= 1;
-        T l, r;
-        mk_lr(m, P, slopes, a, c, x, l, r);
-        l = l - corr(xm);
-        r = r - corr(x);
-        // the hat-state overrides apply again (mkflux_3d stage 2)
-        T l2 = l, r2 = r;
-        int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-        if (side >= 0) {
-          const T* sc = (const T*)P.s + c * g.N;
-          int pb = m.pbc[a][side];
-          bool normal_vel = m.is_vel && c == a;
-          bool copy = false;
-          if (pb == INLET) {
-            l2 = r2 = sc[side == 0 ? at(g, xm[0], xm[1], xm[2]) : p];
-          } else if (pb == SLIP_WALL || pb == SYMMETRY) {
-            if (normal_vel) l2 = r2 = (T)0;
-            else copy = true;
-          } else if (pb == NO_SLIP_WALL) {
-            if (m.is_vel) l2 = r2 = (T)0;
-            else copy = true;
-          } else if (pb == OUTLET) {
-            if (normal_vel) {
-              T w = side == 0 ? fmin(r, (T)0) : fmax(l, (T)0);
-              l2 = r2 = w;
-            } else {
-              copy = true;
-            }
-          }
-          if (copy) {
-            if (side == 0) l2 = r;
-            else r2 = l;
-          }
-        }
-        dh[((c * 3 + a) * 2 + k) * g.N + p] =
-            riemann_transverse(l2, r2, ((const T*)P.mac[a])[p], eps);
-      }
-    }
-  }
-}
 
 // stage 3: final edge states on interior faces, edge[(a*nc+c)*N + p];
 // blockIdx.y = a*nc + c
@@ -206,75 +34,12 @@ __global__ void mk_edge_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
   const Grid& g = m.g;
   int a = blockIdx.y / m.nc;
   int c = blockIdx.y % m.nc;
-  int e[3] = {g.n[0], g.n[1], g.n[2]};
-  e[a] += 1;
   i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (i64)e[0] * e[1] * e[2]) return;
+  if (t >= face_count(g, a)) return;
   int x[3];
-  x[2] = (int)(t % e[2]);
-  i64 rr = t / e[2];
-  x[1] = (int)(rr % e[1]);
-  x[0] = (int)(rr / e[1]);
-  for (int d = 0; d < 3; ++d) x[d] += g.ng;
-  T eps = eps_from(umax);
-  bool cons = (m.cons_mask >> c) & 1;
-  const T* sc = (const T*)P.s + c * g.N;
-  auto corr = [&](const int* xq) {
-    T acc = (T)0;
-    i64 q = at(g, xq[0], xq[1], xq[2]);
-    for (int k = 0; k < 2; ++k) {
-      int tt = other(a, k);
-      int b = 3 - a - tt;
-      const T* mt = (const T*)P.mac[tt];
-      const T* dht = dh + (i64)((c * 3 + tt) * 2 + (b == other(tt, 0) ? 0 : 1)) * g.N;
-      i64 qt = at_off(g, xq, tt, 1);
-      if (cons) {
-        T coef = (T)(0.5 * m.dt / m.dx[tt]);
-        T flux_div = coef * (dht[qt] * mt[qt] - dht[q] * mt[q]);
-        T compr = coef * sc[q] * (mt[qt] - mt[q]);
-        acc = k == 0 ? flux_div - compr : (acc + flux_div) - compr;
-      } else {
-        T coef = (T)(0.25 * m.dt / m.dx[tt]);
-        T term = coef * (mt[q] + mt[qt]) * (dht[qt] - dht[q]);
-        acc = k == 0 ? term : acc + term;
-      }
-    }
-    return acc;
-  };
-  int xm[3] = {x[0], x[1], x[2]};
-  xm[a] -= 1;
-  i64 p = at(g, x[0], x[1], x[2]);
-  i64 pm = at(g, xm[0], xm[1], xm[2]);
-  T el, er;
-  mk_lr(m, P, slopes, a, c, x, el, er);
-  el = el - corr(xm);
-  er = er - corr(x);
-  T dt2 = (T)(0.5 * m.dt);
-  if (!m.use_minion && P.force) {
-    const T* fc = (const T*)P.force + c * g.N;
-    el = el + dt2 * fc[pm];
-    er = er + dt2 * fc[p];
-  }
-  if (!m.use_minion && cons && P.rhs) {
-    const T* rh = (const T*)P.rhs;
-    el = el - dt2 * (sc[pm] * rh[pm]);
-    er = er - dt2 * sc[p] * rh[p];
-  }
-  T ed = riemann_transverse(el, er, ((const T*)P.mac[a])[p], eps);
-  int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-  if (side >= 0) {
-    int pb = m.pbc[a][side];
-    T inner = side == 0 ? er : el;
-    bool normal_vel = m.is_vel && c == a;
-    if (pb == INLET)
-      ed = sc[side == 0 ? pm : p];
-    else if (pb == SLIP_WALL || pb == NO_SLIP_WALL || pb == SYMMETRY)
-      ed = ((m.is_vel && pb == NO_SLIP_WALL) || normal_vel) ? (T)0 : inner;
-    else if (pb == OUTLET)
-      ed = normal_vel ? (side == 0 ? fmin(inner, (T)0) : fmax(inner, (T)0))
-                      : inner;
-  }
-  edge[(a * m.nc + c) * g.N + p] = ed;
+  face_point(g, a, t, x);
+  edge[(a * m.nc + c) * g.N + at(g, x[0], x[1], x[2])] =
+      mk_edge_value(m, P, slopes, dh, a, c, x, eps_from(umax));
 }
 
 // stage 4: the update epilogue on interior cells (update.f90:186-278)
@@ -315,70 +80,27 @@ __global__ void mk_update_kernel(MK m, MKPtrs P, const T* __restrict__ edge,
 
 // ptrs: s, mac0, mac1, mac2, force?, mac_rhs?, fupd?, snew, work
 //       (15*nc padded fields), umax (1)
-// iv:   n0 n1 n2 ng slope_order use_minion nc is_vel cons_mask
-//       phys_bc[3][2] adv_bc[nc][3][2]
-// dv:   dt dx0 dx1 dx2
+// iv, dv: as read_mk (mkflux3d.cuh)
 template <typename T>
 int mkflux_update_impl(void** ptrs, const long long* iv, const double* dv,
                        cudaStream_t st) {
   MK m;
-  m.g = make_grid(iv, (int)iv[3]);
-  int order = (int)iv[4];
-  m.use_minion = (int)iv[5];
-  m.nc = (int)iv[6];
-  m.is_vel = (int)iv[7];
-  m.cons_mask = (int)iv[8];
-  if (m.nc < 1 || m.nc > MAXC) return (int)cudaErrorInvalidValue;
-  for (int a = 0; a < 3; ++a)
-    for (int s = 0; s < 2; ++s) m.pbc[a][s] = (int)iv[9 + a * 2 + s];
-  AdvBC bc = read_adv_bc(iv + 15, m.nc);
-  m.dt = dv[0];
-  for (int d = 0; d < 3; ++d) m.dx[d] = dv[1 + d];
   MKPtrs P;
-  P.s = ptrs[0];
-  for (int d = 0; d < 3; ++d) P.mac[d] = ptrs[1 + d];
-  P.force = ptrs[4];
-  P.rhs = ptrs[5];
+  AdvBC bc;
+  int order;
+  int err = read_mk(m, P, bc, order, ptrs, iv, dv);
+  if (err) return err;
   P.fupd = ptrs[6];
   T* snew = (T*)ptrs[7];
   T* work = (T*)ptrs[8];
   T* umax = (T*)ptrs[9];
   const Grid& g = m.g;
   int nc = m.nc;
+  err = launch_mk_stages<T>(m, P, bc, order, work, umax, st);
+  if (err) return err;
   T* slopes = work;
-  T* simh = work + 3 * nc * g.N;
   T* dh = work + 6 * nc * g.N;
   T* edge = work + 12 * nc * g.N;
-
-  // tie epsilon: max |mac| over each MAC field's valid region (faces
-  // [ng, ng+n+1) along its axis, [ng-1, ng+n+1) tangentially)
-  Boxes<T> bx;
-  i64 rows = 0;
-  for (int d = 0; d < 3; ++d) {
-    bx.p[d] = (const T*)P.mac[d];
-    int lo[3];
-    for (int t = 0; t < 3; ++t) {
-      lo[t] = t == d ? g.ng : g.ng - 1;
-      bx.e[d][t] = g.n[t] + (t == d ? 1 : 2);
-    }
-    bx.base[d] = ((i64)lo[0] * g.P[1] + lo[1]) * g.P[2] + lo[2];
-    bx.st[d][0] = (i64)g.P[1] * g.P[2];
-    bx.st[d][1] = g.P[2];
-    bx.st[d][2] = 1;
-    i64 cnt = (i64)bx.e[d][0] * bx.e[d][1] * bx.e[d][2];
-    rows = cnt > rows ? cnt : rows;
-  }
-  int rb = blocks_for(rows, 256);
-  absmax_boxes<T><<<dim3(rb < 1024 ? rb : 1024, 3), 256, 0, st>>>(bx, umax);
-  VT_CHECK();
-  int nb = blocks_for(g.N, 256);
-  slopes_kernel<T><<<nb, 256, 0, st>>>((const T*)P.s, slopes, g, nc, order,
-                                       bc);
-  VT_CHECK();
-  mk_hat_kernel<T><<<nb, 256, 0, st>>>(m, P, slopes, simh, umax);
-  VT_CHECK();
-  mk_dhat_kernel<T><<<nb, 256, 0, st>>>(m, P, slopes, simh, dh, umax);
-  VT_CHECK();
   i64 nface = (i64)(g.n[0] + 1) * (g.n[1] + 1) * (g.n[2] + 1);
   mk_edge_kernel<T><<<dim3(blocks_for(nface, 256), 3 * nc), 256, 0, st>>>(
       m, P, slopes, dh, edge, umax);

@@ -1,10 +1,11 @@
-"""Main driver, single level (counterpart of varden_tpu.driver): the
-reference's varden() program flow (src/varden.f90:1-665) — init, initial
-projection, initial pressure iterations, main step loop.
+"""Main driver (counterpart of varden_tpu.driver): the reference's varden()
+program flow (src/varden.f90:1-665) — init, initial projection, initial
+pressure iterations, main step loop — on one level or on a non-subcycled AMR
+hierarchy (max_levs > 1: adaptive or fixed grids, regrid every regrid_int
+steps).
 
-Ported so far: single-level 2-D and 3-D runs without I/O. Multi-level AMR, the
-device mesh, restarts and plotfile/checkpoint output raise
-NotImplementedError.
+Ported so far: 2-D and 3-D runs without I/O. The device mesh, restarts and
+plotfile / checkpoint output raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -14,13 +15,20 @@ from typing import Optional
 import torch
 
 from . import advance, problems, projection
+from .amr import advance_ml, regrid
+from .amr.fill import MLGeom
 from .config import VardenConfig, load_config
+from .solvers import nodal
 from .state import Sim, State
+
+# Hierarchies above this many cells keep only the last projection solutions
+# as warm starts, not the '_prev' pair of the linear extrapolation (their
+# memory at 256^3 + 2 levels).
+WARM_EXTRAP_MAX_CELLS = 5e7
 
 
 def _check_supported(cfg: VardenConfig) -> None:
-    waits = [(cfg.max_levs > 1, "multi-level AMR (max_levs > 1)"),
-             (cfg.mesh > 0, "multi-device runs (mesh > 0)"),
+    waits = [(cfg.mesh > 0, "multi-device runs (mesh > 0)"),
              (cfg.restart >= 0, "restart from a checkpoint (restart >= 0)"),
              (cfg.plot_int > 0, "plotfile output (plot_int > 0)"),
              (cfg.chk_int > 0, "checkpoint output (chk_int > 0)")]
@@ -31,7 +39,8 @@ def _check_supported(cfg: VardenConfig) -> None:
 
 
 class Varden:
-    """A configured single-level simulation on one device.
+    """A configured simulation on one device, single-level or (max_levs > 1)
+    multi-level.
 
     ``device`` defaults to the card; with no card present the constructor
     raises unless ``device="cpu"`` is given (the plain PyTorch path)."""
@@ -45,6 +54,10 @@ class Varden:
         self.istep = 0
         self._hints = None
         self.last_diag = None
+        self.ml = cfg.max_levs > 1
+        self.geom = None          # MLGeom in multi-level mode
+        self._ml_hints = None     # per-level projection warm starts
+        self.regrids = 0          # regrids done (hierarchy kept or rebuilt)
 
     def _zero_hints(self):
         sim = self.sim
@@ -110,12 +123,20 @@ class Varden:
         self.time += self.dt
         self.last_diag = diag
         self._check_solver_health(diag)
+        self._report(diag)
+        return state
+
+    def _report(self, diag, levels=""):
+        """The step's diagnostics (verbose, mg_verbose) and banner."""
+        cfg = self.cfg
         if cfg.verbose >= 1:
             print(f"... max of [div(umac)-RHS] before/after MAC projection "
                   f"{float(diag['div_before']):15.8e} "
                   f"{float(diag['div_after']):15.8e}")
             names = ("x", "y", "z")[:self.sim.dm]
             for tag in ("pre", "post"):
+                if "u_" + tag + "_min" not in diag:
+                    continue
                 when = "before" if tag == "pre" else " after"
                 for d, nm in enumerate(names):
                     print(f"... {nm}-velocity {when} projection "
@@ -123,12 +144,11 @@ class Varden:
                           f"{float(diag['u_' + tag + '_max'][d]):17.10e}")
             print(f"... new min/max : density {float(diag['smin']):17.10e} "
                   f"{float(diag['smax']):17.10e}")
-        if cfg.mg_verbose >= 1:
+        if cfg.mg_verbose >= 1 and "mac_resnorm" in diag:
             print(f"... solver resnorm: MAC {float(diag['mac_resnorm']):12.5e}"
                   f"  HG {float(diag['hg_resnorm']):12.5e}")
         print(f"STEP = {self.istep:4d}  TIME = {self.time:14.10f}  "
-              f"DT = {self.dt:14.9f}")
-        return state
+              f"DT = {self.dt:14.9f}{levels}")
 
     def _check_solver_health(self, diag):
         """Guard under-converged projection exits: solver_guard = k warns at
@@ -148,8 +168,12 @@ class Varden:
                 warnings.warn(msg)
 
     def run(self, state: Optional[State] = None,
-            max_step: Optional[int] = None) -> State:
+            max_step: Optional[int] = None):
+        """Run to max_step / stop_time. Returns the final State, or in
+        multi-level mode the list of per-patch States."""
         cfg = self.cfg
+        if self.ml:
+            return self.run_ml(max_step)
         state = self.initialize(state)
         max_step = cfg.max_step if max_step is None else max_step
         while self.istep < max_step and (cfg.stop_time < 0.0 or
@@ -157,11 +181,160 @@ class Varden:
             state = self.step(state)
         return state
 
+    # -- multi-level ----------------------------------------------------
+    def _hints_have_prev(self):
+        """Whether the ML warm starts carry the '_prev' extrapolation pair
+        (dropped on large hierarchies, see WARM_EXTRAP_MAX_CELLS)."""
+        return self.geom.cells() <= WARM_EXTRAP_MAX_CELLS
+
+    def _zero_ml_hints(self):
+        sim, geom = self.sim, self.geom
+        z_mac = [sim.zeros(s.n) for s in geom.specs]
+        z_hg = [sim.zeros(nodal.node_shape(geom.specs[l].n,
+                                           geom.pmask_level(l)))
+                for l in range(geom.nlev)]
+        hints = {"phi_mac": z_mac, "phi_hg": z_hg}
+        if self._hints_have_prev():
+            hints["phi_mac_prev"] = [z.clone() for z in z_mac]
+            hints["phi_hg_prev"] = [z.clone() for z in z_hg]
+        return hints
+
+    def _ml_advance(self, states, proj_type):
+        """One ml_advance with the hint rotation (the new solutions become
+        'phi_*', the old ones 'phi_*_prev' where those are kept)."""
+        if self._ml_hints is None:
+            self._ml_hints = self._zero_ml_hints()
+        h = self._ml_hints
+        new_states, diag = advance_ml.ml_advance(self.geom, states, self.dt,
+                                                 proj_type, hints=h)
+        new_h = {"phi_mac": diag.pop("phi_mac"), "phi_hg": diag.pop("phi_hg")}
+        if "phi_mac_prev" in h:
+            new_h["phi_mac_prev"] = h["phi_mac"]
+            new_h["phi_hg_prev"] = h["phi_hg"]
+        self._ml_hints = new_h
+        return new_states, diag
+
+    def initialize_ml(self):
+        """Hierarchy init (adaptive or fixed grids), the initial projection
+        and the initial pressure iterations (varden.f90:94-235 with
+        nlevs > 1)."""
+        cfg = self.cfg
+        if cfg.fixed_grids:
+            self.geom, states = regrid.initialize_fixed(self.sim)
+        else:
+            self.geom, states = regrid.initialize_adaptive(self.sim)
+        if cfg.grids_file_name:
+            regrid.write_grids(cfg.grids_file_name, self.geom, 0)
+        if cfg.do_initial_projection > 0:
+            u_l = [st.u for st in states]
+            u, p, gp, _phi, _ratio, _outer = advance_ml.hgproject_ml(
+                self.geom, projection.INITIAL_PROJECTION, u_l, u_l,
+                [torch.ones_like(st.s[0]) for st in states],
+                [st.p for st in states], [st.gp for st in states], 1.0)
+            states = [State(u=u[l], s=states[l].s,
+                            gp=torch.zeros_like(gp[l]),
+                            p=torch.zeros_like(p[l]))
+                      for l in range(len(states))]
+        self.dt = advance_ml.ml_estdt(self.geom, states, -1.0) * \
+            cfg.init_shrink
+        if cfg.fixed_dt > 0.0:
+            self.dt = cfg.fixed_dt
+        if cfg.stop_time >= 0.0:
+            self.dt = min(self.dt, cfg.stop_time - self.time)
+        self._ml_hints = None
+        for _ in range(cfg.init_iter):
+            st2, _diag = self._ml_advance(states, projection.PRESSURE_ITERS)
+            states = [State(u=states[l].u, s=states[l].s, gp=st2[l].gp,
+                            p=st2[l].p) for l in range(len(states))]
+        return states
+
+    def _regrid_due(self, istep):
+        cfg = self.cfg
+        return (cfg.regrid_int > 0 and istep > 1 and not cfg.fixed_grids
+                and (istep - 1) % cfg.regrid_int == 0)
+
+    def _regrid(self, states):
+        """Tag, cluster and rebuild the hierarchy (regrid.f90:20-272); the
+        current one is kept when the new tree equals it, or (regrid_slack >
+        0) while it still covers the new one (regrid_waste). Returns
+        (states, whether the hierarchy was rebuilt)."""
+        cfg = self.cfg
+        specs, parent, depth = regrid.compute_tree(self.sim, self.geom,
+                                                   states)
+        new_geom = MLGeom(self.sim, specs, parent, depth)
+        keep = (new_geom.key() == self.geom.key()
+                or (cfg.regrid_slack > 0 and regrid.geom_covers(
+                    self.geom, specs, parent, depth, cfg.regrid_waste)))
+        self.regrids += 1
+        if keep:
+            return states, False
+        states = regrid.build_level_data(self.sim, self.geom, states,
+                                         new_geom)
+        self.geom = new_geom
+        self._ml_hints = None  # shapes changed: cold-start solves
+        if cfg.grids_file_name:
+            regrid.write_grids(cfg.grids_file_name, self.geom, self.istep)
+        return states, True
+
+    def _ml_dt(self, states, clip=True):
+        """The step's dt (varden.f90:302-318), from the second step on;
+        ``clip`` cuts it at stop_time."""
+        cfg = self.cfg
+        self.dt = advance_ml.ml_estdt(self.geom, states, self.dt)
+        if cfg.fixed_dt > 0.0:
+            self.dt = cfg.fixed_dt
+        if clip and cfg.stop_time >= 0.0 and \
+                self.time + self.dt > cfg.stop_time:
+            self.dt = cfg.stop_time - self.time
+
+    def step_ml(self, states):
+        """One regular multi-level step: regrid when due, dt, ml_advance."""
+        self.istep += 1
+        note = ""
+        if self._regrid_due(self.istep):
+            states, rebuilt = self._regrid(states)
+            note = "; regrid: " + ("rebuilt" if rebuilt else "kept")
+        if self.istep > 1:
+            self._ml_dt(states)
+        states, diag = self._ml_advance(states, projection.REGULAR_TIMESTEP)
+        self.time += self.dt
+        self.last_diag = diag
+        self._check_solver_health(diag)
+        self._report(diag, f"  (levels: {[s.n for s in self.geom.specs]}"
+                     f"{note})")
+        return states
+
+    def step_ml_chunk(self, states, k):
+        """k regular steps on a fixed hierarchy (no regrid inside): the
+        caller guarantees istep >= 1 and no regrid due within the chunk;
+        stop_time clipping is the caller's too."""
+        for _ in range(k):
+            self.istep += 1
+            self._ml_dt(states, clip=False)
+            states, diag = self._ml_advance(states,
+                                            projection.REGULAR_TIMESTEP)
+            self.time += self.dt
+            self.last_diag = diag
+            self._check_solver_health(diag)
+        self._report(self.last_diag, f"  (chunk of {k}; levels: "
+                     f"{[s.n for s in self.geom.specs]})")
+        return states
+
+    def run_ml(self, max_step: Optional[int] = None):
+        cfg = self.cfg
+        states = self.initialize_ml()
+        max_step = cfg.max_step if max_step is None else max_step
+        while self.istep < max_step and (cfg.stop_time < 0.0 or
+                                         self.time < cfg.stop_time - 1e-14):
+            states = self.step_ml(states)
+        self.final_states = states
+        return states
+
 
 def run_from_inputs(path: str, device=None, **overrides) -> Varden:
     """Load a reference-format inputs file (``overrides`` applied after
     it), run it to the end and return the Varden, its final state in
-    ``final_state``."""
+    ``final_state`` (a list of per-patch States in multi-level mode)."""
     cfg = load_config(path, **overrides)
     v = Varden(cfg, device=device)
     v.final_state = v.run()

@@ -40,7 +40,19 @@ def update(sold: torch.Tensor, umac: Sequence[torch.Tensor],
     """snew = sold - dt*(u·grad s | div flux) + dt*force (reference
     update_2d/3d, src/update.f90:113-278). sold/force: (nc, *n);
     sedge[d]/flux[d]: (nc, faces); umac[d]: (faces). ``force`` may be None
-    (statically zero)."""
+    (statically zero). In 3-D it runs through the update_3d kernel (which
+    builds on update_plain below), as varden_tpu does on the TPU."""
+    if len(umac) == 3:
+        from .cuda_update import update_3d
+        return update_3d(sold, umac, sedge, flux, force, dt, dx,
+                         is_conservative)
+    return update_plain(sold, umac, sedge, flux, force, dt, dx,
+                        is_conservative)
+
+
+def update_plain(sold, umac, sedge, flux, force, dt, dx, is_conservative):
+    """The update on plain tensors, in any dimension; ``sedge`` or ``flux``
+    may be None where no component reads it."""
     dm = len(umac)
     ubar = [_fmean(umac[d], d, dm) for d in range(dm)]
     out = []

@@ -3,7 +3,9 @@ varden_tpu.ops.pallas_godunov).
 
   velpred_3d_fused        csrc/velpred.cu        = godunov3d.velpred_3d
   mkflux_update_3d_fused  csrc/mkflux_update.cu  = godunov3d.mkflux_3d
-                                                   followed by _update_vals
+                                                   followed by
+                                                   basic.update_plain
+  mkflux_3d_fused         csrc/mkflux.cu         = godunov3d.mkflux_3d
   velpred_2d_fused        csrc/velpred2d.cu      = godunov.velpred_2d
   mkflux_2d_fused         csrc/mkflux2d.cu       = godunov.mkflux_2d
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda, godunov, godunov3d
-from .basic import _fdiff, _fmean
+from .basic import update_plain
 
 
 def _flat_bc(phys_bc, adv_bc, dm=3):
@@ -73,26 +75,6 @@ velpred_3d_fused.launches = 0
 # fused mkflux + update
 # ---------------------------------------------------------------------------
 
-def _update_vals(sold, umac, sedge, sflux, fupd, dt, dx, is_cons):
-    """The update epilogue on plain tensors (basic.update's arithmetic;
-    reference update_3d, src/update.f90:186-278). ``fupd`` may be None
-    (statically-zero update force)."""
-    dm = len(umac)
-    ubar = [_fmean(umac[d], d, dm) for d in range(dm)]
-    out = []
-    for c in range(sold.shape[0]):
-        if is_cons[c]:
-            adv = sum(_fdiff(sflux[d][c], d, dm) / dx[d] for d in range(dm))
-        else:
-            adv = sum(ubar[d] * _fdiff(sedge[d][c], d, dm) / dx[d]
-                      for d in range(dm))
-        val = sold[c] - dt * adv
-        if fupd is not None:
-            val = val + dt * fupd[c]
-        out.append(val)
-    return torch.stack(out)
-
-
 def _mac_interior(macs, ng, n_cell):
     """Interior MAC faces from the cell-aligned padded tensors."""
     return [macs[d][tuple(slice(ng, ng + n_cell[t] + (1 if t == d else 0))
@@ -109,7 +91,7 @@ def mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt, dx,
     umac = _mac_interior(mac_pads, ng, n_cell)
     sold = s[(slice(None),) + tuple(slice(ng, ng + n_cell[t])
                                     for t in range(3))]
-    return _update_vals(sold, umac, sedge, sflux, fupd, dt, dx,
+    return update_plain(sold, umac, sedge, sflux, fupd, dt, dx,
                         is_conservative)
 
 
@@ -122,11 +104,11 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
 
     ``force``, ``fupd`` and ``mac_rhs`` may each be None, meaning
     statically zero: never read and never allocated. ``flux_comps`` (the
-    conservative fluxes of the AMR flux registers) waits for the AMR
-    slice."""
+    conservative fluxes of the AMR flux registers emitted beside snew) is
+    not ported: the AMR path takes mkflux_3d_fused and then the update."""
     if flux_comps:
-        raise NotImplementedError("flux_comps serves the AMR flux registers, "
-                                  "which are not ported yet")
+        raise NotImplementedError("flux_comps is not ported: the AMR scalar "
+                                  "advance runs mkflux_3d_fused + update_3d")
     if s.device.type == "cpu":
         return mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt,
                                       dx, phys_bc, adv_bc, ng, n_cell, is_vel,
@@ -161,6 +143,59 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
 
 
 mkflux_update_3d_fused.launches = 0
+
+
+def mkflux_3d_plain(s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc,
+                    ng, n_cell, is_vel, is_conservative, slope_order,
+                    use_minion):
+    """The plain PyTorch version of mkflux_3d_fused."""
+    return godunov3d.mkflux_3d(s, mac_pads, force, mac_rhs, dt, dx, phys_bc,
+                               adv_bc, ng, n_cell, is_vel, is_conservative,
+                               slope_order, use_minion)
+
+
+def mkflux_3d_fused(s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc,
+                    ng, n_cell, is_vel, is_conservative, slope_order,
+                    use_minion):
+    """Godunov edge states and fluxes of nc components on all three face
+    sets: returns (sedge, sflux), tuples of three (nc, faces) tensors,
+    exactly as godunov3d.mkflux_3d, at any extent and in both dtypes.
+    ``force`` and ``mac_rhs`` may each be None, meaning statically zero:
+    never read and never allocated."""
+    if s.device.type == "cpu":
+        return mkflux_3d_plain(s, mac_pads, force, mac_rhs, dt, dx, phys_bc,
+                               adv_bc, ng, n_cell, is_vel, is_conservative,
+                               slope_order, use_minion)
+    nc = s.shape[0]
+    P = _padded(n_cell, ng)
+    n = tuple(n_cell)
+    _cuda.check(s, "s", (nc,) + P)
+    if not 1 <= nc <= 4:
+        raise ValueError(f"mkflux_3d_fused: {nc} components (1-4)")
+    kw = dict(dtype=s.dtype, device=s.device)
+    for d in range(3):
+        _cuda.check(mac_pads[d], f"mac_pads[{d}]", P, **kw)
+    if force is not None:
+        _cuda.check(force, "force", (nc,) + P, **kw)
+    if mac_rhs is not None:
+        _cuda.check(mac_rhs, "mac_rhs", P, **kw)
+    faces = [(nc,) + tuple(n[t] + (1 if t == d else 0) for t in range(3))
+             for d in range(3)]
+    sedge = tuple(torch.empty(f, **kw) for f in faces)
+    sflux = tuple(torch.empty(f, **kw) for f in faces)
+    work = torch.empty((12 * nc,) + P, **kw)
+    umax = torch.zeros(1, **kw)
+    cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
+    iv = [*n, ng, slope_order, int(bool(use_minion)), nc, int(bool(is_vel)),
+          cons_mask] + _flat_bc(phys_bc, adv_bc)
+    _cuda.call("mkflux", "mkflux3d",
+               [s, *mac_pads, force, mac_rhs, *sedge, *sflux, work, umax],
+               iv, [float(dt), *map(float, dx)], s)
+    mkflux_3d_fused.launches += 5
+    return sedge, sflux
+
+
+mkflux_3d_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -214,6 +214,15 @@ def _inv_diag(level):
                        torch.zeros_like(d))
 
 
+def nd_apply_raw(level: NodalLevel, phi):
+    """The operator apply WITHOUT the mask: the composite solves, whose
+    boundary nodes carry inhomogeneous (coarse-interpolated) values. In 3-D
+    the kernel's apply emit."""
+    if level.dm == 3:
+        return _kernel_nodal(level, phi, None, 0.0, "apply")
+    return _factored_apply(phi, level.sigma, level.dx, level.pmask, level.dm)
+
+
 def nd_apply(level: NodalLevel, phi):
     if level.mask is not None:
         phi = phi * level.mask
