@@ -42,6 +42,10 @@ Phases, each of which asserts and any failure of which exits non-zero:
  10. multi-level AMR on the card against the plain path on the CPU,
      float64: BASELINE config 5 at a 32^3 base (three levels: 32^3, 48^3,
      64^3), Varden.run for STEPS_SHORT steps, every field of every level;
+     then config 5 at a N_AMR_HOLD^3 base on the card in float64 and in
+     float32 for STEPS_SHORT steps each, the gates of phase 11, and the
+     float32 run's density extrema and max|u| over all levels held to the
+     float64 run's step by step;
  11. the AMR main path, BASELINE config 5 as bench.py sets it (3-D bubble,
      256^3 base, max_levs 3, no regrid, visc_coef 1e-3, cflfac 0.5,
      init_shrink 0.5, no pressure iteration, no-slip walls, float32):
@@ -49,7 +53,8 @@ Phases, each of which asserts and any failure of which exits non-zero:
      to 0 just before and read just after; kernels 1-6 and 11 must have
      launched, the 2-D ones not; every composite solve at or below its
      tolerance, div(umac) falling across the MAC projection, every field
-     finite and density in [1, 10] on every level;
+     finite and density in [1, 10] on every level; each composite solve's
+     tolerance, roundoff floor and residual on each level are printed;
  12. regrids in the loop: inputs/inputs_3d-regt (64^3, 3 levels, regrid
      every 2 steps) for 4 steps, float32, and BASELINE config 3 (2-D 64^2,
      2 levels, regrid every 4) for 6 steps, each with at least one regrid
@@ -153,6 +158,9 @@ KERNELS_AMR = KERNELS_3D + ("update_3d", "mkflux_3d_fused")
 # BASELINE config 5's patch extents at its 256^3 base (the hierarchy that
 # initialize_adaptive builds: 256^3, 240^3 at 136, 384^3 at 320)
 N_AMR_PATCHES = (256, 240, 384)
+# base of the configuration-5 run whose float32 path is held to float64
+# (phase 10): 64^3, 80^3 at 24, 112^3 at 72 (2.18 M cells)
+N_AMR_HOLD = 64
 N_2D = 4096  # 16.8 M cells, the cell count of 256^3
 # The viscous 2-D bubble is published at 128^2 with visc_coef 1e-3, where
 # nu dt / dx^2 is 0.59 on its first step (dt = cflfac sqrt(2 dx / |g|)). The
@@ -965,6 +973,7 @@ def phase_main_ml(torch, cfg, steps, expect, label):
     each composite solve at or below its tolerance, div(umac) falling
     across the MAC projection, every field of every level finite and the
     density inside [1, densfact]."""
+    from varden_tpu_torch.amr import solve as tsolve
     from varden_tpu_torch.driver import Varden
     tol_rho = TOL_RHO_VISCOUS if cfg.visc_coef > 0.0 else TOL_RHO
     rho_hi = 10.0 if cfg.dm == 3 else 2.0
@@ -973,6 +982,7 @@ def phase_main_ml(torch, cfg, steps, expect, label):
     torch.cuda.reset_peak_memory_stats()
     for f in fns.values():
         f.launches = 0
+    tsolve.TRACE = []
     t_start = time.perf_counter()
     v = Varden(cfg)  # the card: no device named
     states = v.initialize_ml()
@@ -982,10 +992,12 @@ def phase_main_ml(torch, cfg, steps, expect, label):
     print(f"  {label}: levels {[s.n for s in v.geom.specs]} at "
           f"{[s.lo for s in v.geom.specs]} ({v.geom.cells()} cells); init "
           f"{t_init:.3f} s, launches {init_counts}", flush=True)
+    solve_report("init", tsolve.TRACE)
     per_step = []
     while v.istep < steps:
         before = {k: f.launches for k, f in fns.items()}
         regrids = v.regrids
+        tsolve.TRACE = []
         t0 = time.perf_counter()
         states = v.step_ml(states)
         torch.cuda.synchronize()
@@ -1004,7 +1016,9 @@ def phase_main_ml(torch, cfg, steps, expect, label):
                    mac_outer=int(d["mac_outer"]), hg_outer=int(d["hg_outer"]),
                    visc_outer=[int(k) for k in d.get("visc_outer", [])],
                    rho_min=min(r[0] for r in rho),
-                   rho_max=max(r[1] for r in rho), umax=float(d["umax"]),
+                   rho_max=max(r[1] for r in rho),
+                   umax=max(float(st.u.abs().max()) for st in states),
+                   solves=tsolve.TRACE,
                    launches={k: f.launches - before[k]
                              for k, f in fns.items()})
         per_step.append(rec)
@@ -1018,6 +1032,8 @@ def phase_main_ml(torch, cfg, steps, expect, label):
               f"{rec['cells_per_s']:.6e} cells/s; launches "
               f"{ {k: c for k, c in rec['launches'].items() if c} }",
               flush=True)
+        solve_report(f"step {rec['step']}", rec["solves"])
+    tsolve.TRACE = None
     launches = {k: f.launches for k, f in fns.items()}
     peak = torch.cuda.max_memory_allocated()
     print(f"  {label} launches {launches}; peak device memory {peak} bytes",
@@ -1043,6 +1059,18 @@ def phase_main_ml(torch, cfg, steps, expect, label):
         need(rec["div_after"] < rec["div_before"],
              f"step {rec['step']}: the MAC projection did not reduce div")
     return v, states, launches, per_step, peak, t_init
+
+
+def solve_report(tag, records):
+    """One line per composite solve (amr.solve.TRACE): its outer cycles, the
+    tolerance asked for (rel_eps * max|rhs|), the dtype's roundoff floor
+    that the stopping test also admits, and the residual norm reached on
+    each level."""
+    for r in records:
+        print(f"    {tag} {r['kind']} solve: {r['outer']} outer cycles, tol "
+              f"{r['tol']:.3e}, floor {r['floor']:.3e}, residual by level "
+              f"[{', '.join(f'{x:.3e}' for x in r['level_res'])}]",
+              flush=True)
 
 
 def mean_steady(per_step):
@@ -1268,11 +1296,22 @@ def main(argv=None) -> int:
           flush=True)
     amr_check = phase_step_ml(torch, cfg5_kw(32, "float64"), STEPS_SHORT)
     torch.cuda.empty_cache()
+    print(f"  config 5 at a {N_AMR_HOLD}^3 base on the card, float64 then "
+          f"float32, {STEPS_SHORT} steps each, and the float32 run against "
+          "the float64 one", flush=True)
+    from varden_tpu_torch.config import VardenConfig, load_config
+    amr_hold = {}
+    for dtype_name in ("float64", "float32"):
+        _, _, _, ps, pk, _ = phase_main_ml(
+            torch, VardenConfig(**cfg5_kw(N_AMR_HOLD, dtype_name)),
+            STEPS_SHORT, KERNELS_AMR, f"config 5 {N_AMR_HOLD}^3 {dtype_name}")
+        amr_hold[dtype_name] = {"steps": ps, "peak_bytes": pk}
+        torch.cuda.empty_cache()
+    hold_f32_to_f64(amr_hold["float32"]["steps"], amr_hold["float64"]["steps"])
 
     print(f"phase 11: the AMR main path, BASELINE config 5 at 256^3 + 2 "
           f"levels, float32, initialization and {STEPS_AMR} steps",
           flush=True)
-    from varden_tpu_torch.config import VardenConfig, load_config
     v, states, launches_amr, per_step_amr, peak_amr, init_amr = \
         phase_main_ml(torch, VardenConfig(**cfg5_kw(256, "float32")),
                       STEPS_AMR, KERNELS_AMR, "config 5")
@@ -1336,6 +1375,7 @@ def main(argv=None) -> int:
               "viscous_solve_2d": visc2, "steps_2d_f64": per_step2_64,
               "profiled_step": prof3, "profiled_step_2d": prof2,
               "small_2d": small, "amr_card_vs_cpu": amr_check,
+              "amr_f32_vs_f64": amr_hold,
               "steps_amr": per_step_amr, "launches_amr": launches_amr,
               "peak_bytes_amr": peak_amr, "init_s_amr": init_amr,
               "profiled_step_amr": prof_amr, "regrid_runs": regrid_runs,

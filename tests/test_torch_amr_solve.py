@@ -118,7 +118,7 @@ def test_composite_cc_solve_matches(case):
         tg, comp, [torch.tensor(r) for r in rhs],
         [torch.tensor(a) for a in aco], tb, alpha, rel_eps=1e-10,
         return_info=True)
-    assert 0 < iters < tsolve.DEFAULT_OUTER and float(ratio) <= 1.0
+    assert 0 < iters < tsolve.MAX_OUTER and float(ratio) <= 1.0
     _close_all(tphi, jphi)
 
 
@@ -185,5 +185,5 @@ def test_composite_nodal_solve_matches(dm, tree):
     tphi, (_rn, iters, ratio) = tsolve.composite_nodal_solve(
         tg, [torch.tensor(s) for s in sigma], [torch.tensor(v) for v in vel],
         rel_eps=1e-10, return_info=True)
-    assert 0 < iters < tsolve.DEFAULT_OUTER and float(ratio) <= 1.0
+    assert 0 < iters < tsolve.MAX_OUTER and float(ratio) <= 1.0
     _close_all(tphi, jphi)

@@ -34,7 +34,15 @@ from ..solvers import mg, nodal
 from .fill import MLGeom
 from .hierarchy import _sl, prolong_cells, prolong_nodes, restrict_cells
 
-DEFAULT_OUTER = 20
+# outer cycles of a composite solve at most (varden_tpu's DEFAULT_OUTER)
+MAX_OUTER = 20
+# V-cycles on the coarsest level inside each composite cc outer cycle
+NV_COARSE = 2
+# When a list, each composite solve appends one record as it ends: "cc" or
+# "nodal", its outer cycles, the stopping tolerance and the roundoff floor
+# within it (host floats), and the residual norm reached on each level
+# (chip_smoke.py reads it for the AMR main path)
+TRACE = None
 
 
 def _bcov(arr, cov):
@@ -250,31 +258,38 @@ def _max_abs(ts):
     return torch.stack([t.abs().max() for t in ts]).max()
 
 
-def _stop_test(rn, tol, diag_max, phis):
-    """The residual norm and the stopping tolerance on the host, in one
-    read. The tolerance includes the dtype's attainable floor, 4 eps *
-    max|diag| * max|phi|, as the single-level solvers have it (mg.solve,
-    nodal.solve): in float32 the composite residual of a fine hierarchy
+def _stop_test(level_norms, tol, diag_max, phis):
+    """The residual norm of each level and the stopping tolerance on the
+    host, in one read; also the roundoff floor. The tolerance includes the
+    dtype's attainable floor (mg.roundoff_floor), as the single-level
+    solvers have it: in float32 the composite residual of a fine hierarchy
     levels off there, above rel_eps * |rhs|; in float64 the floor lies far
     below the tolerances the steps ask for, so varden_tpu's stopping rule is
     unchanged there."""
-    rn_h, phi_max = torch.stack([rn, _max_abs(phis)]).tolist()
-    eps = torch.finfo(phis[0].dtype).eps
-    return rn_h, max(tol, 4.0 * eps * diag_max * phi_max)
+    *norms, phi_max = torch.stack(list(level_norms)
+                                  + [_max_abs(phis)]).tolist()
+    floor = mg.roundoff_floor(diag_max, phi_max, phis[0].dtype)
+    return norms, max(tol, floor), floor
+
+
+def _trace(kind, iters, tol, floor, norms):
+    if TRACE is not None:
+        TRACE.append({"kind": kind, "outer": iters, "tol": tol,
+                      "floor": floor, "level_res": norms})
 
 
 def composite_cc_solve(geom: MLGeom, comp: int, rhs_l, aco_l, beta_l, alpha,
                        phi0_l=None, bvals=None, rel_eps=1e-10,
-                       max_outer=DEFAULT_OUTER, return_info=False,
-                       nv_fine=1, nv_coarse=2):
+                       return_info=False):
     """Solve the composite problem (alpha*aco - div beta grad) phi = rhs over
     all levels. Returns (phi_l, resnorm), or (phi_l, (resnorm, outer cycles,
     ratio to the tolerance)) with return_info. rhs may carry a leading
     batch axis (one operator, several fields); ``bvals`` entries may then be
-    tensors broadcasting over it (per-component boundary values).
-    nv_fine / nv_coarse: V-cycles per level visit inside each outer cycle;
-    nv_fine must stay 1 (over-solving a fine level against its homogeneous
-    interface ghosts stalls the composite iteration)."""
+    tensors broadcasting over it (per-component boundary values). Each outer
+    cycle visits a fine level with one V-cycle on the way down and one on
+    the way up (over-solving a fine level against its homogeneous interface
+    ghosts stalls the composite iteration) and the coarsest with
+    NV_COARSE."""
     sim = geom.sim
     dm, nlev = geom.dm, geom.nlev
     ell0 = [tuple(sim.ell_bc[comp][d]) for d in range(dm)]
@@ -326,12 +341,12 @@ def composite_cc_solve(geom: MLGeom, comp: int, rhs_l, aco_l, beta_l, alpha,
                 restrict_cells(res[c], dm)
         return res
 
-    def resnorm(res):
+    def level_norms(res):
         if singular:
             # project out the composite incompatibility (constant) component
             m = _mean_sp(res[0], dm)
-            return _max_abs([r - m for r in res])
-        return _max_abs(res)
+            return [(r - m).abs().max() for r in res]
+        return [r.abs().max() for r in res]
 
     tol = rel_eps * float(_max_abs(rhs_l))
 
@@ -353,8 +368,7 @@ def composite_cc_solve(geom: MLGeom, comp: int, rhs_l, aco_l, beta_l, alpha,
         d = [torch.zeros_like(r) for r in res]
         for c in range(nlev - 1, 0, -1):
             p = geom.parent[c]
-            for _ in range(nv_fine):
-                d[c] = mg.v_cycle(hiers[c], d[c], res[c], zb)
+            d[c] = mg.v_cycle(hiers[c], d[c], res[c], zb)
             # on the down pass the parent correction is still zero: the
             # child's cf ghosts are zero and the parent-side reflux flux
             # vanishes
@@ -366,7 +380,7 @@ def composite_cc_solve(geom: MLGeom, comp: int, rhs_l, aco_l, beta_l, alpha,
             _reflux_correct(geom, c, res[p], None, pad_f, beta_l[p],
                             beta_l[c])
         r0 = res[0] - _mean_sp(res[0], dm) if singular else res[0]
-        for _ in range(nv_coarse):
+        for _ in range(NV_COARSE):
             d[0] = mg.v_cycle(hiers[0], d[0], r0, zb, singular=singular)
         for c in range(1, nlev):
             dp = d[geom.parent[c]]
@@ -379,21 +393,18 @@ def composite_cc_solve(geom: MLGeom, comp: int, rhs_l, aco_l, beta_l, alpha,
             rl = res[c] - mg.apply_padded(pad, aco_l[c], beta_l[c], alpha,
                                           geom.dx(c), dm)
             del pad
-            du = torch.zeros_like(rl)
-            for _ in range(nv_fine):
-                du = mg.v_cycle(hiers[c], du, rl, zb)
-            d[c] = d[c] + du
+            d[c] = d[c] + mg.v_cycle(hiers[c], torch.zeros_like(rl), rl, zb)
         return d
 
     diag_max = float(_max_abs([h[0].diag for h in hiers]))
     phis = slave([p.clone() for p in phi0_l])
     res = residuals(phis)
-    rn = resnorm(res)
+    norms_t = level_norms(res)
     iters = 0
     # one composite residual per outer cycle: the residual computed for the
     # stop test is the next correction's source
-    rn_h, tol_h = _stop_test(rn, tol, diag_max, phis)
-    while iters < max_outer and rn_h > tol_h:
+    norms, tol_h, floor = _stop_test(norms_t, tol, diag_max, phis)
+    while iters < MAX_OUTER and max(norms) > tol_h:
         d = comp_correction(res)
         phis = slave([p + di for p, di in zip(phis, d)])
         del d
@@ -401,9 +412,11 @@ def composite_cc_solve(geom: MLGeom, comp: int, rhs_l, aco_l, beta_l, alpha,
             m = _mean_sp(phis[0], dm)
             phis = [p - m for p in phis]
         res = residuals(phis)
-        rn = resnorm(res)
+        norms_t = level_norms(res)
         iters += 1
-        rn_h, tol_h = _stop_test(rn, tol, diag_max, phis)
+        norms, tol_h, floor = _stop_test(norms_t, tol, diag_max, phis)
+    _trace("cc", iters, tol, floor, norms)
+    rn = torch.stack(norms_t).max()
     if return_info:
         tiny = torch.finfo(rn.dtype).tiny
         return phis, (rn, iters, rn / max(tol_h, tiny))
@@ -490,8 +503,7 @@ def _prolong_node_patch(geom: MLGeom, lev, dc):
 
 
 def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
-                          return_info=False, phi0_l=None, rel_eps=1e-10,
-                          max_outer=DEFAULT_OUTER):
+                          return_info=False, phi0_l=None, rel_eps=1e-10):
     """Composite nodal (hg) solve over the hierarchy: the slave-node
     composite FEM problem (FBoxLib ml_nd_solve semantics, consumed via
     hg_multigrid.f90:95-105).
@@ -615,10 +627,11 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
             res[l] = r_own
         return res
 
-    def resnorm(res):
+    def level_norms(res):
         r0 = res[0] if masks[0] is None else res[0] * masks[0]
         r0 = r0 - r0.mean() if singular else r0
-        return _max_abs([r0] + [res[l] * masks[l] for l in range(1, nlev)])
+        return [r0.abs().max()] + [(res[l] * masks[l]).abs().max()
+                                   for l in range(1, nlev)]
 
     def comp_correction(res):
         """One recursive composite V-cycle on A_comp d = res (homogeneous
@@ -655,10 +668,10 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
     diag_max = float(_max_abs([h[0].diag for h in hiers]))
     phis = set_interfaces(phis)
     res = comp_residuals(phis)
-    rn = resnorm(res)
+    norms_t = level_norms(res)
     iters = 0
-    rn_h, tol_h = _stop_test(rn, tol, diag_max, phis)
-    while iters < max_outer and rn_h > tol_h:
+    norms, tol_h, floor = _stop_test(norms_t, tol, diag_max, phis)
+    while iters < MAX_OUTER and max(norms) > tol_h:
         d = comp_correction(res)
         phis = [p + di for p, di in zip(phis, d)]
         del d
@@ -667,9 +680,11 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
             m = phis[0].mean()
             phis = [p - m for p in phis]
         res = comp_residuals(phis)
-        rn = resnorm(res)
+        norms_t = level_norms(res)
         iters += 1
-        rn_h, tol_h = _stop_test(rn, tol, diag_max, phis)
+        norms, tol_h, floor = _stop_test(norms_t, tol, diag_max, phis)
+    _trace("nodal", iters, tol, floor, norms)
+    rn = torch.stack(norms_t).max()
     phis = set_interfaces(phis)
     if return_info:
         tiny = torch.finfo(rn.dtype).tiny

@@ -327,7 +327,6 @@ class Varden:
         while self.istep < max_step and (cfg.stop_time < 0.0 or
                                          self.time < cfg.stop_time - 1e-14):
             states = self.step_ml(states)
-        self.final_states = states
         return states
 
 

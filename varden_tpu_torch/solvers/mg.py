@@ -520,6 +520,12 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
     return (phi, rmax) if return_resnorm else phi
 
 
+def roundoff_floor(diag_max, phi_max, dtype):
+    """The residual norm a solve in ``dtype`` can attain, 4 eps * max|diag| *
+    max|phi|: every solver's stopping tolerance is at least this."""
+    return 4.0 * torch.finfo(dtype).eps * diag_max * phi_max
+
+
 def is_singular(ell_bc, alpha) -> bool:
     return alpha == 0.0 and all(bc in (BC_PER, BC_NEU)
                                 for pair in ell_bc for bc in pair)
@@ -566,10 +572,9 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
     bnorm = rhs.abs().max()
     tol = torch.clamp(rel_eps * bnorm, min=0.0 if abs_eps < 0 else abs_eps)
     diag_max = L0.diag.abs().max()
-    eps_mach = torch.finfo(dtype).eps
 
     def tol_eff(p):
-        floor = 4.0 * eps_mach * diag_max * p.abs().max()
+        floor = roundoff_floor(diag_max, p.abs().max(), dtype)
         return float(torch.maximum(tol, floor))
 
     def resnorm(p):

@@ -536,10 +536,9 @@ def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
     bnorm = rhs.abs().max()
     tol = torch.clamp(rel_eps * bnorm, min=0.0 if abs_eps < 0 else abs_eps)
     diag_max = L0.diag.abs().max()
-    eps_mach = torch.finfo(dtype).eps
 
     def tol_eff(p):
-        floor = 4.0 * eps_mach * diag_max * p.abs().max()
+        floor = _mg.roundoff_floor(diag_max, p.abs().max(), dtype)
         return float(torch.maximum(tol, floor))
 
     rn = _residual(L0, phi, rhs).abs().max()
