@@ -6,13 +6,17 @@
 Phases, each of which asserts and any failure of which exits non-zero:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
-     eight CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at once);
+     eleven CUDA kernels from varden_tpu_torch/csrc (one nvcc each, at
+     once);
   2. each kernel against its plain PyTorch version on the same inputs at
      the main paths' shapes (256^3 for the five 3-D kernels, 4096^2 for the
-     three 2-D ones), in float32 and again in float64: max abs error
-     against the stated tolerance, the kernel's time (CUDA events), the
-     plain version's time and the bound (bytes or operations, the
-     operations counted by hand from each kernel's body);
+     three 2-D ones, BASELINE config 5's patches for the two AMR ones, and
+     128^3 and 256^3 with config 4's boundaries for the padded sweep,
+     beside kernel 3's sweep and the ghost pad at the same shapes), in
+     float32 and again in float64: max abs error against the stated
+     tolerance, the kernel's time (CUDA events), the plain version's time
+     and the bound (bytes or operations, the operations counted by hand
+     from each kernel's body);
   3. one advance_timestep of the 3-D bubble at 32^3 in float64 on the card
      against the plain path on the CPU, from one numpy-made state: once
      inviscid, once with visc_coef = diff_coef = 1e-3 (Crank-Nicolson);
@@ -58,13 +62,34 @@ Phases, each of which asserts and any failure of which exits non-zero:
  12. regrids in the loop: inputs/inputs_3d-regt (64^3, 3 levels, regrid
      every 2 steps) for 4 steps, float32, and BASELINE config 3 (2-D 64^2,
      2 levels, regrid every 4) for 6 steps, each with at least one regrid
-     and the gates of phase 11.
+     and the gates of phase 11;
+ 13. BASELINE config 4's geometry (3-D Rayleigh-Taylor, periodic in x and
+     y, no-slip walls in z) at 32^3 in float64: Varden.run for STEPS_SHORT
+     steps on the card against the plain path on the CPU, every field;
+ 14. the config 4 main path, as bench.py:303-307 sets it (128^3, float32,
+     visc_coef 1e-3, cflfac 0.9, four pressure iterations): initialization
+     and STEPS steps with the launch counters zeroed before and read
+     after; kernels 1-5 and the padded sweep (kernel 7) must have
+     launched, the others not; the gates of phase 4 except the density
+     range, which varden_tpu itself leaves on this problem: the density
+     extrema of every step are printed, and the float32 run's extrema and
+     max|u| are held to the same path in float64 (STEPS_SHORT steps);
+ 15. I/O on the card: inputs/inputs_RayleighTaylor_3d as published
+     (float64, 32^3 base, 2 levels, regrid every step) to step 20 with a
+     checkpoint every 10 steps, its plotfiles and checkpoints read back,
+     the padded sweep launched on this AMR path, and a restart from step
+     10 equal to the uninterrupted run bitwise (every field of every
+     patch, and the step-20 plotfile's files byte for byte); then config 4
+     at 128^3 in float32 checkpointed at step 2 and restarted, its step-4
+     state equal bitwise. The seconds to write and read each kind of file
+     are printed.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
 one more step of each main path runs under torch.profiler: the table of
 device time by kernel is written to FILE (3-D), to FILE with "_2d" before
-its extension (2-D) and with "_amr" (the AMR main path), and the host and
+its extension (2-D), with "_amr" (the AMR main path) and with "_rt" (the
+config 4 main path), and the host and
 device time of each part of the step (the ranges that
 advance.advance_timestep and amr.advance_ml.ml_advance record) is
 printed. Without a
@@ -132,6 +157,7 @@ REPLACES = {
     "mkflux_2d_fused": "varden_tpu/ops/pallas_godunov.py:952",
     "update_3d": "varden_tpu/ops/pallas_kernels.py:738",
     "mkflux_3d_fused": "varden_tpu/ops/pallas_godunov.py:402",
+    "gsrb_sweep_3d": "varden_tpu/ops/pallas_kernels.py:119",
 }
 SOURCE = {
     "velpred_3d_fused": "varden_tpu_torch/csrc/velpred.cu",
@@ -144,6 +170,7 @@ SOURCE = {
     "mkflux_2d_fused": "varden_tpu_torch/csrc/mkflux2d.cu",
     "update_3d": "varden_tpu_torch/csrc/update.cu",
     "mkflux_3d_fused": "varden_tpu_torch/csrc/mkflux.cu",
+    "gsrb_sweep_3d": "varden_tpu_torch/csrc/gsrb_padded.cu",
 }
 # the kernels that each path runs: the viscous 3-D bubble, the inviscid 3-D
 # bubble, and every 2-D run (viscous or not: in 2-D the Helmholtz solves
@@ -155,6 +182,20 @@ KERNELS_2D = ("gsrb_sweep_2d", "velpred_2d_fused", "mkflux_2d_fused")
 # the 3-D AMR path adds the face kernel and the update of the scalars;
 # a 2-D AMR run takes the 2-D kernels
 KERNELS_AMR = KERNELS_3D + ("update_3d", "mkflux_3d_fused")
+# config 4 (periodic in x): its MAC levels smooth with the padded sweep,
+# whose residuals and restrictions stay on kernel 3; the RT inputs' AMR run
+# adds the AMR kernels
+KERNELS_RT = KERNELS_3D + ("gsrb_sweep_3d",)
+KERNELS_RT_AMR = KERNELS_AMR + ("gsrb_sweep_3d",)
+# config 4's extent, the padded sweep's shapes in phase 2, and the base of
+# its card-vs-CPU run; the RT inputs' I/O run ends at step RT_IO_STEPS with
+# a checkpoint every RT_IO_CHK steps (cuts of depth: the file runs 150
+# steps with a checkpoint every 100)
+N_RT = 128
+N_RT_PADDED = (128, 256)
+N_RT_CHECK = 32
+RT_IO_STEPS = 20
+RT_IO_CHK = 10
 # BASELINE config 5's patch extents at its 256^3 base (the hierarchy that
 # initialize_adaptive builds: 256^3, 240^3 at 136, 384^3 at 320)
 N_AMR_PATCHES = (256, 240, 384)
@@ -708,6 +749,66 @@ def kernel_cases_amr(torch, dtype_name):
     return cases
 
 
+def rt_level(torch, n, dtype_name):
+    """Config 4's MAC operator at n^3 on the card: the level (beta = 1/rho
+    on faces of the Rayleigh-Taylor density), its elliptic BCs (periodic x
+    and y, Neumann z), and a smooth seeded phi and rhs."""
+    from varden_tpu_torch import problems, projection
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.solvers import mg
+    from varden_tpu_torch.state import Sim
+    sim = Sim(VardenConfig(**rt_kw(n, dtype_name)), device="cuda")
+    N, dev, dt_ = sim.n_cell, sim.device, sim.dtype
+    beta = projection.mk_mac_coeffs(sim, problems.initdata(sim).s[0])
+    ell_bc = [tuple(sim.ell_bc[sim.press_comp][d]) for d in range(3)]
+    lev = mg.make_level(N, sim.dx, ell_bc, sim.zeros(N), beta, 0.0)
+    return (lev, ell_bc, smooth(torch, N, 50, 0.5, dev, dt_),
+            smooth(torch, N, 51, 50.0, dev, dt_))
+
+
+def kernel_cases_rt(torch, dtype_name):
+    """The padded sweep (kernel 7) at config 4's finest MAC level, 128^3,
+    and at 256^3: phi padded by mg._pad_ghost with config 4's boundaries;
+    beside it kernel 3's sweep of the same operator (the exact sweep that
+    the padded one replaces on these levels)."""
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.solvers import mg
+    cases = []
+    for n in N_RT_PADDED:
+        lev, ell_bc, phi, rhs = rt_level(torch, n, dtype_name)
+        bv = [[0.0, 0.0]] * 3
+        pad = mg._pad_ghost(phi, ell_bc, bv, 3)
+        cells = n ** 3
+        a = (pad, rhs, lev.inv_diag, list(lev.beta), lev.dx)
+        cases.append(("gsrb_sweep_3d", f"sweep {n}^3",
+                      (lambda a=a: ck.gsrb_sweep_3d(*a)),
+                      (lambda a=a: ck.gsrb_sweep_3d_plain(*a)),
+                      nbytes([pad, rhs, lev.inv_diag, *lev.beta])
+                      + nbytes([rhs]), GSRB_OPS["sweep"] * cells))
+        g = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
+        cases.append(("gsrb_var_sweep_3d", f"sweep per-xy {n}^3",
+                      (lambda g=g: ck.gsrb_var_sweep_3d(*g)),
+                      (lambda g=g: ck.gsrb_var_sweep_3d_plain(*g)),
+                      4 * nbytes([phi]) + nbytes(lev.beta),
+                      GSRB_OPS["sweep"] * cells))
+    return cases
+
+
+def pad_ghost_report(torch, dtype_name, reps):
+    """Device ms of mg._pad_ghost (plain torch: three concatenations) at
+    the padded sweep's shapes: the padded route pays it once per sweep."""
+    from varden_tpu_torch.solvers import mg
+    out = {}
+    for n in N_RT_PADDED:
+        _lev, ell_bc, phi, _rhs = rt_level(torch, n, dtype_name)
+        ms = cuda_ms(torch, lambda: mg._pad_ghost(phi, ell_bc,
+                                                  [[0.0, 0.0]] * 3, 3), reps)
+        out[n] = ms
+        print(f"  mg._pad_ghost {n}^3 {dtype_name}: {ms:.4f} ms", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, dtype_name, reps, cases_fn=kernel_cases):
     tol = TOL_KERNEL[dtype_name]
     rows = []
@@ -773,6 +874,19 @@ def cfg5_kw(n, dtype_name, **over):
     return kw
 
 
+def rt_kw(n, dtype_name, **over):
+    """BASELINE config 4 as bench.py:303-307 sets it: 3-D Rayleigh-Taylor
+    (prob_type 3) at n^3, periodic in x and y, no-slip walls in z,
+    visc_coef 1e-3, cflfac 0.9, the other settings at their defaults (four
+    pressure iterations)."""
+    kw = dict(dim_in=3, prob_type=3, n_cellx=n, n_celly=n, n_cellz=n,
+              grav=-9.8, dtype=dtype_name, visc_coef=1.0e-3, cflfac=0.9,
+              bcx_lo=-1, bcx_hi=-1, bcy_lo=-1, bcy_hi=-1, bcz_lo=15,
+              bcz_hi=15, plot_int=-1, chk_int=-1)
+    kw.update(over)
+    return kw
+
+
 def cfg3_kw(dtype_name):
     """BASELINE config 3 (bench.py:298-302): the viscous 2-D bubble on a
     64^2 base, max_levs 2, regrid every 4 steps, init_shrink 0.1."""
@@ -829,9 +943,9 @@ def phase_step(torch, kw):
     return res
 
 
-def phase_step_ml(torch, kw, steps):
-    """Varden.run of the multi-level configuration ``kw`` for ``steps``
-    steps on the card and on the CPU plain path, float64: the same boxes,
+def phase_run(torch, kw, steps):
+    """Varden.run of the configuration ``kw`` for ``steps`` steps on the
+    card and on the CPU plain path, float64: the same boxes (multi-level),
     every field of every level within TOL_STEP of its size."""
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.driver import Varden
@@ -843,11 +957,14 @@ def phase_step_ml(torch, kw, steps):
         states = v.run()
         if dev is None:
             torch.cuda.synchronize()
-        out[name] = (v, states, time.perf_counter() - t0)
+        out[name] = (v, states if v.ml else [states],
+                     time.perf_counter() - t0)
     (vc, sc, tc), (vg, sg, tg) = out["cpu"], out["card"]
-    boxes = [(s.lo, s.n) for s in vg.geom.specs]
-    need(boxes == [(s.lo, s.n) for s in vc.geom.specs],
-         f"AMR boxes differ between the card and the CPU: {boxes}")
+    boxes = [((0,) * cfg.dm, cfg.n_cell)]
+    if vg.ml:
+        boxes = [(s.lo, s.n) for s in vg.geom.specs]
+        need(boxes == [(s.lo, s.n) for s in vc.geom.specs],
+             f"AMR boxes differ between the card and the CPU: {boxes}")
     errs = {}
     for lev, (a, b) in enumerate(zip(sc, sg)):
         for key in ("u", "s", "gp", "p"):
@@ -859,7 +976,7 @@ def phase_step_ml(torch, kw, steps):
                                                 "finite on the card")
             need(err <= TOL_STEP * scale, f"AMR level {lev} field {key} on "
                  f"the card differs from the CPU path by {err}")
-    print(f"  AMR {steps} steps float64, levels {[b[1] for b in boxes]}: "
+    print(f"  {steps} steps float64, levels {[b[1] for b in boxes]}: "
           f"max abs err card vs CPU {max(errs.values()):.3e} (tol "
           f"{TOL_STEP:.0e} x field size); wall card {tg:.3f} s (kernels "
           f"loaded), CPU {tc:.3f} s", flush=True)
@@ -883,13 +1000,15 @@ def counters():
             "velpred_2d_fused": cg.velpred_2d_fused,
             "mkflux_2d_fused": cg.mkflux_2d_fused,
             "update_3d": cu.update_3d,
-            "mkflux_3d_fused": cg.mkflux_3d_fused}
+            "mkflux_3d_fused": cg.mkflux_3d_fused,
+            "gsrb_sweep_3d": ck.gsrb_sweep_3d}
 
 
-def phase_main(torch, kw, steps, expect):
+def phase_main(torch, kw, steps, expect, bubble=True):
     """Drive Varden on the configuration ``kw`` for ``steps`` regular steps;
     ``expect`` names the kernels that must have launched, every other one
-    must not have."""
+    must not have. ``bubble``: hold the density to the bubble's range
+    [1, densfact]."""
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.driver import Varden
 
@@ -952,7 +1071,7 @@ def phase_main(torch, kw, steps, expect):
              f"main path field {key} is not finite")
     rho = state.s[0]
     lo, hi = float(rho.min()), float(rho.max())
-    need(1.0 - tol_rho <= lo and hi <= rho_hi + tol_rho,
+    need(not bubble or (1.0 - tol_rho <= lo and hi <= rho_hi + tol_rho),
          f"density left [1, {rho_hi}]: min {lo}, max {hi}")
     for rec in per_step:
         need(rec["mac_ratio"] <= 1.0 and rec["hg_ratio"] <= 1.0,
@@ -1059,6 +1178,176 @@ def phase_main_ml(torch, cfg, steps, expect, label):
         need(rec["div_after"] < rec["div_before"],
              f"step {rec['step']}: the MAC projection did not reduce div")
     return v, states, launches, per_step, peak, t_init
+
+
+IO_FUNCS = ("write_plotfile", "write_checkpoint", "read_checkpoint",
+            "write_plotfile_ml", "write_checkpoint_ml", "read_checkpoint_ml")
+
+
+class TimedIO:
+    """For the duration of a with block, wrap the writers and readers of
+    varden_tpu_torch.io.output (which the driver calls through the module)
+    to record each call's seconds, the card synchronised before and
+    after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.secs = {}
+
+    def __enter__(self):
+        from varden_tpu_torch.io import output
+        self.mod, self.orig = output, {}
+        for name in IO_FUNCS:
+            self.orig[name] = getattr(output, name)
+            setattr(output, name, self._timed(name, self.orig[name]))
+        return self
+
+    def _timed(self, name, fn):
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.secs.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+def same_states(torch, a, b, what):
+    """Two lists of per-patch States equal bitwise, field by field."""
+    need(len(a) == len(b), f"{what}: {len(a)} patches against {len(b)}")
+    for lev, (x, y) in enumerate(zip(a, b)):
+        for key in ("u", "s", "gp", "p"):
+            p, q = getattr(x, key), getattr(y, key)
+            need(p.shape == q.shape and bool(torch.equal(p, q)),
+                 f"{what}: patch {lev} field {key} differs (max abs "
+                 f"{float((p - q).abs().max()) if p.shape == q.shape else 'shape'})")
+
+
+def same_files(d1, d2, what):
+    """Every file of directory d1 equal byte for byte to d2's."""
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+    names = files(d1)
+    need(names == files(d2), f"{what}: the file lists differ")
+    for f in names:
+        with open(os.path.join(d1, f), "rb") as a, \
+                open(os.path.join(d2, f), "rb") as b:
+            need(a.read() == b.read(), f"{what}: {f} differs")
+    return len(names)
+
+
+def phase_io(torch):
+    """Plotfiles, checkpoints and restarts on the card (phase 15): the RT
+    inputs as published, cut to RT_IO_STEPS steps with a checkpoint every
+    RT_IO_CHK, then config 4 at N_RT^3 in float32; all output goes to a
+    temporary directory that is removed at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.driver import Varden, run_from_inputs
+    from varden_tpu_torch.io import boxlib
+    from varden_tpu_torch.io import output
+
+    path = os.path.join(HERE, "inputs", "inputs_RayleighTaylor_3d")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    res = {}
+    try:
+        full, again = os.path.join(tmp, "full"), os.path.join(tmp, "again")
+        over = dict(max_step=RT_IO_STEPS, chk_int=RT_IO_CHK)
+        fns = counters()
+        for f in fns.values():
+            f.launches = 0
+        with TimedIO(torch) as tio:
+            t0 = time.perf_counter()
+            v = run_from_inputs(path, plot_base_name=full + "/plt",
+                                check_base_name=full + "/chk", **over)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in fns.items()}
+            print(f"  RT inputs to step {v.istep} in {t_run:.3f} s, levels "
+                  f"{[s.n for s in v.geom.specs]}, {v.regrids} regrids; "
+                  f"launches { {k: c for k, c in launches.items() if c} }",
+                  flush=True)
+            for k in KERNELS_RT_AMR:
+                need(launches[k] > 0, f"RT inputs: kernel {k} was not "
+                                      "launched on this AMR path")
+            plot_read = []
+            for step in range(0, RT_IO_STEPS + 1, v.cfg.plot_int):
+                t0 = time.perf_counter()
+                names, t_plt, levels = boxlib.read_plotfile(
+                    f"{full}/plt{step:05d}")
+                plot_read.append(time.perf_counter() - t0)
+                need(names[3] == "density" and levels and all(
+                    bool(np.isfinite(a).all()) for a in levels),
+                     f"plt{step:05d} did not read back finite")
+            for step in range(RT_IO_CHK, RT_IO_STEPS + 1, RT_IO_CHK):
+                _g, sts, hdr, hints = output.read_checkpoint_ml(
+                    v.sim, f"{full}/chk{step:05d}")
+                need(hdr["istep"] == step and hints is not None,
+                     f"chk{step:05d} did not read back")
+            same_states(torch, v.final_state, sts,
+                        f"chk{RT_IO_STEPS:05d} read back")
+            # the restart: a copy of the mid-run checkpoint, run to the end
+            shutil.copytree(f"{full}/chk{RT_IO_CHK:05d}",
+                            f"{again}/chk{RT_IO_CHK:05d}")
+            t0 = time.perf_counter()
+            v2 = run_from_inputs(path, plot_base_name=again + "/plt",
+                                 check_base_name=again + "/chk",
+                                 restart=RT_IO_CHK, **over)
+            torch.cuda.synchronize()
+            t_restart = time.perf_counter() - t0
+            need(v2.istep == v.istep and v2.time == v.time,
+                 f"the restart ended at step {v2.istep}, time {v2.time}")
+            same_states(torch, v.final_state, v2.final_state,
+                        f"RT inputs restarted from step {RT_IO_CHK}")
+            nfiles = same_files(f"{full}/plt{RT_IO_STEPS:05d}",
+                                f"{again}/plt{RT_IO_STEPS:05d}",
+                                "the restart's last plotfile")
+            print(f"  restart from chk{RT_IO_CHK:05d} to step {v2.istep} in "
+                  f"{t_restart:.3f} s: every field of every patch equal "
+                  f"bitwise, plt{RT_IO_STEPS:05d}'s {nfiles} files equal "
+                  "byte for byte", flush=True)
+
+            # config 4 at N_RT^3 float32: checkpoint at step 2, restart
+            kw = rt_kw(N_RT, "float32", max_step=4, chk_int=2)
+            c4, c4again = os.path.join(tmp, "c4"), os.path.join(tmp, "c4a")
+            va = Varden(VardenConfig(**dict(kw, check_base_name=c4 + "/chk")))
+            sa = va.run()
+            shutil.copytree(f"{c4}/chk00002", f"{c4again}/chk00002")
+            vb = Varden(VardenConfig(**dict(kw, restart=2,
+                                            check_base_name=c4again
+                                            + "/chk")))
+            sb = vb.run()
+            need(vb.istep == va.istep == 4 and vb.time == va.time,
+                 "config 4's restart did not end where the run did")
+            same_states(torch, [sa], [sb], f"config 4 {N_RT}^3 restarted "
+                                           "from step 2")
+            print(f"  config 4 {N_RT}^3 float32 restarted from chk00002: the "
+                  "step-4 state equal bitwise", flush=True)
+        secs = {k: {"calls": len(ts), "total_s": sum(ts),
+                    "mean_s": sum(ts) / len(ts)}
+                for k, ts in tio.secs.items()}
+        secs["read_plotfile"] = {"calls": len(plot_read),
+                                 "total_s": sum(plot_read),
+                                 "mean_s": sum(plot_read) / len(plot_read)}
+        for k, r in secs.items():
+            print(f"  {k}: {r['calls']} calls, {r['mean_s']:.4f} s each "
+                  f"({r['total_s']:.4f} s)", flush=True)
+        res = {"launches": launches, "run_s": t_run,
+               "restart_s": t_restart, "io_s": secs,
+               "levels": [list(s.n) for s in v.geom.specs],
+               "regrids": v.regrids}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
 
 
 def solve_report(tag, records):
@@ -1211,13 +1500,17 @@ def main(argv=None) -> int:
           f"{build_s:.2f} s ({time.perf_counter() - t0:.2f} s with loading)",
           flush=True)
 
-    print(f"phase 2: kernels vs plain versions at 256^3, {N_2D}^2 and the "
-          f"AMR patches {N_AMR_PATCHES}", flush=True)
+    print(f"phase 2: kernels vs plain versions at 256^3, {N_2D}^2, the "
+          f"AMR patches {N_AMR_PATCHES} and config 4's {N_RT_PADDED}",
+          flush=True)
     rows32, rows64 = [], []
-    for cases_fn in (kernel_cases, kernel_cases_2d, kernel_cases_amr):
+    for cases_fn in (kernel_cases, kernel_cases_2d, kernel_cases_amr,
+                     kernel_cases_rt):
         rows32 += phase_kernels(torch, "float32", REPS, cases_fn)
         rows64 += phase_kernels(torch, "float64", max(2, REPS // 4), cases_fn)
         torch.cuda.empty_cache()
+    pad_ms = {"float32": pad_ghost_report(torch, "float32", REPS),
+              "float64": pad_ghost_report(torch, "float64", REPS // 4)}
 
     print("phase 3: one float64 step, card vs CPU plain path: inviscid, "
           "then visc_coef = diff_coef = 1e-3", flush=True)
@@ -1294,7 +1587,7 @@ def main(argv=None) -> int:
     print(f"phase 10: AMR on the card vs the CPU plain path, float64: "
           f"BASELINE config 5 at a 32^3 base, {STEPS_SHORT} steps",
           flush=True)
-    amr_check = phase_step_ml(torch, cfg5_kw(32, "float64"), STEPS_SHORT)
+    amr_check = phase_run(torch, cfg5_kw(32, "float64"), STEPS_SHORT)
     torch.cuda.empty_cache()
     print(f"  config 5 at a {N_AMR_HOLD}^3 base on the card, float64 then "
           f"float32, {STEPS_SHORT} steps each, and the float32 run against "
@@ -1337,20 +1630,52 @@ def main(argv=None) -> int:
         regrid_runs[key] = {"launches": ln, "steps": ps, "peak_bytes": pk}
         torch.cuda.empty_cache()
 
+    print(f"phase 13: config 4's geometry at {N_RT_CHECK}^3, card vs CPU "
+          f"plain path, float64, {STEPS_SHORT} steps", flush=True)
+    rt_check = phase_run(torch, rt_kw(N_RT_CHECK, "float64"), STEPS_SHORT)
+    torch.cuda.empty_cache()
+
+    print(f"phase 14: the config 4 main path, 3-D Rayleigh-Taylor {N_RT}^3 "
+          f"float32 (visc_coef 1e-3, cflfac 0.9), {STEPS} steps", flush=True)
+    v, state, launches_rt, per_step_rt, peak_rt = phase_main(
+        torch, rt_kw(N_RT, "float32"), STEPS, KERNELS_RT, bubble=False)
+    prof_rt = None
+    if args.profile:
+        root, ext = os.path.splitext(args.profile)
+        prof_rt = profile_step(torch, v, state, root + "_rt" + ext)
+    del v, state
+    torch.cuda.empty_cache()
+    print(f"  the same path in float64, {STEPS_SHORT} steps, and the "
+          "float32 run against it (density extrema and max|u|)", flush=True)
+    _, _, _, per_step_rt64, _ = phase_main(
+        torch, rt_kw(N_RT, "float64"), STEPS_SHORT, KERNELS_RT, bubble=False)
+    hold_f32_to_f64(per_step_rt, per_step_rt64)
+    torch.cuda.empty_cache()
+
+    print(f"phase 15: I/O on the card: inputs/inputs_RayleighTaylor_3d to "
+          f"step {RT_IO_STEPS} (a checkpoint every {RT_IO_CHK}) and its "
+          f"restart, then config 4 {N_RT}^3 float32 restarted from step 2",
+          flush=True)
+    io = phase_io(torch)
+    torch.cuda.empty_cache()
+
     # the JSON line: for each kernel its main case (velocity update, the
-    # sweep, the Jacobi emit; the AMR kernels at the finest patch);
-    # max_abs_err the largest over its cases
+    # sweep, the Jacobi emit; the AMR kernels at the finest patch; the
+    # padded sweep at config 4's finest MAC level); max_abs_err the largest
+    # over its cases
     main_case = {"velpred_3d_fused": "velocity",
                  "mkflux_update_3d_fused": "velocity",
                  "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi",
                  "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
                  "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
                  "update_3d": "nc2 [T,F] 384x384x384",
-                 "mkflux_3d_fused": "scalars 384x384x384"}
+                 "mkflux_3d_fused": "scalars 384x384x384",
+                 "gsrb_sweep_3d": f"sweep {N_RT}^3"}
     launches_3d = dict(launches)
     launches.update({k: launches2[k] for k in KERNELS_2D})
     launches.update({k: launches_amr[k] for k in ("update_3d",
                                                   "mkflux_3d_fused")})
+    launches["gsrb_sweep_3d"] = launches_rt["gsrb_sweep_3d"]
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows32 if x["name"] == name
@@ -1379,7 +1704,10 @@ def main(argv=None) -> int:
               "steps_amr": per_step_amr, "launches_amr": launches_amr,
               "peak_bytes_amr": peak_amr, "init_s_amr": init_amr,
               "profiled_step_amr": prof_amr, "regrid_runs": regrid_runs,
-              "total_s": total_s}
+              "pad_ghost_ms": pad_ms, "rt_card_vs_cpu": rt_check,
+              "steps_rt": per_step_rt, "launches_rt": launches_rt,
+              "peak_bytes_rt": peak_rt, "steps_rt_f64": per_step_rt64,
+              "profiled_step_rt": prof_rt, "io": io, "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
     runs = [("3-D main path (phase 4)", per_step, launches_3d, prof3),
@@ -1390,6 +1718,8 @@ def main(argv=None) -> int:
                  per_step_amr, launches_amr, prof_amr))
     runs += [(f"AMR {key} (phase 12)", r["steps"], r["launches"], None)
              for key, r in regrid_runs.items()]
+    runs.append((f"config 4 main path, RT {N_RT}^3 (phase 14)", per_step_rt,
+                 launches_rt, prof_rt))
     for tag, ps, ln, pr in runs:
         mean = mean_steady(ps)
         cells = ps[-1]["cells"]
@@ -1408,6 +1738,14 @@ def main(argv=None) -> int:
         print(line, flush=True)
     print(f"summary AMR main path (phase 11): initialization {init_amr:.3f} s;"
           f" peak device memory {peak_amr} bytes", flush=True)
+    print(f"summary config 4 main path (phase 14): peak device memory "
+          f"{peak_rt} bytes; density min/max by step "
+          f"{[(r['rho_min'], r['rho_max']) for r in per_step_rt]}",
+          flush=True)
+    print(f"summary I/O (phase 15): RT inputs run {io['run_s']:.3f} s, "
+          f"restart {io['restart_s']:.3f} s; seconds per call "
+          + ", ".join(f"{k} {r['mean_s']:.4f}" for k, r in io["io_s"].items()),
+          flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -137,8 +137,7 @@ def test_varden_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(mesh=2), dict(plot_int=1), dict(chk_int=1), dict(restart=0),
-    dict(use_godunov_debug=True)])
+    dict(mesh=2), dict(use_godunov_debug=True)])
 def test_unported_paths_raise(extra):
     from varden_tpu_torch.driver import Varden
     with pytest.raises(NotImplementedError):

@@ -154,6 +154,31 @@ def test_gsrb_var_kernel(cuda, dtype, n, ell_bc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("alpha", [0.0, 0.7])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((8, 8, 8), [(0, 0), (2, 2), (1, 1)]),
+    ((16, 8, 24), [(0, 0), (2, 1), (1, 2)]),
+    ((64, 16, 16), [(0, 0), (0, 0), (1, 1)]),
+    ((15, 9, 7), [(0, 0), (3, 3), (2, 3)]),
+    ((1, 5, 2), [(0, 0), (1, 2), (0, 0)]),
+])
+def test_gsrb_padded_kernel(cuda, dtype, alpha, n, ell_bc):
+    """Kernel 7 on a ghost-padded phi (the pad of mg._pad_ghost with
+    non-zero Dirichlet values), even, odd and thin extents."""
+    lev, phi, rhs = _mg_level(n, ell_bc, dtype, cuda)
+    aco = 1.0 + phi.abs()
+    bv = [[0.0, 0.0], [0.3, -0.2], [0.5, 0.25]]
+    pad = mg._pad_ghost(phi, ell_bc, bv, 3)
+    args = (pad, rhs, lev.inv_diag, list(lev.beta), lev.dx)
+    k = cuda_kernels
+    before = k.gsrb_sweep_3d.launches
+    out = k.gsrb_sweep_3d(*args, aco=aco, alpha=alpha)
+    ref = k.gsrb_sweep_3d_plain(*args, aco=aco, alpha=alpha)
+    assert k.gsrb_sweep_3d.launches == before + 2
+    _close(out, ref, dtype, f"gsrb_padded n={n} alpha={alpha}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("n,ell_bc", [
     ((16, 8, 32), [(2, 2), (2, 2), (2, 2)]),

@@ -77,7 +77,7 @@ def test_run_2d_inputs_files_match_three_steps(name):
         TSim(tload(path, **over), device="cpu")).u).abs().max()) > 1e-8
 
 
-def test_cli_runs_the_2d_bubble_inputs_file():
+def test_cli_runs_the_2d_bubble_inputs_file(tmp_path):
     args = [sys.executable, "-m", "varden_tpu_torch",
             os.path.join("inputs", "inputs_bubble_2d"), "--max_levs", "1",
             "--plot_int", "-1", "--max_step", "4", "--device", "cpu"]
@@ -93,8 +93,13 @@ def test_cli_runs_the_2d_bubble_inputs_file():
     for parts in dens:
         lo, hi = float(parts[-2]), float(parts[-1])
         assert 1.0 - 1e-6 <= lo and hi <= 2.0 + 1e-6
-    # plotfile output is not ported
-    res = subprocess.run(args[:-4] + ["--plot_int", "1", "--device", "cpu"],
+    # plotfiles at plot_int, and one at the final step off the cadence
+    base = str(tmp_path / "plt")
+    res = subprocess.run(args[:-4] + ["--plot_int", "2", "--max_step", "3",
+                                      "--plot_base_name", base, "--device",
+                                      "cpu"],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300, env=env)
-    assert res.returncode != 0 and "plotfile output" in res.stderr
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert sorted(os.listdir(tmp_path)) == ["plt00000", "plt00002",
+                                            "plt00003"]

@@ -180,13 +180,14 @@ def test_initdata_2d_matches(prob_type):
 
 def test_dm2_is_supported_and_amr_still_raises():
     """2-D runs are supported, multi-level ones too (the AMR slice); a
-    multi-level run still raises for what stays unported (checkpoints)."""
+    multi-level run still raises for what stays unported (the device
+    mesh)."""
     cfg = TCfg(**KW)
     tadv.check_supported(cfg)
     assert TVarden(cfg, device="cpu").sim.dm == 2
     assert TVarden(TCfg(**dict(KW, max_levs=2)), device="cpu").ml
     with pytest.raises(NotImplementedError):
-        TVarden(TCfg(**dict(KW, max_levs=2, chk_int=1)), device="cpu")
+        TVarden(TCfg(**dict(KW, max_levs=2, mesh=2)), device="cpu")
     lev = tmg.make_level((8, 8), (0.1, 0.1), [(1, 1)] * 2, torch.zeros(8, 8),
                          (1.0, 1.0), 0.0)
     assert tmg.cc_apply(lev, torch.ones(8, 8)).abs().max() == 0.0

@@ -53,3 +53,30 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def force_padded_route(monkeypatch):
+    """Make varden_tpu take its accelerator route to the padded sweep
+    (pallas_kernels.gsrb_sweep_3d, run in interpret mode) on the levels
+    where it takes it on the TPU: 3-D, face-tensor beta, x periodic (where
+    gsrb_var_sweep_3d refuses), every extent even and >= 8 (gsrb_supported
+    without its VMEM clause). Returns a list that counts the sweeps."""
+    import functools
+    from varden_tpu.bc import BC_PER
+    from varden_tpu.ops import pallas_kernels as pk
+    calls = []
+    sweep = functools.partial(pk.gsrb_sweep_3d, interpret=True)
+
+    def supported(level):
+        return (level.dm == 3
+                and all(getattr(b, "ndim", 0) > 0 for b in level.beta)
+                and BC_PER in level.ell_bc[0]
+                and all(s >= 8 and s % 2 == 0 for s in level.n))
+
+    def counted(*a, **k):
+        calls.append(1)
+        return sweep(*a, **k)
+
+    monkeypatch.setattr(pk, "gsrb_supported", supported)
+    monkeypatch.setattr(pk, "gsrb_sweep_3d", counted)
+    return calls

@@ -4,8 +4,10 @@ pressure iterations, main step loop — on one level or on a non-subcycled AMR
 hierarchy (max_levs > 1: adaptive or fixed grids, regrid every regrid_int
 steps).
 
-Ported so far: 2-D and 3-D runs without I/O. The device mesh, restarts and
-plotfile / checkpoint output raise NotImplementedError.
+2-D and 3-D runs write plotfiles and checkpoints at plot_int / chk_int
+(and at a final step off the cadence) and restart from a checkpoint
+(restart >= 0), bitwise; the device mesh (mesh > 0) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from . import advance, problems, projection
 from .amr import advance_ml, regrid
 from .amr.fill import MLGeom
 from .config import VardenConfig, load_config
+from .io import output
 from .solvers import nodal
 from .state import Sim, State
 
@@ -28,13 +31,9 @@ WARM_EXTRAP_MAX_CELLS = 5e7
 
 
 def _check_supported(cfg: VardenConfig) -> None:
-    waits = [(cfg.mesh > 0, "multi-device runs (mesh > 0)"),
-             (cfg.restart >= 0, "restart from a checkpoint (restart >= 0)"),
-             (cfg.plot_int > 0, "plotfile output (plot_int > 0)"),
-             (cfg.chk_int > 0, "checkpoint output (chk_int > 0)")]
-    for cond, what in waits:
-        if cond:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.mesh > 0:
+        raise NotImplementedError("multi-device runs (mesh > 0) are not "
+                                  "ported yet")
     advance.check_supported(cfg)
 
 
@@ -167,18 +166,57 @@ class Varden:
                     raise RuntimeError(msg)
                 warnings.warn(msg)
 
+    def restart(self) -> State:
+        """Resume from checkpoint chk<restart> (reference
+        initialize_from_restart, src/initialize.f90:23-91; resumes at
+        restart+1, varden.f90:225-229), warm starts included."""
+        cfg = self.cfg
+        name = f"{cfg.check_base_name}{cfg.restart:05d}"
+        state, header, hints = output.read_checkpoint(self.sim, name)
+        self.time, self.dt = header["time"], header["dt"]
+        self.istep = header["istep"]
+        if hints is not None:
+            self._hints = hints
+        return state
+
+    def _running(self, max_step):
+        cfg = self.cfg
+        return self.istep < max_step and (cfg.stop_time < 0.0 or
+                                          self.time < cfg.stop_time - 1e-14)
+
+    def _due(self, every, final):
+        """Whether a plotfile / checkpoint written every ``every`` steps is
+        due now: on the cadence, or at a final step off it
+        (varden.f90:378)."""
+        return every > 0 and (self.istep % every == 0 or final)
+
     def run(self, state: Optional[State] = None,
             max_step: Optional[int] = None):
-        """Run to max_step / stop_time. Returns the final State, or in
-        multi-level mode the list of per-patch States."""
+        """Run to max_step / stop_time, from initial data or (restart >= 0)
+        from a checkpoint. Returns the final State, or in multi-level mode
+        the list of per-patch States."""
         cfg = self.cfg
         if self.ml:
             return self.run_ml(max_step)
-        state = self.initialize(state)
+        if cfg.restart >= 0 and state is None:
+            state = self.restart()
+        else:
+            state = self.initialize(state)
         max_step = cfg.max_step if max_step is None else max_step
-        while self.istep < max_step and (cfg.stop_time < 0.0 or
-                                         self.time < cfg.stop_time - 1e-14):
+
+        def write(final=False):
+            if self._due(cfg.plot_int, final):
+                output.write_plotfile(self.sim, state, self.istep, self.time,
+                                      self.dt)
+            if self._due(cfg.chk_int, final):
+                output.write_checkpoint(self.sim, state, self.istep,
+                                        self.time, self.dt,
+                                        hints=self._hints)
+
+        write()
+        while self._running(max_step):
             state = self.step(state)
+            write(final=not self._running(max_step))
         return state
 
     # -- multi-level ----------------------------------------------------
@@ -320,13 +358,41 @@ class Varden:
                      f"{[s.n for s in self.geom.specs]})")
         return states
 
+    def restart_ml(self):
+        """Resume a multi-level run from checkpoint chk<restart>: the patch
+        tree, the states and the warm starts (conformed to this run's hint
+        structure: large hierarchies keep no '_prev' pair)."""
+        cfg = self.cfg
+        name = f"{cfg.check_base_name}{cfg.restart:05d}"
+        self.geom, states, header, hints = output.read_checkpoint_ml(
+            self.sim, name)
+        self.time, self.dt = header["time"], header["dt"]
+        self.istep = header["istep"]
+        if hints is not None and not self._hints_have_prev():
+            hints = {k: v for k, v in hints.items()
+                     if not k.endswith("_prev")}
+        self._ml_hints = hints
+        return states
+
     def run_ml(self, max_step: Optional[int] = None):
         cfg = self.cfg
-        states = self.initialize_ml()
+        states = (self.restart_ml() if cfg.restart >= 0
+                  else self.initialize_ml())
         max_step = cfg.max_step if max_step is None else max_step
-        while self.istep < max_step and (cfg.stop_time < 0.0 or
-                                         self.time < cfg.stop_time - 1e-14):
+
+        def write(final=False):
+            if self._due(cfg.plot_int, final):
+                output.write_plotfile_ml(self.geom, states, self.istep,
+                                         self.time)
+            if self._due(cfg.chk_int, final):
+                output.write_checkpoint_ml(self.geom, states, self.istep,
+                                           self.time, self.dt,
+                                           hints=self._ml_hints)
+
+        write()
+        while self._running(max_step):
             states = self.step_ml(states)
+            write(final=not self._running(max_step))
         return states
 
 

@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("velpred", "mkflux_update", "gsrb_var", "gsrb_const", "nodal",
-           "velpred2d", "mkflux2d", "gsrb2d", "update", "mkflux")
+           "velpred2d", "mkflux2d", "gsrb2d", "update", "mkflux",
+           "gsrb_padded")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC",
          # no fused multiply-add contraction: the kernels then round like

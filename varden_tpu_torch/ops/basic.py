@@ -135,3 +135,62 @@ def estdt(u: torch.Tensor, rho: torch.Tensor, gp: torch.Tensor,
     if dtold > 0.0:
         dt = min(dt, max_dt_growth * dtold)
     return dt
+
+
+def vorticity(u_pad: torch.Tensor, dx: Sequence[float], ng: int,
+              n_cell: Sequence[int], phys_bc=None) -> torch.Tensor:
+    """Vorticity (its magnitude in 3-D) from a ghost-padded velocity
+    (reference make_vorticity, src/makevort.f90:16-56).
+
+    With ``phys_bc``, tangential derivatives at INLET / NO_SLIP_WALL (and,
+    in 2-D, SLIP_WALL) boundaries use the reference's one-sided stencils:
+    2-D  (f_{+1} + 3 f_0 - 4 f_{-1}) / dx      (makevort.f90:107-138)
+    3-D  (f_{+1} + 3 f_0 - 4 f_{-1}) / (3 dx)  (makevort.f90:561-607)
+    (the differing 2-D/3-D normalizations are the reference's own); without
+    it, pure centred differences."""
+    from ..config import INLET, NO_SLIP_WALL, SLIP_WALL
+    dm = u_pad.shape[0]
+
+    def shifted(f, d, off):
+        for t in range(dm):
+            ax = f.ndim - dm + t
+            start = ng + (off if t == d else 0)
+            f = f.narrow(ax, start, n_cell[t])
+        return f
+
+    fix_codes = ((INLET, NO_SLIP_WALL, SLIP_WALL) if dm == 2
+                 else (INLET, NO_SLIP_WALL))
+    onesided_div = dx if dm == 2 else [3.0 * h for h in dx]
+
+    def d_ax(f, d):
+        fp, f0, fm = shifted(f, d, 1), shifted(f, d, 0), shifted(f, d, -1)
+        cen = (fp - fm) / (2.0 * dx[d])
+        if phys_bc is None:
+            return cen
+        lo_fix = phys_bc[d][0] in fix_codes
+        hi_fix = phys_bc[d][1] in fix_codes
+        if not (lo_fix or hi_fix):
+            return cen
+        ax = cen.ndim - dm + d
+        idx = torch.arange(n_cell[d], device=cen.device).reshape(
+            [-1 if t == ax else 1 for t in range(cen.ndim)])
+        out = cen
+        if lo_fix:
+            lo_val = (fp + 3.0 * f0 - 4.0 * fm) / onesided_div[d]
+            out = torch.where(idx == 0, lo_val, out)
+        if hi_fix:
+            hi_val = -(fm + 3.0 * f0 - 4.0 * fp) / onesided_div[d]
+            out = torch.where(idx == n_cell[d] - 1, hi_val, out)
+        return out
+
+    if dm == 2:
+        return d_ax(u_pad[1], 0) - d_ax(u_pad[0], 1)
+    wx = d_ax(u_pad[2], 1) - d_ax(u_pad[1], 2)
+    wy = d_ax(u_pad[0], 2) - d_ax(u_pad[2], 0)
+    wz = d_ax(u_pad[1], 0) - d_ax(u_pad[0], 1)
+    return torch.sqrt(wx ** 2 + wy ** 2 + wz ** 2)
+
+
+def magvel(u: torch.Tensor) -> torch.Tensor:
+    """(reference make_magvel, src/makevort.f90:58-91)"""
+    return torch.sqrt((u * u).sum(dim=0))

@@ -11,6 +11,9 @@ varden_tpu.ops.pallas_kernels).
                                        apply, residual, weighted Jacobi
   gsrb_sweep_2d      csrc/gsrb2d.cu    the 2-D variable-beta operator: exact
                                        red-black sweep, residual
+  gsrb_sweep_3d      csrc/gsrb_padded.cu  variable-beta red-black sweep on a
+                                       ghost-padded phi, the ring held for
+                                       both colours
 
 Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
 runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
@@ -414,3 +417,78 @@ def gsrb_sweep_2d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco=None,
 
 
 gsrb_sweep_2d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# variable-beta sweep on a ghost-padded phi
+# ---------------------------------------------------------------------------
+
+def _lphi_padded(p, beta, dxi2, aco, alpha):
+    """alpha*aco*phi - div(beta grad phi) on the interior of a padded phi,
+    in the order of operations of varden_tpu's _gsrb_kernel_3d."""
+    bx, by, bz = beta
+    c = p[1:-1, 1:-1, 1:-1]
+    xm = bx[:-1] * (c - p[:-2, 1:-1, 1:-1])
+    xp = bx[1:] * (p[2:, 1:-1, 1:-1] - c)
+    ym = by[:, :-1] * (c - p[1:-1, :-2, 1:-1])
+    yp = by[:, 1:] * (p[1:-1, 2:, 1:-1] - c)
+    zm = bz[:, :, :-1] * (c - p[1:-1, 1:-1, :-2])
+    zp = bz[:, :, 1:] * (p[1:-1, 1:-1, 2:] - c)
+    out = -(dxi2[0] * (xp - xm) + dxi2[1] * (yp - ym)
+            + dxi2[2] * (zp - zm))
+    if alpha != 0.0:
+        out = out + alpha * aco * c
+    return out
+
+
+def gsrb_sweep_3d_plain(phi_pad, rhs, inv_diag, beta, dx, aco=None,
+                        alpha=0.0):
+    """The plain PyTorch version of gsrb_sweep_3d."""
+    dxi2 = tuple(1.0 / (float(h) * float(h)) for h in dx)
+    red = (_colour_index(rhs.shape, rhs.device) % 2 == 0).to(rhs.dtype)
+    r = rhs - _lphi_padded(phi_pad, beta, dxi2, aco, alpha)
+    new_int = phi_pad[1:-1, 1:-1, 1:-1] + red * r * inv_diag
+    p2 = phi_pad.clone()
+    p2[1:-1, 1:-1, 1:-1] = new_int
+    r = rhs - _lphi_padded(p2, beta, dxi2, aco, alpha)
+    return new_int + (1.0 - red) * r * inv_diag
+
+
+def gsrb_sweep_3d(phi_pad, rhs, inv_diag, beta, dx, aco=None, alpha=0.0):
+    """One red-black sweep of L = alpha*aco*phi - div(beta grad phi) on a
+    ghost-padded phi: red cells (index sum even) update, then black cells
+    from the updated red values; both colours read the ghost ring as the
+    caller padded it (it is not refreshed in between).
+
+    phi_pad: (n0+2, n1+2, n2+2) with its ghosts realised; rhs/inv_diag/aco:
+    (n0, n1, n2); beta: the (n0+1, n1, n2), (n0, n1+1, n2) and
+    (n0, n1, n2+1) face tensors. aco is read only when alpha != 0. Returns
+    the updated interior, (n0, n1, n2)."""
+    if phi_pad.device.type == "cpu":
+        return gsrb_sweep_3d_plain(phi_pad, rhs, inv_diag, beta, dx, aco,
+                                   alpha)
+    n = tuple(rhs.shape)
+    if len(n) != 3:
+        raise ValueError(f"gsrb_sweep_3d: rhs must be 3-D, got {n}")
+    kw = dict(dtype=phi_pad.dtype, device=phi_pad.device)
+    _cuda.check(phi_pad, "phi_pad", tuple(s + 2 for s in n))
+    _cuda.check(rhs, "rhs", n, **kw)
+    _cuda.check(inv_diag, "inv_diag", n, **kw)
+    for d in range(3):
+        _cuda.check(beta[d], f"beta[{d}]",
+                    tuple(n[t] + (1 if t == d else 0) for t in range(3)), **kw)
+    if alpha != 0.0:
+        _cuda.check(aco, "aco", n, **kw)
+    else:
+        aco = None
+    out = torch.empty(n, **kw)
+    tmp = torch.empty(n, **kw)
+    dv = [1.0 / (float(h) * float(h)) for h in dx] + [float(alpha)]
+    _cuda.call("gsrb_padded", "gsrb_padded3d",
+               [phi_pad, rhs, inv_diag, aco, beta[0], beta[1], beta[2], out,
+                tmp], list(n), dv, phi_pad)
+    gsrb_sweep_3d.launches += 2
+    return out
+
+
+gsrb_sweep_3d.launches = 0

@@ -9,7 +9,9 @@ smoothing and a dense direct bottom solve.
 
 In 3-D the smoothing sweeps, the residuals and the restriction run through
 two kernels of ops/cuda_kernels.py: gsrb_var_sweep_3d where beta is a face
-tensor per axis (the MAC projection, alpha = 0), gsrb_const_sweep_3d where
+tensor per axis (the MAC projection, alpha = 0; on a level periodic in x
+the sweeps take gsrb_sweep_3d on a ghost-padded phi instead, as
+varden_tpu's do on its accelerator), gsrb_const_sweep_3d where
 beta is one number per axis (the viscous and diffusive Helmholtz solves,
 whose right-hand side may carry a leading batch axis, and the explicit
 Laplacian). In 2-D the face-tensor operator runs through gsrb_sweep_2d
@@ -339,8 +341,29 @@ def _residual(level: CCLevel, phi, rhs, bvals):
     return rhs - cc_apply(level, phi, bvals)
 
 
+def _padded_route(level: CCLevel, phi) -> bool:
+    """Whether the level's sweeps take gsrb_sweep_3d on a ghost-padded phi:
+    where varden_tpu's accelerator route does (varden_tpu/solvers/mg.py
+    :371-404: gsrb_var_sweep_3d refuses a periodic x axis, and the padded
+    kernel takes 3-D face-tensor levels of even extents >= 8). The rule
+    looks at the level only, never at the device or the dtype."""
+    return (level.dm == 3 and phi.ndim == 3
+            and not any(_is_scalar_coef(b) for b in level.beta)
+            and BC_PER in level.ell_bc[0]
+            and all(s >= 8 and s % 2 == 0 for s in level.n))
+
+
 def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
-    """nsweeps exact red-black Gauss-Seidel sweeps (red: index sum even)."""
+    """nsweeps red-black Gauss-Seidel sweeps (red: index sum even): exact,
+    or, on a level of _padded_route, each on a phi padded once per sweep,
+    so the black cells see the ghosts of the sweep's start."""
+    if _padded_route(level, phi):
+        aco = level.aco if level.alpha != 0.0 else None
+        for _ in range(nsweeps):
+            pad = _pad_ghost(phi, level.ell_bc, bvals, 3)
+            phi = ck.gsrb_sweep_3d(pad, rhs, level.inv_diag, level.beta,
+                                   level.dx, aco=aco, alpha=level.alpha)
+        return phi
     if not _scalar_beta(level.beta):
         for _ in range(nsweeps):
             phi = _var_sweep(level, phi, rhs, bvals, "sweep")
