@@ -80,3 +80,39 @@ def force_padded_route(monkeypatch):
     monkeypatch.setattr(pk, "gsrb_supported", supported)
     monkeypatch.setattr(pk, "gsrb_sweep_3d", counted)
     return calls
+
+
+def run_inputs_both(path, **over):
+    """Run an inputs file through both packages on the CPU in float64 with
+    the given overrides (no plotfiles, no checkpoints, quiet): returns
+    (varden_tpu driver, port driver, varden_tpu states, port states), the
+    states as a list of patches."""
+    from varden_tpu.config import load_config as jload
+    from varden_tpu.driver import Varden as JVarden
+    from varden_tpu_torch.config import load_config as tload
+    from varden_tpu_torch.driver import Varden as TVarden
+    over = dict(dict(dtype="float64", plot_int=-1, chk_int=-1, verbose=0),
+                **over)
+    jv, tv = JVarden(jload(path, **over)), TVarden(tload(path, **over),
+                                                   device="cpu")
+    js, ts = jv.run(), tv.run()
+    if not isinstance(js, (list, tuple)):
+        js, ts = [js], [ts]
+    return jv, tv, list(js), list(ts)
+
+
+def assert_runs_agree(jv, tv, js, ts, tol=1e-9):
+    """Both runs took the same steps, times and (multi-level) boxes, and
+    every field of every patch agrees to ``tol`` of the field's size."""
+    assert tv.istep == jv.istep
+    assert abs(tv.time - jv.time) <= 1e-12 * jv.time
+    if getattr(jv, "geom", None) is not None and len(js) > 1:
+        assert [(tuple(s.lo), tuple(s.n)) for s in tv.geom.specs] == \
+            [(tuple(s.lo), tuple(s.n)) for s in jv.geom.specs]
+        assert list(tv.geom.parent) == list(jv.geom.parent)
+    assert len(ts) == len(js)
+    for a, b in zip(state_arrays(ts), state_arrays(js)):
+        for k in a:
+            assert np.isfinite(a[k]).all(), k
+            scale = max(1.0, float(np.abs(b[k]).max()))
+            assert float(np.abs(a[k] - b[k]).max()) <= tol * scale, k

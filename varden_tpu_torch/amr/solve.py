@@ -545,8 +545,15 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
             sig_t[p] = sig_t[p].clone()
         sig_t[p][covered_slice_rel(geom, c)] = restrict_cells(sig_t[c], dm)
     lev_uncov, rhs_uncov = [None] * nlev, [None] * nlev
+    # A fine level that fixes no node (it covers the domain and has no
+    # outlet side) has the constants as its correction problem's null
+    # space, as a singular base level has: its hierarchy regularises them
+    # (mask None). With a mask of ones the dense bottom operator is
+    # singular and its inverse is roundoff-sized noise of order 1e15.
+    hmask = [None if m is not None and bool((m != 0).all()) else m
+             for m in masks]
     hiers = [nodal.build_hierarchy(list(geom.specs[l].n), list(geom.dx(l)),
-                                   pmask_l[l], sig_t[l], masks[l])
+                                   pmask_l[l], sig_t[l], hmask[l])
              for l in range(nlev)]
     # unmasked-apply levels: the true per-level coefficients for residuals
     lev_true = [nodal.NodalLevel(tuple(geom.specs[l].n), tuple(geom.dx(l)),
