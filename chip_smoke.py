@@ -10,7 +10,8 @@ Phases, each of which asserts and any failure of which exits non-zero:
      once);
   2. each kernel against its plain PyTorch version on the same inputs at
      the main paths' shapes (256^3 for the five 3-D kernels, 4096^2 for the
-     three 2-D ones, BASELINE config 5's patches for the two AMR ones, and
+     three 2-D ones, BASELINE config 5's patches for kernels 6 and 11 and
+     for kernel 2's flux option (the AMR scalar advance's call), and
      128^3 and 256^3 with config 4's boundaries for the padded sweep,
      beside kernel 3's sweep and the ghost pad at the same shapes), in
      float32 and again in float64: max abs error against the stated
@@ -54,8 +55,11 @@ Phases, each of which asserts and any failure of which exits non-zero:
      256^3 base, max_levs 3, no regrid, visc_coef 1e-3, cflfac 0.5,
      init_shrink 0.5, no pressure iteration, no-slip walls, float32):
      initialization and STEPS_AMR regular steps, every launch counter set
-     to 0 just before and read just after; kernels 1-6 and 11 must have
-     launched, the 2-D ones not; every composite solve at or below its
+     to 0 just before and read just after; kernels 1-5 must have
+     launched (kernel 2 advances the scalars of every level with its flux
+     option), kernels 6 and 11 and the 2-D ones not; the launches of
+     kernels 2, 6 and 11 per steady step are printed; every composite
+     solve at or below its
      tolerance, div(umac) falling across the MAC projection, every field
      finite and density in [1, 10] on every level; each composite solve's
      tolerance, roundoff floor and residual on each level are printed;
@@ -179,9 +183,12 @@ KERNELS_3D = ("velpred_3d_fused", "mkflux_update_3d_fused",
               "gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
 INVISCID = KERNELS_3D[:4]
 KERNELS_2D = ("gsrb_sweep_2d", "velpred_2d_fused", "mkflux_2d_fused")
-# the 3-D AMR path adds the face kernel and the update of the scalars;
-# a 2-D AMR run takes the 2-D kernels
-KERNELS_AMR = KERNELS_3D + ("update_3d", "mkflux_3d_fused")
+# the 3-D AMR path runs the single-level kernels (kernel 2 advances the
+# scalars with its flux option); the face kernel and the update (kernels 11
+# and 6) are on no main path, and phase 2 alone holds them; a 2-D AMR run
+# takes the 2-D kernels
+KERNELS_AMR = KERNELS_3D
+OFF_PATH = ("update_3d", "mkflux_3d_fused")
 # config 4 (periodic in x): its MAC levels smooth with the padded sweep,
 # whose residuals and restrictions stay on kernel 3; the RT inputs' AMR run
 # adds the AMR kernels
@@ -664,7 +671,9 @@ def kernel_cases_2d(torch, dtype_name, n=N_2D):
 
 
 def kernel_cases_amr(torch, dtype_name):
-    """Kernels 6 and 11 at the AMR main path's shapes: BASELINE config 5's
+    """Kernels 6 and 11, and kernel 2 with its flux option (the AMR scalar
+    advance's call; the bound counts the flux bytes and the flux products),
+    at the AMR main path's shapes: BASELINE config 5's
     patches (256^3 with its walls; 240^3 and 384^3, interior patches whose
     every side is coarse-fine) in float32, the first two in float64 (the
     plain versions' temporaries at 384^3 would not fit), and an odd, thin
@@ -723,6 +732,20 @@ def kernel_cases_amr(torch, dtype_name):
                           (lambda a=a: cg.mkflux_3d_plain(*a)),
                           nbytes([a[0], *a[1], a[2]]) + 2 * face_b,
                           mkflux_ops(a[11], a[2] is not None, order) * cells))
+        # kernel 2 with its flux option, as the AMR scalar advance calls it:
+        # density conservative with its flux, a tracer convective, no force
+        a = (s_pad, mac_pads, None, None, None, *tail, adv_s, ng, n, False,
+             [True, False], order, False)
+        flux_b = sum(math.prod(f) for f in faces) * s_pad.element_size()
+        cases.append(("mkflux_update_3d_fused", f"scalars+flux {tag}",
+                      (lambda a=a: cg.mkflux_update_3d_fused(
+                          *a, flux_comps=(0,))),
+                      (lambda a=a: cg.mkflux_update_3d_plain(
+                          *a, flux_comps=(0,))),
+                      nbytes([s_pad, *mac_pads]) + 2 * cells
+                      * s_pad.element_size() + flux_b,
+                      (mkflux_update_ops([True, False], False, False, order)
+                       + 3) * cells))
         del s_pad, sf_pad, u_pad, uf_pad, mac_pads
         # kernel 6: the scalars' update (density conservative, a tracer
         # convective; no force, as the inviscid scalar step passes it) and
@@ -1673,8 +1696,7 @@ def main(argv=None) -> int:
                  "gsrb_sweep_3d": f"sweep {N_RT}^3"}
     launches_3d = dict(launches)
     launches.update({k: launches2[k] for k in KERNELS_2D})
-    launches.update({k: launches_amr[k] for k in ("update_3d",
-                                                  "mkflux_3d_fused")})
+    launches.update({k: launches_amr[k] for k in OFF_PATH})
     launches["gsrb_sweep_3d"] = launches_rt["gsrb_sweep_3d"]
     kernels = []
     for name in REPLACES:
@@ -1738,6 +1760,11 @@ def main(argv=None) -> int:
         print(line, flush=True)
     print(f"summary AMR main path (phase 11): initialization {init_amr:.3f} s;"
           f" peak device memory {peak_amr} bytes", flush=True)
+    steady = per_step_amr[1:] or per_step_amr
+    print("summary AMR main path (phase 11): launches per steady step "
+          + ", ".join(f"{k} {[r['launches'][k] for r in steady]}"
+                      for k in ("mkflux_update_3d_fused",) + OFF_PATH),
+          flush=True)
     print(f"summary config 4 main path (phase 14): peak device memory "
           f"{peak_rt} bytes; density min/max by step "
           f"{[(r['rho_min'], r['rho_max']) for r in per_step_rt]}",

@@ -24,6 +24,7 @@ from varden_tpu.state import State as JState
 from varden_tpu_torch.amr import advance_ml as tadv
 from varden_tpu_torch.amr import fill as tfill
 from varden_tpu_torch.config import VardenConfig as TCfg
+from varden_tpu_torch.ops import cuda_godunov as tcg
 from varden_tpu_torch.state import Sim as TSim
 
 WALLS = dict(bcx_lo=15, bcx_hi=15, bcy_lo=15, bcy_hi=15, bcz_lo=15,
@@ -67,12 +68,30 @@ def stepped(request):
     js, ts, jg, tg, jst, tst = _setup(request.param)
     dt = 0.5 * min(jg.dx(1)) / 0.5
     jout, jdiag = jax.jit(lambda st: jadv.ml_advance(jg, st, dt, 4))(jst)
-    tout, tdiag = tadv.ml_advance(tg, tst, dt, 4)
-    return request.param, tout, tdiag, jout, jdiag, jg, tg
+    # the port's step with its Godunov wrappers counted: (name, flux_comps)
+    # per call
+    calls = []
+    saved = {k: getattr(tcg, k) for k in ("mkflux_update_3d_fused",
+                                           "mkflux_3d_fused")}
+
+    def spy(name):
+        def call(*a, **k):
+            calls.append((name, tuple(k.get("flux_comps", ()))))
+            return saved[name](*a, **k)
+        return call
+
+    for k in saved:
+        setattr(tcg, k, spy(k))
+    try:
+        tout, tdiag = tadv.ml_advance(tg, tst, dt, 4)
+    finally:
+        for k, f in saved.items():
+            setattr(tcg, k, f)
+    return request.param, tout, tdiag, jout, jdiag, jg, tg, calls
 
 
 def test_ml_advance_matches(stepped):
-    case, tout, tdiag, jout, jdiag, jg, tg = stepped
+    case, tout, tdiag, jout, jdiag, jg, tg, _calls = stepped
     for a, b in zip(state_arrays(tout), state_arrays(jout)):
         for k in a:
             scale = max(1.0, float(np.abs(b[k]).max()))
@@ -89,7 +108,7 @@ def test_ml_advance_matches(stepped):
 
 def test_ml_advance_keeps_the_hierarchy_consistent(stepped):
     """Covered coarse cells hold the restriction of the fine ones."""
-    _case, tout, _td, _jo, _jd, _jg, tg = stepped
+    _case, tout, _td, _jo, _jd, _jg, tg, _calls = stepped
     from varden_tpu_torch.amr.hierarchy import restrict_cells
     from varden_tpu_torch.amr.solve import covered_slice_rel
     cov = (slice(None),) + covered_slice_rel(tg, 1)
@@ -97,6 +116,21 @@ def test_ml_advance_keeps_the_hierarchy_consistent(stepped):
         assert torch.allclose(getattr(tout[0], k)[cov],
                               restrict_cells(getattr(tout[1], k), tg.dm),
                               rtol=0.0, atol=1e-14)
+
+
+def test_scalar_advance_takes_the_flux_option(stepped):
+    """In 3-D each level's scalars advance in one fused pass that also
+    emits density's conservative flux (flux_comps (0,)), as varden_tpu's
+    accelerator path does, and the step still equals varden_tpu's
+    (test_ml_advance_matches); the velocity takes the same kernel without
+    fluxes, and the face kernel runs nowhere. In 2-D neither runs."""
+    case, *_rest, calls = stepped
+    if case == "2d":
+        assert calls == []
+        return
+    assert calls.count(("mkflux_update_3d_fused", (0,))) == 2
+    assert calls.count(("mkflux_update_3d_fused", ())) == 2
+    assert len(calls) == 4
 
 
 def _faces(rng, lead, n, dm):

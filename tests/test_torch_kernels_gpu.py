@@ -116,6 +116,52 @@ def test_mkflux_update_kernel(cuda, bc, dtype, is_vel):
     _close(out, ref, sim.dtype, f"mkflux_update bc={bc} is_vel={is_vel}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+@pytest.mark.parametrize("n", [(24, 40, 16), (5, 3, 7), (37, 5, 61)])
+@pytest.mark.parametrize("kind", ["scal", "scal+force", "vel"])
+def test_mkflux_update_flux_kernel(cuda, bc, dtype, n, kind):
+    """The flux option (the AMR scalar advance's call) at even, odd and
+    thin extents: snew and the listed components' fluxes against the plain
+    version."""
+    sim = _sim(bc, n, dtype, cuda)
+    ng = sim.ng
+    umac = tuple(sim.tensor(_smooth(tuple(n[t] + (1 if t == d else 0)
+                                          for t in range(3)), 10 + d))
+                 for d in range(3))
+    mac_pads = advance.embed_faces(sim, umac, ng)
+    force = fupd = None
+    if kind == "vel":
+        s_pad = sim.fill_vel(sim.tensor(_smooth((3,) + n, 3)))
+        adv = [sim.adv_bc[d] for d in range(3)]
+        cons, fc = [False] * 3, (0, 2)
+        force = sim.fill_extrap(sim.tensor(_smooth((3,) + n, 4, 0.2)), ng)
+        fupd = sim.tensor(_smooth((3,) + n, 5, 0.2))
+    else:
+        s = problems.initdata(sim).s + sim.tensor(_smooth((2,) + n, 6, 0.05))
+        s_pad = sim.fill_scal(s)
+        adv = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
+        cons, fc = [True, False], (0,)
+        if kind == "scal+force":
+            f = _smooth((2,) + n, 7, 0.1)
+            f[0] = 0.0
+            force = sim.fill_extrap(sim.tensor(f), ng)
+            fupd = sim.tensor(0.5 * f)
+    args = (s_pad, mac_pads, force, fupd, None, 2e-3, sim.dx, sim.phys_bc,
+            adv, ng, n, kind == "vel", cons, 4, False)
+    before = cuda_godunov.mkflux_update_3d_fused.launches
+    snew, sflux = cuda_godunov.mkflux_update_3d_fused(*args, flux_comps=fc)
+    torch.cuda.synchronize()
+    assert cuda_godunov.mkflux_update_3d_fused.launches == before + 6
+    ref_new, ref_flux = cuda_godunov.mkflux_update_3d_plain(*args,
+                                                            flux_comps=fc)
+    _close(snew, ref_new, sim.dtype, f"snew bc={bc} n={n} {kind}")
+    for d in range(3):
+        assert sflux[d].shape == ref_flux[d].shape
+        _close(sflux[d], ref_flux[d], sim.dtype,
+               f"flux[{d}] bc={bc} n={n} {kind}")
+
+
 def _mg_level(n, ell_bc, dtype, device, seed=7):
     rng = np.random.RandomState(seed)
     dx = (0.1, 0.11, 0.12)
@@ -545,13 +591,18 @@ def test_amr_step_on_card_matches_cpu(cuda):
         a["u"] = a["u"] + _smooth(a["u"].shape, 20 + l, 0.3)
         arrays.append(a)
     out = {}
+    counted = (cuda_update.update_3d, cuda_godunov.mkflux_3d_fused,
+               cuda_godunov.mkflux_update_3d_fused)
     for name, sim in (("cpu", cpu), ("card", Sim(cfg, device=cuda))):
         geom, states = hierarchy_from_numpy(sim, specs, [-1, 0], [0, 1],
                                             arrays)
-        before = cuda_update.update_3d.launches
+        before = [f.launches for f in counted]
         new, diag = advance_ml.ml_advance(geom, states, 5e-3, 4)
-        out[name] = (new, diag, cuda_update.update_3d.launches - before)
-    assert out["card"][2] == 2 and out["cpu"][2] == 0
+        out[name] = (new, diag, [f.launches - b
+                                 for f, b in zip(counted, before)])
+    # the scalars and the velocity of both levels through kernel 2 (the
+    # scalars with their fluxes); the face kernel and the update not at all
+    assert out["card"][2] == [0, 0, 4 * 6] and out["cpu"][2] == [0, 0, 0]
     for a, b in zip(out["cpu"][0], out["card"][0]):
         for k in ("u", "s", "gp", "p"):
             x, y = getattr(a, k), getattr(b, k).cpu()

@@ -1,6 +1,7 @@
 """The port's mkflux_3d, the update epilogue and the fused
-mkflux+update wrapper (its plain version on CPU tensors) against
-varden_tpu's on the same inputs (float64, CPU). Tolerance 1e-12 absolute on O(1) fields: the formulas are the
+mkflux+update wrapper (its plain version on CPU tensors), with and without
+its flux option, against varden_tpu's on the same inputs (float64, CPU; the
+flux option against varden_tpu's kernel in interpret mode). Tolerance 1e-12 absolute on O(1) fields: the formulas are the
 same op for op, so only library-level roundoff differs."""
 import functools
 
@@ -90,6 +91,17 @@ def test_mkflux_update_matches(bc, is_vel, with_force):
     snew = tcg.mkflux_update_3d_fused(T(s_pad), tmac, T(f_pad), T(fupd),
                                       T(rhs_pad), *tail)
     _close(snew, ref_new, "snew")
-    with pytest.raises(NotImplementedError):
-        tcg.mkflux_update_3d_fused(T(s_pad), tmac, T(f_pad), T(fupd),
-                                   T(rhs_pad), *tail, flux_comps=(0,))
+    # the flux option (the AMR scalar advance's call): snew and the listed
+    # components' conservative fluxes (zero for a convective one) against
+    # varden_tpu's kernel in interpret mode
+    fc = (0, 2) if is_vel else (0,)
+    kern = jax.jit(lambda s_, m_, f_, r_, u_: jpg.mkflux_update_3d_fused(
+        s_, m_, f_, u_, r_, *tail, flux_comps=fc, interpret=True))
+    ref_new2, ref_fl = kern(J(s_pad), jmac, J(f_pad), J(rhs_pad), J(fupd))
+    snew2, sflux2 = tcg.mkflux_update_3d_fused(
+        T(s_pad), tmac, T(f_pad), T(fupd), T(rhs_pad), *tail, flux_comps=fc)
+    _close(snew2, ref_new2, "snew with fluxes")
+    for d in range(3):
+        assert tuple(sflux2[d].shape) == tuple(ref_fl[d].shape)
+        _close(sflux2[d], ref_fl[d], f"flux {d}")
+        _close(sflux2[d], np.asarray(ref_f[d])[list(fc)], f"flux {d} rows")

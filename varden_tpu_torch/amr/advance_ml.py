@@ -7,14 +7,13 @@ fillpatch ghosts, create_umac_grown, ml_edge_restriction, composite MAC and
 nodal projections, conservative flux synchronization, ml_restrict_and_fill.
 All levels advance with the same dt (Docs/DesignDocument.tex:54-55).
 
-The per-level Godunov work runs through the kernels of ops/cuda_godunov.py
-and ops/cuda_update.py, as varden_tpu runs its Pallas kernels per level. In
-3-D the scalar advance computes each level's faces first
-(mkflux_3d_fused) and then updates (basic.update -> update_3d): the
-conservative fluxes that the flux registers synchronise come from the face
-kernel. The velocity advance, which has no inter-level flux coupling, runs
-the fused mkflux + update kernel on every level. In 2-D the edge kernel is
-mkflux_2d_fused followed by the plain update, as in varden_tpu. The parts of
+The per-level Godunov work runs through the kernels of ops/cuda_godunov.py,
+as varden_tpu runs its Pallas kernels per level. In 3-D the scalar and the
+velocity advance run the fused mkflux + update kernel on every level; for
+the scalars it also emits the conservative fluxes that the flux registers
+synchronise (its flux_comps option, as in varden_tpu). In 2-D the edge
+kernel is mkflux_2d_fused followed by the plain update, as in varden_tpu.
+The parts of
 the step are the torch.profiler ranges of the single-level step
 (advance.RANGES).
 """
@@ -309,28 +308,28 @@ def _lap_level(geom: MLGeom, l, arrs, ell, bv):
 
 
 def _mkflux_update_level(geom: MLGeom, l, old, s_pad, umac, mac_pads, force,
-                         fupd, dt, adv_bc, is_vel, is_cons, with_flux):
-    """Godunov edge states and the update of one level's components: in 3-D
-    the fused kernel, or (``with_flux``: the conservative fluxes are needed
-    for the flux registers) the face kernel and then basic.update; in 2-D
+                         fupd, dt, adv_bc, is_vel, is_cons, flux_comps=()):
+    """Godunov edge states and the update of one level's components, and
+    the conservative fluxes of the components ``flux_comps`` lists (the
+    flux registers read them): in 3-D one pass of the fused kernel, which
+    emits the listed fluxes beside the update as varden_tpu's does; in 2-D
     the edge kernel and the plain update. Returns (new, fluxes or None)."""
     sim = geom.sim
     cfg = sim.cfg
     tail = (dt, geom.dx(l), geom.phys_bc_level(l), adv_bc, sim.ng,
             geom.specs[l].n, is_vel, is_cons, cfg.slope_order,
             cfg.use_minion)
-    if geom.dm == 3 and not with_flux:
-        return cuda_godunov.mkflux_update_3d_fused(s_pad, mac_pads, force,
-                                                   fupd, None, *tail), None
     if geom.dm == 3:
-        sedge, sflux = cuda_godunov.mkflux_3d_fused(s_pad, mac_pads, force,
-                                                    None, *tail)
-    else:
-        ex, ey, fx, fy = cuda_godunov.mkflux_2d_fused(
-            s_pad, mac_pads[0], mac_pads[1], force, None, *tail)
-        sedge, sflux = (ex, ey), (fx, fy)
-    new = basic.update(old, umac, sedge, sflux, fupd, dt, geom.dx(l), is_cons)
-    return new, sflux
+        out = cuda_godunov.mkflux_update_3d_fused(
+            s_pad, mac_pads, force, fupd, None, *tail, flux_comps=flux_comps)
+        return out if flux_comps else (out, None)
+    ex, ey, fx, fy = cuda_godunov.mkflux_2d_fused(
+        s_pad, mac_pads[0], mac_pads[1], force, None, *tail)
+    new = basic.update(old, umac, (ex, ey), (fx, fy), fupd, dt, geom.dx(l),
+                       is_cons)
+    if not flux_comps:
+        return new, None
+    return new, tuple(f[list(flux_comps)] for f in (fx, fy))
 
 
 def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
@@ -427,11 +426,10 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
             snew, sflux = _mkflux_update_level(
                 geom, l, s_l[l], s_pad, umac_l[l], mac_pads_l[l], sf_pad,
                 sf_half, dt, adv_bc_scal, False, is_cons,
-                need_flux or dm == 2)
+                tuple(cons_idx) if need_flux else ())
             del s_pad, sf_pad, sf_half
             snew_l.append(snew)
-            sflux_own_l.append(None if sflux is None else
-                               tuple(f[cons_idx] for f in sflux))
+            sflux_own_l.append(sflux)
             del sflux
         if need_flux:
             synced = flux_sync(geom, sflux_own_l, [True] * len(cons_idx))
@@ -488,8 +486,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
                 cfg.boussinesq)
             unew, _ = _mkflux_update_level(
                 geom, l, u_l[l], u_pads[l], umac_l[l], mac_pads_l[l],
-                vf_pads[l], vfh, dt, adv_bc_vel, True, [False] * dm,
-                dm == 2)
+                vf_pads[l], vfh, dt, adv_bc_vel, True, [False] * dm)
             u_pads[l] = vf_pads[l] = None
             unew_l.append(unew)
         del u_pads, vf_pads, mac_pads_l

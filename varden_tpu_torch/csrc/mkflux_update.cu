@@ -6,8 +6,11 @@
 // _mkflux_update_kernel :591, pallas_call at :778). Computes exactly the
 // plain function godunov3d.mkflux_3d followed by basic.update_plain:
 //     snew = sold - dt*(u.grad s | div(s u)) + dt*fupd
-// with conservative or convective form per component. force, mac_rhs and
-// fupd may be absent (null pointer): an absent input is statically zero, is
+// with conservative or convective form per component; with a list of
+// components (flux_comps) it also writes their conservative fluxes on the
+// three interior face sets, as the plain godunov3d.mkflux_3d gives them
+// (edge * mac; zero for a convective component). force, mac_rhs and fupd
+// may be absent (null pointer): an absent input is statically zero, is
 // never read and never allocated.
 //
 // What bounds it on the card: bytes. The function reads s and the three MAC
@@ -19,27 +22,42 @@
 // The 15 intermediate fields per component multiply the bytes over the bound
 // by about ten; a shared-memory brick pipeline is the planned speed-up. As
 // on the TPU, the edge states never leave the kernel's own scratch: the
-// caller gets snew only. The x/y slab stitching of the TPU kernel has no
+// caller gets snew and the listed fluxes. The x/y slab stitching of the TPU kernel has no
 // counterpart: boundaries are handled in the same launch as the interior.
 #include "mkflux3d.cuh"
 
 namespace vt {
 
-// stage 3: final edge states on interior faces, edge[(a*nc+c)*N + p];
+// the conservative fluxes of the listed components on the interior faces:
+// row r of f[a] (nf rows, face_count(g, a) each) holds component comp[r]
+struct FluxOut {
+  void* f[3];
+  int nf;
+  int comp[MAXC];
+};
+
+// stage 3: final edge states on interior faces, edge[(a*nc+c)*N + p], and
+// the listed fluxes (edge * mac for a conservative component, else 0);
 // blockIdx.y = a*nc + c
 template <typename T>
 __global__ void mk_edge_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
                                const T* __restrict__ dh, T* __restrict__ edge,
-                               const T* __restrict__ umax) {
+                               const T* __restrict__ umax, FluxOut F) {
   const Grid& g = m.g;
   int a = blockIdx.y / m.nc;
   int c = blockIdx.y % m.nc;
   i64 t = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= face_count(g, a)) return;
+  i64 nface = face_count(g, a);
+  if (t >= nface) return;
   int x[3];
   face_point(g, a, t, x);
-  edge[(a * m.nc + c) * g.N + at(g, x[0], x[1], x[2])] =
-      mk_edge_value(m, P, slopes, dh, a, c, x, eps_from(umax));
+  i64 p = at(g, x[0], x[1], x[2]);
+  T ed = mk_edge_value(m, P, slopes, dh, a, c, x, eps_from(umax));
+  edge[(a * m.nc + c) * g.N + p] = ed;
+  bool cons = (m.cons_mask >> c) & 1;
+  for (int r = 0; r < F.nf; ++r)
+    if (F.comp[r] == c)
+      ((T*)F.f[a])[r * nface + t] = cons ? ed * ((const T*)P.mac[a])[p] : (T)0;
 }
 
 // stage 4: the update epilogue on interior cells (update.f90:186-278)
@@ -78,9 +96,10 @@ __global__ void mk_update_kernel(MK m, MKPtrs P, const T* __restrict__ edge,
   }
 }
 
-// ptrs: s, mac0, mac1, mac2, force?, mac_rhs?, fupd?, snew, work
-//       (15*nc padded fields), umax (1)
-// iv, dv: as read_mk (mkflux3d.cuh)
+// ptrs: s, mac0, mac1, mac2, force?, mac_rhs?, fupd?, snew, flux0?,
+//       flux1?, flux2?, work (15*nc padded fields), umax (1)
+// iv: as read_mk (mkflux3d.cuh), then nf and the nf listed components;
+// dv: as read_mk
 template <typename T>
 int mkflux_update_impl(void** ptrs, const long long* iv, const double* dv,
                        cudaStream_t st) {
@@ -92,10 +111,19 @@ int mkflux_update_impl(void** ptrs, const long long* iv, const double* dv,
   if (err) return err;
   P.fupd = ptrs[6];
   T* snew = (T*)ptrs[7];
-  T* work = (T*)ptrs[8];
-  T* umax = (T*)ptrs[9];
+  FluxOut F;
+  for (int d = 0; d < 3; ++d) F.f[d] = ptrs[8 + d];
+  T* work = (T*)ptrs[11];
+  T* umax = (T*)ptrs[12];
   const Grid& g = m.g;
   int nc = m.nc;
+  const long long* fl = iv + 15 + 6 * nc;
+  F.nf = (int)fl[0];
+  if (F.nf < 0 || F.nf > MAXC) return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < F.nf; ++r) {
+    F.comp[r] = (int)fl[1 + r];
+    if (F.comp[r] < 0 || F.comp[r] >= nc) return (int)cudaErrorInvalidValue;
+  }
   err = launch_mk_stages<T>(m, P, bc, order, work, umax, st);
   if (err) return err;
   T* slopes = work;
@@ -103,7 +131,7 @@ int mkflux_update_impl(void** ptrs, const long long* iv, const double* dv,
   T* edge = work + 12 * nc * g.N;
   i64 nface = (i64)(g.n[0] + 1) * (g.n[1] + 1) * (g.n[2] + 1);
   mk_edge_kernel<T><<<dim3(blocks_for(nface, 256), 3 * nc), 256, 0, st>>>(
-      m, P, slopes, dh, edge, umax);
+      m, P, slopes, dh, edge, umax, F);
   VT_CHECK();
   i64 ncell = (i64)g.n[0] * g.n[1] * g.n[2];
   mk_update_kernel<T><<<blocks_for(ncell, 256), 256, 0, st>>>(m, P, edge,

@@ -4,7 +4,8 @@ varden_tpu.ops.pallas_godunov).
   velpred_3d_fused        csrc/velpred.cu        = godunov3d.velpred_3d
   mkflux_update_3d_fused  csrc/mkflux_update.cu  = godunov3d.mkflux_3d
                                                    followed by
-                                                   basic.update_plain
+                                                   basic.update_plain (and
+                                                   the listed fluxes)
   mkflux_3d_fused         csrc/mkflux.cu         = godunov3d.mkflux_3d
   velpred_2d_fused        csrc/velpred2d.cu      = godunov.velpred_2d
   mkflux_2d_fused         csrc/mkflux2d.cu       = godunov.mkflux_2d
@@ -83,7 +84,8 @@ def _mac_interior(macs, ng, n_cell):
 
 def mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt, dx,
                            phys_bc, adv_bc, ng, n_cell, is_vel,
-                           is_conservative, slope_order, use_minion):
+                           is_conservative, slope_order, use_minion, *,
+                           flux_comps=()):
     """The plain PyTorch version of mkflux_update_3d_fused."""
     sedge, sflux = godunov3d.mkflux_3d(
         s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc, ng, n_cell,
@@ -91,8 +93,11 @@ def mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt, dx,
     umac = _mac_interior(mac_pads, ng, n_cell)
     sold = s[(slice(None),) + tuple(slice(ng, ng + n_cell[t])
                                     for t in range(3))]
-    return update_plain(sold, umac, sedge, sflux, fupd, dt, dx,
+    snew = update_plain(sold, umac, sedge, sflux, fupd, dt, dx,
                         is_conservative)
+    if not flux_comps:
+        return snew
+    return snew, tuple(f[list(flux_comps)] for f in sflux)
 
 
 def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
@@ -102,18 +107,19 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
     """Fused mkflux + conservative/convective update. ``fupd`` is the
     interior (nc, *n) update-time force; returns snew (nc, *n_cell).
 
+    ``flux_comps``: the components whose conservative fluxes the AMR flux
+    registers read; when non-empty, returns (snew, sflux) with sflux[d] of
+    shape (len(flux_comps), faces), equal to godunov3d.mkflux_3d's
+    sflux[d][flux_comps] (zero for a convective component).
+
     ``force``, ``fupd`` and ``mac_rhs`` may each be None, meaning
-    statically zero: never read and never allocated. ``flux_comps`` (the
-    conservative fluxes of the AMR flux registers emitted beside snew) is
-    not ported: the AMR path takes mkflux_3d_fused and then the update."""
-    if flux_comps:
-        raise NotImplementedError("flux_comps is not ported: the AMR scalar "
-                                  "advance runs mkflux_3d_fused + update_3d")
+    statically zero: never read and never allocated."""
+    flux_comps = tuple(int(c) for c in flux_comps)
     if s.device.type == "cpu":
         return mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt,
                                       dx, phys_bc, adv_bc, ng, n_cell, is_vel,
                                       is_conservative, slope_order,
-                                      use_minion)
+                                      use_minion, flux_comps=flux_comps)
     nc = s.shape[0]
     P = _padded(n_cell, ng)
     n = tuple(n_cell)
@@ -129,17 +135,24 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
         _cuda.check(mac_rhs, "mac_rhs", P, **kw)
     if fupd is not None:
         _cuda.check(fupd, "fupd", (nc,) + n, **kw)
+    if len(flux_comps) > 4 or any(not 0 <= c < nc for c in flux_comps):
+        raise ValueError(f"mkflux_update_3d_fused: flux_comps {flux_comps} "
+                         f"(at most 4 of the {nc} components)")
     snew = torch.empty((nc,) + n, **kw)
+    sflux = tuple(torch.empty((len(flux_comps),) + tuple(
+        n[t] + (1 if t == d else 0) for t in range(3)), **kw)
+        for d in range(3)) if flux_comps else (None,) * 3
     work = torch.empty((15 * nc,) + P, **kw)
     umax = torch.zeros(1, **kw)
     cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
     iv = [*n, ng, slope_order, int(bool(use_minion)), nc, int(bool(is_vel)),
           cons_mask] + _flat_bc(phys_bc, adv_bc)
+    iv += [len(flux_comps), *flux_comps]
     _cuda.call("mkflux_update", "mkflux_update3d",
-               [s, *mac_pads, force, mac_rhs, fupd, snew, work, umax], iv,
-               [float(dt), *map(float, dx)], s)
+               [s, *mac_pads, force, mac_rhs, fupd, snew, *sflux, work, umax],
+               iv, [float(dt), *map(float, dx)], s)
     mkflux_update_3d_fused.launches += 6
-    return snew
+    return (snew, sflux) if flux_comps else snew
 
 
 mkflux_update_3d_fused.launches = 0
