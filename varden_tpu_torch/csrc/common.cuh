@@ -116,8 +116,8 @@ __device__ __forceinline__ T mc_limit(T dpls, T dmin, T cen, T* slim_out) {
 // Order 0/2/4, one-sided stencils at EXT_DIR/HOEXTRAP sides; the hi side
 // takes precedence where the two boundary bands overlap.
 template <typename T, typename F>
-__device__ T slope_at(F S, int i, int ng, int n, int bc_lo, int bc_hi,
-                      int order) {
+__device__ __forceinline__ T slope_at(F S, int i, int ng, int n, int bc_lo,
+                                      int bc_hi, int order) {
   if (order == 0) return (T)0;
   auto fromm = [&](int m, T* lim) {
     T sp = S(m + 1), s0 = S(m), sm = S(m - 1);

@@ -1,10 +1,12 @@
-// The BCG edge-state stages of cell-centred components in 3-D, shared by
-// the kernels that emit the update (mkflux_update.cu) and the edge states
-// and fluxes (mkflux.cu). Together they compute the plain function
-// godunov3d.mkflux_3d, staged through device memory: the tie epsilon
-// (max |mac|), the limited slopes, the hat states on every face set, the
-// six double-hat states, then the final edge state per face. One thread per
-// padded point (stages 1-2) or interior face (stage 3). The x/y slab
+// The BCG edge-state stages of cell-centred components in 3-D. The kernel
+// that emits the edge states and fluxes (mkflux.cu) runs them staged
+// through device memory: the tie epsilon (max |mac|), the limited slopes,
+// the hat states on every face set, the six double-hat states, then the
+// final edge state per face; one thread per padded point (stages 1-2) or
+// interior face (stage 3). Together they compute the plain function
+// godunov3d.mkflux_3d. The fused mkflux + update kernel (mkflux_update.cu)
+// shares the parameters (read_mk) and the tie epsilon and runs the same
+// formulas, in the same order, on shared-memory tiles. The x/y slab
 // stitching of the TPU kernels has no counterpart: boundaries are handled
 // in the same launch as the interior.
 #pragma once

@@ -13,7 +13,8 @@ varden_tpu.ops.pallas_godunov).
 Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
-CUDA launches the wrapper made (every stage counts).
+CUDA launches the wrapper made (every stage counts: mkflux_update_3d_fused
+makes two, the tie epsilon and one shared-memory pass).
 """
 from __future__ import annotations
 
@@ -142,16 +143,15 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
     sflux = tuple(torch.empty((len(flux_comps),) + tuple(
         n[t] + (1 if t == d else 0) for t in range(3)), **kw)
         for d in range(3)) if flux_comps else (None,) * 3
-    work = torch.empty((15 * nc,) + P, **kw)
     umax = torch.zeros(1, **kw)
     cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
     iv = [*n, ng, slope_order, int(bool(use_minion)), nc, int(bool(is_vel)),
           cons_mask] + _flat_bc(phys_bc, adv_bc)
     iv += [len(flux_comps), *flux_comps]
     _cuda.call("mkflux_update", "mkflux_update3d",
-               [s, *mac_pads, force, mac_rhs, fupd, snew, *sflux, work, umax],
+               [s, *mac_pads, force, mac_rhs, fupd, snew, *sflux, umax],
                iv, [float(dt), *map(float, dx)], s)
-    mkflux_update_3d_fused.launches += 6
+    mkflux_update_3d_fused.launches += 2
     return (snew, sflux) if flux_comps else snew
 
 
