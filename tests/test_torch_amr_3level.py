@@ -10,16 +10,17 @@ cycle, and varden_tpu's run blows up at step 2. The port regularises such a
 level as it does a singular base level (mask None: the constants removed
 at the bottom), on purpose (ROADMAP.md section 3).
 
-Held here: after step 1 both runs have the same hierarchy and every field
-of every patch agrees to 1e-9 of its size (both solves converge); on the
-step-1 solve's own inputs, varden_tpu's composite nodal solve starts from
-the port's residuals and parts from them at the first outer cycle, and with
-the same regularisation patched into it, it follows the port outer cycle
-by outer cycle (1e-6 relative, or 1e-12 of the largest starting residual
-for residuals near roundoff) and stops at the same count with the same
-ratio. The port alone then runs four
-steps across the step-3 regrid (level 2 becomes 64^3 over the domain) with
-every nodal solve at or below its tolerance and max|u| below 1."""
+Held here: varden_tpu's step 1 (ml_advance under jax.jit) from the port's
+state and warm starts after its initialization equals the port's step 1
+in every field of every patch to 1e-9 of its size (both solves converge,
+to ratios that differ by more than half); on the step-1 solve's own
+inputs, varden_tpu's composite nodal solve with the same regularisation
+patched into it starts from the port's residuals and follows the port
+outer cycle by outer cycle (1e-6 relative, or 1e-12 of the largest
+starting residual for residuals near roundoff) and stops at the same count
+with the same ratio. The port alone then runs four steps across the
+step-3 regrid (level 2 becomes 64^3 over the domain) with every nodal
+solve at or below its tolerance and max|u| below 1."""
 import os
 
 import jax
@@ -28,13 +29,15 @@ import numpy as np
 import torch
 
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import assert_runs_agree, run_inputs_both
+from torch_inputs import state_arrays
+from varden_tpu.amr import advance_ml as jadv
 from varden_tpu.amr import fill as jfill
 from varden_tpu.amr import hierarchy as jh
 from varden_tpu.amr import solve as jsolve
 from varden_tpu.config import load_config as jload
 from varden_tpu.solvers import nodal as jnodal
 from varden_tpu.state import Sim as JSim
+from varden_tpu.state import State as JState
 from varden_tpu_torch.amr import advance_ml as tadv
 from varden_tpu_torch.amr import solve as tsolve
 from varden_tpu_torch.config import load_config as tload
@@ -70,11 +73,11 @@ def _capture_last_nodal_solve(monkeypatch):
     return calls
 
 
-def _reference_history(call, regularise, monkeypatch):
+def _reference_history(call, monkeypatch):
     """varden_tpu's composite nodal solve on a port call's inputs, one
-    jitted outer cycle at a time: (per-outer level residuals, outer
-    cycles, ratio). ``regularise`` builds a fine level that fixes no node
-    with mask None, as the port does."""
+    jitted outer cycle at a time, with a fine level that fixes no node
+    built with mask None as the port builds it: (per-outer level
+    residuals, outer cycles, ratio)."""
     geom = call["geom"]
     js = JSim(jload(PATH, dtype="float64", **OVER))
     jg = jfill.MLGeom(js, [jh.LevelSpec(tuple(s.lo), tuple(s.n))
@@ -107,9 +110,7 @@ def _reference_history(call, regularise, monkeypatch):
         return build(n, dx, pmask, sigma, mask)
 
     monkeypatch.setattr(jsolve.jax.lax, "while_loop", while_loop)
-    if regularise:
-        monkeypatch.setattr(jsolve.nodal, "build_hierarchy",
-                            build_regularised)
+    monkeypatch.setattr(jsolve.nodal, "build_hierarchy", build_regularised)
     A = lambda t: None if t is None else jnp.asarray(t.numpy())  # noqa: E731
     kw = call["kw"]
     _phis, (_rn, outer, ratio) = jsolve.composite_nodal_solve(
@@ -124,26 +125,51 @@ def _reference_history(call, regularise, monkeypatch):
 
 def test_three_level_step_one_and_the_whole_domain_fine_level(monkeypatch):
     calls = _capture_last_nodal_solve(monkeypatch)
-    runs = run_inputs_both(PATH, max_step=1, **OVER)
+    steps = []
+    advance = tadv.ml_advance
+
+    def spied_advance(geom, states, dt, proj_type, hints=None):
+        steps.append(dict(
+            states=state_arrays(states), dt=float(dt), proj_type=proj_type,
+            hints={k: [t.numpy().copy() for t in v]
+                   for k, v in (hints or {}).items()}))
+        return advance(geom, states, dt, proj_type, hints=hints)
+
+    monkeypatch.setattr(tadv, "ml_advance", spied_advance)
+    tv = TVarden(tload(PATH, dtype="float64", max_step=1, plot_int=-1,
+                       chk_int=-1, verbose=0, **OVER), device="cpu")
+    ts = tv.run()
     monkeypatch.undo()
-    jv, tv, js, ts = runs
-    assert [tuple(s.n) for s in tv.geom.specs] == \
+    geom = tv.geom
+    assert [tuple(s.n) for s in geom.specs] == \
         [(16, 16, 16), (32, 32, 32), (48, 48, 48)]
-    assert_runs_agree(*runs)
-    assert float(jv.last_diag["hg_ratio"]) <= 1.0
-    assert float(tv.last_diag["hg_ratio"]) <= 1.0
     step1 = calls[-1]
     port, port_outer = step1["hist"], int(step1["info"][1])
     port_ratio = float(step1["info"][2])
     assert port_outer == len(port) - 1 and port_ratio <= 1.0
 
-    ref, ref_outer, ref_ratio = _reference_history(step1, False, monkeypatch)
-    np.testing.assert_allclose(ref[0], port[0], rtol=1e-9)
-    assert ref_ratio <= 1.0
-    # the histories part at the first outer cycle
-    assert max(abs(a / b - 1.0) for a, b in zip(ref[1], port[1])) > 0.5
+    # varden_tpu's step 1 from the port's state and warm starts
+    js = JSim(jload(PATH, dtype="float64", **OVER))
+    jg = jfill.MLGeom(js, [jh.LevelSpec(tuple(s.lo), tuple(s.n))
+                           for s in geom.specs], list(geom.parent),
+                      list(geom.depth))
+    first = steps[-1]
+    jst = [JState(**{k: jnp.asarray(v) for k, v in a.items()})
+           for a in first["states"]]
+    hints = {k: [jnp.asarray(v) for v in vs]
+             for k, vs in first["hints"].items()}
+    jout, jdiag = jax.jit(lambda st, h: jadv.ml_advance(
+        jg, st, first["dt"], first["proj_type"], hints=h))(jst, hints)
+    for a, b in zip(state_arrays(ts), state_arrays(jout)):
+        for k in a:
+            scale = max(1.0, float(np.abs(b[k]).max()))
+            assert float(np.abs(a[k] - b[k]).max()) <= 1e-9 * scale, k
+    # both solves converge, varden_tpu's by another path
+    ref_ratio = float(jdiag["hg_ratio"])
+    assert ref_ratio <= 1.0 and abs(ref_ratio / port_ratio - 1.0) > 0.5
 
-    reg, reg_outer, reg_ratio = _reference_history(step1, True, monkeypatch)
+    reg, reg_outer, reg_ratio = _reference_history(step1, monkeypatch)
+    np.testing.assert_allclose(reg[0], port[0], rtol=1e-9)
     assert reg_outer == port_outer
     # residuals near roundoff (level 2 ends near 1e-17) agree in absolute
     # terms: 1e-12 of the largest starting residual

@@ -33,8 +33,67 @@ struct MKPtrs {
   const void* fupd;   // may be null
 };
 
-__device__ __forceinline__ int other(int n, int k) {
+// the k-th axis other than n (k = 0, 1), in increasing order
+__host__ __device__ constexpr int other(int n, int k) {
   return k == 0 ? (n == 0 ? 1 : 0) : (n == 2 ? 1 : 2);
+}
+
+// the mkflux.f90 boundary overrides of a hat or double-hat l/r pair of
+// component c on a boundary a-face (side 0 lo, 1 hi); s_m, s_p: s on either
+// side of the face (godunov3d.mkflux_3d face_bc)
+template <typename T>
+__device__ __forceinline__ void lr_overrides(const MK& m, int a, int c,
+                                             int side, T s_m, T s_p, T& l,
+                                             T& r) {
+  int pb = m.pbc[a][side];
+  bool normal_vel = m.is_vel && c == a;
+  bool copy = false;
+  switch (pb) {
+    case INLET:
+      l = r = side == 0 ? s_m : s_p;
+      break;
+    case SLIP_WALL:
+    case SYMMETRY:
+      if (normal_vel) l = r = (T)0;
+      else copy = true;
+      break;
+    case NO_SLIP_WALL:
+      if (m.is_vel) l = r = (T)0;
+      else copy = true;
+      break;
+    case OUTLET:
+      if (normal_vel) {
+        T w = side == 0 ? fmin(r, (T)0) : fmax(l, (T)0);
+        l = r = w;
+      } else {
+        copy = true;
+      }
+      break;
+    default:
+      break;
+  }
+  if (copy) {
+    if (side == 0) l = r;
+    else r = l;
+  }
+}
+
+// the mkflux.f90 overrides of the final edge state ed of component c on a
+// boundary a-face, from its corrected l/r pair
+template <typename T>
+__device__ __forceinline__ T edge_override(const MK& m, int a, int c,
+                                           int side, T s_m, T s_p, T el,
+                                           T er, T ed) {
+  int pb = m.pbc[a][side];
+  T inner = side == 0 ? er : el;
+  bool normal_vel = m.is_vel && c == a;
+  if (pb == INLET) return side == 0 ? s_m : s_p;
+  if (pb == SLIP_WALL || pb == NO_SLIP_WALL || pb == SYMMETRY)
+    return ((m.is_vel && pb == NO_SLIP_WALL) || normal_vel) ? (T)0 : inner;
+  if (pb == OUTLET)
+    return normal_vel ? (side == 0 ? fmin(inner, (T)0) : fmax(inner, (T)0))
+                      : inner;
+  return ed;
 }
 
 // hat-stage l/r states of component c on axis-a faces at padded point x,
@@ -64,38 +123,7 @@ __device__ void mk_lr(const MK& m, const MKPtrs& P, const T* slopes, int a,
     r = r - dt2 * sc[p] * rh[p];
   }
   int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-  if (side < 0) return;
-  int pb = m.pbc[a][side];
-  bool normal_vel = m.is_vel && c == a;
-  bool copy = false;
-  switch (pb) {
-    case INLET:
-      l = r = sc[side == 0 ? pm : p];
-      break;
-    case SLIP_WALL:
-    case SYMMETRY:
-      if (normal_vel) l = r = (T)0;
-      else copy = true;
-      break;
-    case NO_SLIP_WALL:
-      if (m.is_vel) l = r = (T)0;
-      else copy = true;
-      break;
-    case OUTLET:
-      if (normal_vel) {
-        T w = side == 0 ? fmin(r, (T)0) : fmax(l, (T)0);
-        l = r = w;
-      } else {
-        copy = true;
-      }
-      break;
-    default:
-      break;
-  }
-  if (copy) {
-    if (side == 0) l = r;
-    else r = l;
-  }
+  if (side >= 0) lr_overrides(m, a, c, side, sc[pm], sc[p], l, r);
 }
 
 // stage 1: simh[(a*nc+c)*N + p]
@@ -152,36 +180,14 @@ __global__ void mk_dhat_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
         l = l - corr(xm);
         r = r - corr(x);
         // the hat-state overrides apply again (mkflux_3d stage 2)
-        T l2 = l, r2 = r;
         int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
         if (side >= 0) {
           const T* sc = (const T*)P.s + c * g.N;
-          int pb = m.pbc[a][side];
-          bool normal_vel = m.is_vel && c == a;
-          bool copy = false;
-          if (pb == INLET) {
-            l2 = r2 = sc[side == 0 ? at(g, xm[0], xm[1], xm[2]) : p];
-          } else if (pb == SLIP_WALL || pb == SYMMETRY) {
-            if (normal_vel) l2 = r2 = (T)0;
-            else copy = true;
-          } else if (pb == NO_SLIP_WALL) {
-            if (m.is_vel) l2 = r2 = (T)0;
-            else copy = true;
-          } else if (pb == OUTLET) {
-            if (normal_vel) {
-              T w = side == 0 ? fmin(r, (T)0) : fmax(l, (T)0);
-              l2 = r2 = w;
-            } else {
-              copy = true;
-            }
-          }
-          if (copy) {
-            if (side == 0) l2 = r;
-            else r2 = l;
-          }
+          lr_overrides(m, a, c, side, sc[at(g, xm[0], xm[1], xm[2])], sc[p],
+                       l, r);
         }
         dh[((c * 3 + a) * 2 + k) * g.N + p] =
-            riemann_transverse(l2, r2, ((const T*)P.mac[a])[p], eps);
+            riemann_transverse(l, r, ((const T*)P.mac[a])[p], eps);
       }
     }
   }
@@ -241,18 +247,7 @@ __device__ T mk_edge_value(const MK& m, const MKPtrs& P,
   }
   T ed = riemann_transverse(el, er, ((const T*)P.mac[a])[p], eps);
   int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-  if (side >= 0) {
-    int pb = m.pbc[a][side];
-    T inner = side == 0 ? er : el;
-    bool normal_vel = m.is_vel && c == a;
-    if (pb == INLET)
-      ed = sc[side == 0 ? pm : p];
-    else if (pb == SLIP_WALL || pb == NO_SLIP_WALL || pb == SYMMETRY)
-      ed = ((m.is_vel && pb == NO_SLIP_WALL) || normal_vel) ? (T)0 : inner;
-    else if (pb == OUTLET)
-      ed = normal_vel ? (side == 0 ? fmin(inner, (T)0) : fmax(inner, (T)0))
-                      : inner;
-  }
+  if (side >= 0) ed = edge_override(m, a, c, side, sc[pm], sc[p], el, er, ed);
   return ed;
 }
 

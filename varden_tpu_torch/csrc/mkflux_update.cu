@@ -88,9 +88,6 @@ struct Plan {
   __host__ __device__ static constexpr int B(int d) {
     return d == 0 ? B0 : (d == 1 ? B1 : B2);
   }
-  __host__ __device__ static constexpr int other(int n, int k) {
-    return k == 0 ? (n == 0 ? 1 : 0) : (n == 2 ? 1 : 2);
-  }
   __host__ __device__ static constexpr Box sbox() {
     return Box{{-3, -3, -3}, {B0 + 6, B1 + 6, B2 + 6}};
   }
@@ -167,45 +164,6 @@ struct Ctx {
 // the side of the domain an a-face at interior face index f lies on
 __device__ __forceinline__ int face_side(const Grid& g, int a, int f) {
   return f == 0 ? 0 : (f == g.n[a] ? 1 : -1);
-}
-
-// the mkflux.f90 boundary overrides of a hat or double-hat l/r pair on a
-// boundary face (side 0 lo, 1 hi); s_m, s_p: s on either side of the face
-template <typename T>
-__device__ __forceinline__ void lr_overrides(const MK& m, int a, int c,
-                                             int side, T s_m, T s_p, T& lv,
-                                             T& rv) {
-  int pb = m.pbc[a][side];
-  bool normal_vel = m.is_vel && c == a;
-  bool copy = false;
-  switch (pb) {
-    case INLET:
-      lv = rv = side == 0 ? s_m : s_p;
-      break;
-    case SLIP_WALL:
-    case SYMMETRY:
-      if (normal_vel) lv = rv = (T)0;
-      else copy = true;
-      break;
-    case NO_SLIP_WALL:
-      if (m.is_vel) lv = rv = (T)0;
-      else copy = true;
-      break;
-    case OUTLET:
-      if (normal_vel) {
-        T w = side == 0 ? fmin(rv, (T)0) : fmax(lv, (T)0);
-        lv = rv = w;
-      } else {
-        copy = true;
-      }
-      break;
-    default:
-      break;
-  }
-  if (copy) {
-    if (side == 0) lv = rv;
-    else rv = lv;
-  }
 }
 
 // hat-stage l/r states of the component on the axis-A face at brick point
@@ -292,7 +250,7 @@ __device__ __forceinline__ void hat_stage(const Ctx<T>& x) {
 // double-hat state (A, K): A-faces corrected along Bx = other(A, K)
 template <typename T, class G, int A, int K>
 __device__ __forceinline__ void dhat_stage(const Ctx<T>& x) {
-  constexpr int Bx = G::other(A, K);
+  constexpr int Bx = other(A, K);
   constexpr Box db = G::dbox(A, K), hb = G::hbox(Bx), cb = G::cbox(),
                 sb = G::sbox();
   constexpr int n = box_size(db);
@@ -333,8 +291,8 @@ __device__ __forceinline__ void dhat_stage(const Ctx<T>& x) {
 template <typename T, class G, int A, int K>
 __device__ __forceinline__ T edge_corr_term(const Ctx<T>& x, const int* q,
                                             T acc) {
-  constexpr int TT = G::other(A, K), Bx = 3 - A - TT;
-  constexpr int KK = Bx == G::other(TT, 0) ? 0 : 1;
+  constexpr int TT = other(A, K), Bx = 3 - A - TT;
+  constexpr int KK = Bx == other(TT, 0) ? 0 : 1;
   constexpr Box db = G::dbox(TT, KK), cb = G::cbox(), sb = G::sbox();
   const MK& m = x.m;
   const T* mt = (x.sm + G::OM(TT));
@@ -385,18 +343,7 @@ __device__ __forceinline__ void edge_stage(const Ctx<T>& x) {
     }
     T ed = riemann_transverse(el, er, x.sm[G::OM(A) + cp], x.eps);
     int side = face_side(m.g, A, x.o[A] + l[A]);
-    if (side >= 0) {
-      int pb = m.pbc[A][side];
-      T inner = side == 0 ? er : el;
-      bool normal_vel = m.is_vel && x.c == A;
-      if (pb == INLET)
-        ed = side == 0 ? s_m : s_p;
-      else if (pb == SLIP_WALL || pb == NO_SLIP_WALL || pb == SYMMETRY)
-        ed = ((m.is_vel && pb == NO_SLIP_WALL) || normal_vel) ? (T)0 : inner;
-      else if (pb == OUTLET)
-        ed = normal_vel ? (side == 0 ? fmin(inner, (T)0) : fmax(inner, (T)0))
-                        : inner;
-    }
+    if (side >= 0) ed = edge_override(m, A, x.c, side, s_m, s_p, el, er, ed);
     x.sm[G::OE(A) + i] = ed;
   }
 }

@@ -115,7 +115,7 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
 
     ``force``, ``fupd`` and ``mac_rhs`` may each be None, meaning
     statically zero: never read and never allocated."""
-    flux_comps = tuple(int(c) for c in flux_comps)
+    flux_comps = tuple(flux_comps)
     if s.device.type == "cpu":
         return mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt,
                                       dx, phys_bc, adv_bc, ng, n_cell, is_vel,
