@@ -13,7 +13,9 @@ Phases, each of which asserts and any failure of which exits non-zero:
      three 2-D ones, BASELINE config 5's patches for kernels 6 and 11 and
      for kernel 2's flux option (the AMR scalar advance's call), and
      128^3 and 256^3 with config 4's boundaries for the padded sweep,
-     beside kernel 3's sweep and the ghost pad at the same shapes), in
+     beside kernel 3's sweep and the ghost pad at the same shapes, and
+     the fused V-cycle stages of kernels 3 and 4 at 256^3 and config 5's
+     240^3 and 384^3, beside the old single emits they replace), in
      float32 and again in float64: max abs error against the stated
      tolerance, the kernel's time (CUDA events), the plain version's time
      and the bound (bytes or operations, the operations counted by hand
@@ -25,7 +27,8 @@ Phases, each of which asserts and any failure of which exits non-zero:
      bubble (prob_type 1, 256^3, float32, no-slip walls on all six faces,
      visc_coef 1e-3), initial projection, one pressure iteration and STEPS
      regular steps, with every launch counter set to 0 just before and read
-     just after; all five kernels must have launched;
+     just after; all five kernels must have launched, kernels 3 and 4
+     through their fused V-cycle stages (counted apart);
   5. the main path once more in float64 for STEPS_SHORT steps: the same
      gates, and the float32 run's density extrema and max|u| held against it
      step by step;
@@ -335,6 +338,16 @@ def mkflux_update_ops(cons, force, fupd, order):
 # (22); the sweep adds * inv_diag and + phi; the restriction |r| and max per
 # fine cell and 7 adds and 7 halvings per coarse cell
 GSRB_OPS = {"sweep": 24, "residual": 22, "restrict": 24 + 14 / 8}
+# the fused stages of kernels 3 and 4 with two sweeps: the sweeps, then the
+# residual with |r| and max and the restriction per fine cell (kernel 3: 7
+# adds and 7 halvings per coarse cell; kernel 4: 13 weighted sums of three
+# per coarse node, 39 operations); or the prolongation and its add per fine
+# cell (kernel 3: the add; kernel 4: at most 3 weighted sums of two and the
+# add), then the sweeps
+FUSED_SWEEPS = 2
+GSRB_FUSED_OPS = {"smooth_restrict": FUSED_SWEEPS * GSRB_OPS["sweep"]
+                  + GSRB_OPS["restrict"],
+                  "smooth+corr": 1 + FUSED_SWEEPS * GSRB_OPS["sweep"]}
 
 
 def gsrb_const_ops(emit, use_alpha, have_rhs=True):
@@ -351,6 +364,17 @@ def nodal_ops(emit):
     weighting (16), sigma times the scale and the four products (5), the
     transpose difference into eight nodes (8); then the emit."""
     return 3 * (1 + 16 + 5 + 8) + NODAL_EMIT_OPS[emit]
+
+
+def nodal_fused_ops(case):
+    """Kernel 4's fused stages with two sweeps, per fine node: the sweeps
+    and (smooth_restrict) the residual with |r| and max and 39/8 of the
+    restriction, or (smooth+corr) the prolongation (3 sums of two, 3
+    halvings) and its add, then the sweeps."""
+    sweeps = FUSED_SWEEPS * nodal_ops("jacobi")
+    if case == "smooth_restrict":
+        return sweeps + nodal_ops("residual") + 2 + 39 / 8
+    return 7 + sweeps
 
 
 def velpred2d_ops(order):
@@ -772,6 +796,120 @@ def kernel_cases_amr(torch, dtype_name):
     return cases
 
 
+def smoother_cases(torch, dtype_name, n):
+    """Kernels 3 and 4's fused stages (two sweeps, as the V-cycles call
+    them) at n^3: the MAC operator of a seeded density in [1, 10] with
+    Neumann walls at the 256^3 base and the coarse-fine ghost code (3) on
+    every side of config 5's patches, the nodal operator of sigma = 1/rho
+    with walls; each beside the old single emits that a V-cycle's level
+    visit called instead (two two-launch sweeps and the restriction; the
+    plain prolongation and two sweeps; the nodal pads, Jacobi passes,
+    residual, plain restriction and prolongation)."""
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.solvers import mg, nodal
+    dev, dt_ = torch.device("cuda"), getattr(torch, dtype_name)
+    N = (n,) * 3
+    dx = (1.0 / n,) * 3
+    cells = n ** 3
+    code = 1 if n == N_AMR_PATCHES[0] else 3
+    ell = [(code, code)] * 3
+    rho = 5.5 + 4.5 * smooth(torch, N, 60, 1.0, dev, dt_)
+    beta = []
+    for d in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[d], hi[d] = slice(0, 1), slice(n - 1, n)
+        q = torch.cat([rho[tuple(lo)], rho, rho[tuple(hi)]], dim=d)
+        a = q.narrow(d, 0, n + 1)
+        b = q.narrow(d, 1, n + 1)
+        beta.append((2.0 / (a + b)).contiguous())
+    lev = mg.make_level(N, dx, ell, torch.zeros(N, dtype=dt_, device=dev),
+                        tuple(beta), 0.0)
+    phi = smooth(torch, N, 61, 0.5, dev, dt_)
+    rhs = smooth(torch, N, 62, 50.0, dev, dt_)
+    corr = smooth(torch, (n // 2,) * 3, 63, 0.1, dev, dt_)
+    bv = [[0.0, 0.0]] * 3
+    g = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell, bv)
+    fb = 4 * nbytes([phi]) + nbytes(beta)  # phi, rhs, inv_diag in, phi out
+    tag = f"{n}^3"
+    sw = (lambda p: ck.gsrb_var_sweep_3d(p, *g[1:]))
+    cases = [
+        ("gsrb_var_sweep_3d", f"smooth_restrict {tag}",
+         (lambda: ck.gsrb_var_sweep_3d(*g, emit="smooth_restrict",
+                                       nsweeps=FUSED_SWEEPS)),
+         (lambda: ck.gsrb_var_sweep_3d_plain(*g, emit="smooth_restrict",
+                                             nsweeps=FUSED_SWEEPS)),
+         fb + nbytes([phi]) // 8, GSRB_FUSED_OPS["smooth_restrict"] * cells,
+         (lambda: ck.gsrb_var_sweep_3d(sw(sw(phi)), *g[1:],
+                                       emit="restrict"))),
+        ("gsrb_var_sweep_3d", f"smooth+corr {tag}",
+         (lambda: ck.gsrb_var_sweep_3d(*g, emit="smooth",
+                                       nsweeps=FUSED_SWEEPS, corr=corr)),
+         (lambda: ck.gsrb_var_sweep_3d_plain(*g, emit="smooth",
+                                             nsweeps=FUSED_SWEEPS,
+                                             corr=corr)),
+         fb + nbytes([corr]), GSRB_FUSED_OPS["smooth+corr"] * cells,
+         (lambda: sw(sw(phi + ck.cell_prolong(corr, (2, 2, 2)))))),
+    ]
+    del rho
+    pmask = (False,) * 3
+    ns = nodal.node_shape(N, pmask)
+    sigma = 1.0 / (5.5 + 4.5 * smooth(torch, N, 64, 1.0, dev, dt_))
+    phin = smooth(torch, ns, 65, 0.5, dev, dt_)
+    rhsn = smooth(torch, ns, 66, 1e-4, dev, dt_)
+    cn = tuple(s // 2 + 1 for s in N)
+    corrn = smooth(torch, cn, 67, 0.1, dev, dt_)
+    inv = 1.0 / nodal.node_diag(sigma, dx, pmask, 3)
+    a = (phin, sigma, rhsn, inv, dx, nodal.JACOBI_OMEGA)
+    nodes = math.prod(ns)
+    node = phin.element_size() * nodes
+
+    def jac(p, sig_np):
+        return ck.nodal_sweep_3d(nodal._pad_node(p, pmask, 3), sig_np, rhsn,
+                                 inv, dx, nodal.JACOBI_OMEGA, "jacobi")
+
+    def old_restrict():
+        sig_np = nodal._sigma_np(sigma, pmask, 3)
+        p = jac(jac(phin, sig_np), sig_np)
+        r = ck.nodal_sweep_3d(nodal._pad_node(p, pmask, 3),
+                              nodal._sigma_np(sigma, pmask, 3), rhsn, None,
+                              dx, emit="residual")
+        return p, nodal._restrict(r, pmask, 3), r.abs().max()
+
+    def old_corr():
+        sig_np = nodal._sigma_np(sigma, pmask, 3)
+        p = phin + nodal._prolong(corrn, ns, pmask, 3)
+        return jac(jac(p, sig_np), sig_np)
+
+    nb = 4 * node + nbytes([sigma])  # phi, rhs, inv_diag in, phi out
+    cases += [
+        ("nodal_sweep_3d", f"smooth_restrict {tag}",
+         (lambda: ck.nodal_sweep_3d(*a, "smooth_restrict", pmask=pmask,
+                                    nsweeps=FUSED_SWEEPS)),
+         (lambda: ck.nodal_sweep_3d_plain(*a, "smooth_restrict", pmask=pmask,
+                                          nsweeps=FUSED_SWEEPS)),
+         nb + node // 8, nodal_fused_ops("smooth_restrict") * nodes,
+         old_restrict),
+        ("nodal_sweep_3d", f"smooth+corr {tag}",
+         (lambda: ck.nodal_sweep_3d(*a, "smooth", pmask=pmask,
+                                    nsweeps=FUSED_SWEEPS, corr=corrn)),
+         (lambda: ck.nodal_sweep_3d_plain(*a, "smooth", pmask=pmask,
+                                          nsweeps=FUSED_SWEEPS, corr=corrn)),
+         nb + nbytes([corrn]), nodal_fused_ops("smooth+corr") * nodes,
+         old_corr),
+    ]
+    return cases
+
+
+def kernel_cases_smoothers(torch, dtype_name):
+    """The fused stages of kernels 3 and 4 at 256^3 and config 5's 240^3
+    and 384^3."""
+    cases = []
+    for n in N_AMR_PATCHES:
+        cases += smoother_cases(torch, dtype_name, n)
+    return cases
+
+
 def rt_level(torch, n, dtype_name):
     """Config 4's MAC operator at n^3 on the card: the level (beta = 1/rho
     on faces of the Rayleigh-Taylor density), its elliptic BCs (periodic x
@@ -835,7 +973,7 @@ def pad_ghost_report(torch, dtype_name, reps):
 def phase_kernels(torch, dtype_name, reps, cases_fn=kernel_cases):
     tol = TOL_KERNEL[dtype_name]
     rows = []
-    for name, case, kern, plain, b, ops in cases_fn(torch, dtype_name):
+    for name, case, kern, plain, b, ops, *old in cases_fn(torch, dtype_name):
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
@@ -844,16 +982,19 @@ def phase_kernels(torch, dtype_name, reps, cases_fn=kernel_cases):
         ok = err <= tol * max(scale, 1e-30)
         ms = cuda_ms(torch, kern, reps)
         plain_ms = cuda_ms(torch, plain, max(1, reps // 4))
+        # the old single emits that a fused stage replaces, where given
+        old_ms = cuda_ms(torch, old[0], reps) if old else None
         bms, by = bound(b, ops, dtype_name)
         row = dict(name=name, case=case, dtype=dtype_name, max_abs_err=err,
                    ref_max=scale, tol=tol * scale, ok=ok, ms=ms,
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=b,
-                   ops=ops)
+                   ops=ops, old_ms=old_ms)
         print(f"  {name:24s} {case:12s} {dtype_name}: max abs err {err:.3e} "
               f"(tol {tol:.0e} x max|ref| {scale:.3e}) "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
-              f"({b} B, {ops:.0f} ops)", flush=True)
+              f"({b} B, {ops:.0f} ops)"
+              + (f", old emits {old_ms:.4f} ms" if old else ""), flush=True)
         need(ok, f"{name} ({case}, {dtype_name}) disagrees with its plain "
                  f"version: {err} > {tol} x {scale}")
         rows.append(row)
@@ -1027,11 +1168,45 @@ def counters():
             "gsrb_sweep_3d": ck.gsrb_sweep_3d}
 
 
-def phase_main(torch, kw, steps, expect, bubble=True):
+# kernels 3 and 4 count the launches of their fused V-cycle stages apart
+# (key "<name>:fused"): a 3-D path's V-cycles smooth through them, except
+# on config 4's MAC levels, which are periodic in x and take the padded
+# sweep (kernel 7), with kernel 3's single restrict emit
+FUSED = ("gsrb_var_sweep_3d", "nodal_sweep_3d")
+FUSED_RT = ("nodal_sweep_3d",)
+
+
+def zero_counts(fns):
+    for f in fns.values():
+        f.launches = 0
+    for k in FUSED:
+        fns[k].fused_launches = 0
+
+
+def read_counts(fns):
+    out = {k: f.launches for k, f in fns.items()}
+    out.update({f"{k}:fused": fns[k].fused_launches for k in FUSED})
+    return out
+
+
+def check_launches(launches, expect, fused):
+    """Every kernel of ``expect`` launched and no other; the fused stages
+    of the kernels in ``fused`` launched, of the others not."""
+    for k, c in launches.items():
+        base = k.split(":")[0]
+        on = (k == base and base in expect) or (k != base and base in fused)
+        if on:
+            need(c > 0, f"{k} was not launched on this path")
+        else:
+            need(c == 0, f"{k} is not on this path but launched {c}x")
+
+
+def phase_main(torch, kw, steps, expect, bubble=True, fused=None):
     """Drive Varden on the configuration ``kw`` for ``steps`` regular steps;
     ``expect`` names the kernels that must have launched, every other one
-    must not have. ``bubble``: hold the density to the bubble's range
-    [1, densfact]."""
+    must not have; ``fused`` (default: those of FUSED in ``expect``) the
+    kernels whose fused stages must have. ``bubble``: hold the density to
+    the bubble's range [1, densfact]."""
     from varden_tpu_torch.config import VardenConfig
     from varden_tpu_torch.driver import Varden
 
@@ -1039,19 +1214,20 @@ def phase_main(torch, kw, steps, expect, bubble=True):
     tol_rho = TOL_RHO_VISCOUS if cfg.visc_coef > 0.0 else TOL_RHO
     rho_hi = 10.0 if cfg.dm == 3 else 2.0  # the bubble's densfact
     fns = counters()
+    if fused is None:
+        fused = tuple(k for k in FUSED if k in expect)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in fns.values():
-        f.launches = 0
+    zero_counts(fns)
     t_start = time.perf_counter()
     v = Varden(cfg)  # the card: no device named
     state = v.initialize()
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t_start
-    init_counts = {k: f.launches for k, f in fns.items()}
+    init_counts = read_counts(fns)
     per_step = []
     while v.istep < steps:
-        before = {k: f.launches for k, f in fns.items()}
+        before = read_counts(fns)
         t0 = time.perf_counter()
         state = v.step(state)
         torch.cuda.synchronize()
@@ -1068,7 +1244,8 @@ def phase_main(torch, kw, steps, expect, bubble=True):
                    umax=float(d["umax"]),
                    gamma=gamma, visc_cycles=int(d.get("visc_cycles", 0)),
                    visc_ratio=float(d.get("visc_ratio", 0.0)),
-                   launches={k: f.launches - before[k] for k, f in fns.items()})
+                   launches={k: c - before[k]
+                             for k, c in read_counts(fns).items()})
         per_step.append(rec)
         print(f"  step {rec['step']}: div(umac) before/after MAC "
               f"{rec['div_before']:.6e} / {rec['div_after']:.6e} "
@@ -1077,18 +1254,14 @@ def phase_main(torch, kw, steps, expect, bubble=True):
               f" / {rec['rho_max']:.9f}; {sec:.4f} s; "
               f"{rec['cells_per_s']:.6e} cells/s; launches "
               f"{rec['launches']}", flush=True)
-    launches = {k: f.launches for k, f in fns.items()}
+    launches = read_counts(fns)
     peak = torch.cuda.max_memory_allocated()
     print(f"  init (initial projection + {cfg.init_iter} pressure iteration):"
           f" {t_init:.4f} s, launches {init_counts}", flush=True)
     print(f"  main path launches {launches}; peak device memory "
           f"{peak} bytes", flush=True)
 
-    for k, c in launches.items():
-        if k in expect:
-            need(c > 0, f"kernel {k} was not launched on this path")
-        else:
-            need(c == 0, f"kernel {k} is not on this path but launched {c}x")
+    check_launches(launches, expect, fused)
     for key in ("u", "s", "gp", "p"):
         need(bool(torch.isfinite(getattr(state, key)).all()),
              f"main path field {key} is not finite")
@@ -1108,10 +1281,10 @@ def phase_main(torch, kw, steps, expect, bubble=True):
     return v, state, launches, per_step, peak
 
 
-def phase_main_ml(torch, cfg, steps, expect, label):
+def phase_main_ml(torch, cfg, steps, expect, label, fused=None):
     """Drive the multi-level Varden (initialize_ml, then step_ml) on
-    ``cfg`` for ``steps`` regular steps on the card; ``expect`` names the
-    kernels that must have launched, every other one must not have. Gates:
+    ``cfg`` for ``steps`` regular steps on the card; ``expect`` and
+    ``fused`` as for phase_main. Gates:
     each composite solve at or below its tolerance, div(umac) falling
     across the MAC projection, every field of every level finite and the
     density inside [1, densfact]."""
@@ -1120,24 +1293,25 @@ def phase_main_ml(torch, cfg, steps, expect, label):
     tol_rho = TOL_RHO_VISCOUS if cfg.visc_coef > 0.0 else TOL_RHO
     rho_hi = 10.0 if cfg.dm == 3 else 2.0
     fns = counters()
+    if fused is None:
+        fused = tuple(k for k in FUSED if k in expect)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in fns.values():
-        f.launches = 0
+    zero_counts(fns)
     tsolve.TRACE = []
     t_start = time.perf_counter()
     v = Varden(cfg)  # the card: no device named
     states = v.initialize_ml()
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t_start
-    init_counts = {k: f.launches for k, f in fns.items()}
+    init_counts = read_counts(fns)
     print(f"  {label}: levels {[s.n for s in v.geom.specs]} at "
           f"{[s.lo for s in v.geom.specs]} ({v.geom.cells()} cells); init "
           f"{t_init:.3f} s, launches {init_counts}", flush=True)
     solve_report("init", tsolve.TRACE)
     per_step = []
     while v.istep < steps:
-        before = {k: f.launches for k, f in fns.items()}
+        before = read_counts(fns)
         regrids = v.regrids
         tsolve.TRACE = []
         t0 = time.perf_counter()
@@ -1161,8 +1335,8 @@ def phase_main_ml(torch, cfg, steps, expect, label):
                    rho_max=max(r[1] for r in rho),
                    umax=max(float(st.u.abs().max()) for st in states),
                    solves=tsolve.TRACE,
-                   launches={k: f.launches - before[k]
-                             for k, f in fns.items()})
+                   launches={k: c - before[k]
+                             for k, c in read_counts(fns).items()})
         per_step.append(rec)
         print(f"  step {rec['step']}{' (regrid)' if rec['regrid'] else ''}:"
               f" div(umac) before/after MAC {rec['div_before']:.6e} / "
@@ -1176,15 +1350,11 @@ def phase_main_ml(torch, cfg, steps, expect, label):
               flush=True)
         solve_report(f"step {rec['step']}", rec["solves"])
     tsolve.TRACE = None
-    launches = {k: f.launches for k, f in fns.items()}
+    launches = read_counts(fns)
     peak = torch.cuda.max_memory_allocated()
     print(f"  {label} launches {launches}; peak device memory {peak} bytes",
           flush=True)
-    for k, c in launches.items():
-        if k in expect:
-            need(c > 0, f"kernel {k} was not launched on this path")
-        else:
-            need(c == 0, f"kernel {k} is not on this path but launched {c}x")
+    check_launches(launches, expect, fused)
     for lev, st in enumerate(states):
         for key in ("u", "s", "gp", "p"):
             need(bool(torch.isfinite(getattr(st, key)).all()),
@@ -1286,15 +1456,14 @@ def phase_io(torch):
         full, again = os.path.join(tmp, "full"), os.path.join(tmp, "again")
         over = dict(max_step=RT_IO_STEPS, chk_int=RT_IO_CHK)
         fns = counters()
-        for f in fns.values():
-            f.launches = 0
+        zero_counts(fns)
         with TimedIO(torch) as tio:
             t0 = time.perf_counter()
             v = run_from_inputs(path, plot_base_name=full + "/plt",
                                 check_base_name=full + "/chk", **over)
             torch.cuda.synchronize()
             t_run = time.perf_counter() - t0
-            launches = {k: f.launches for k, f in fns.items()}
+            launches = read_counts(fns)
             print(f"  RT inputs to step {v.istep} in {t_run:.3f} s, levels "
                   f"{[s.n for s in v.geom.specs]}, {v.regrids} regrids; "
                   f"launches { {k: c for k, c in launches.items() if c} }",
@@ -1528,7 +1697,7 @@ def main(argv=None) -> int:
           flush=True)
     rows32, rows64 = [], []
     for cases_fn in (kernel_cases, kernel_cases_2d, kernel_cases_amr,
-                     kernel_cases_rt):
+                     kernel_cases_rt, kernel_cases_smoothers):
         rows32 += phase_kernels(torch, "float32", REPS, cases_fn)
         rows64 += phase_kernels(torch, "float64", max(2, REPS // 4), cases_fn)
         torch.cuda.empty_cache()
@@ -1661,7 +1830,8 @@ def main(argv=None) -> int:
     print(f"phase 14: the config 4 main path, 3-D Rayleigh-Taylor {N_RT}^3 "
           f"float32 (visc_coef 1e-3, cflfac 0.9), {STEPS} steps", flush=True)
     v, state, launches_rt, per_step_rt, peak_rt = phase_main(
-        torch, rt_kw(N_RT, "float32"), STEPS, KERNELS_RT, bubble=False)
+        torch, rt_kw(N_RT, "float32"), STEPS, KERNELS_RT, bubble=False,
+        fused=FUSED_RT)
     prof_rt = None
     if args.profile:
         root, ext = os.path.splitext(args.profile)
@@ -1671,7 +1841,8 @@ def main(argv=None) -> int:
     print(f"  the same path in float64, {STEPS_SHORT} steps, and the "
           "float32 run against it (density extrema and max|u|)", flush=True)
     _, _, _, per_step_rt64, _ = phase_main(
-        torch, rt_kw(N_RT, "float64"), STEPS_SHORT, KERNELS_RT, bubble=False)
+        torch, rt_kw(N_RT, "float64"), STEPS_SHORT, KERNELS_RT, bubble=False,
+        fused=FUSED_RT)
     hold_f32_to_f64(per_step_rt, per_step_rt64)
     torch.cuda.empty_cache()
 
@@ -1683,12 +1854,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # the JSON line: for each kernel its main case (velocity update, the
-    # sweep, the Jacobi emit; the AMR kernels at the finest patch; the
+    # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
+    # finest patch; the
     # padded sweep at config 4's finest MAC level); max_abs_err the largest
     # over its cases
     main_case = {"velpred_3d_fused": "velocity",
                  "mkflux_update_3d_fused": "velocity",
-                 "gsrb_var_sweep_3d": "sweep", "nodal_sweep_3d": "jacobi",
+                 "gsrb_var_sweep_3d": "smooth_restrict 256^3",
+                 "nodal_sweep_3d": "smooth_restrict 256^3",
                  "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
                  "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
                  "update_3d": "nc2 [T,F] 384x384x384",
@@ -1765,6 +1938,15 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {[r['launches'][k] for r in steady]}"
                       for k in ("mkflux_update_3d_fused",) + OFF_PATH),
           flush=True)
+    for tag, ps in (("3-D main path (phase 4)", per_step),
+                    ("AMR main path (phase 11)", per_step_amr),
+                    ("config 4 main path (phase 14)", per_step_rt)):
+        steady = ps[1:] or ps
+        print(f"summary {tag}: kernels 3 and 4, launches per steady step "
+              "(of them the fused stages) "
+              + ", ".join(f"{k} {[r['launches'][k] for r in steady]} "
+                          f"({[r['launches'][k + ':fused'] for r in steady]})"
+                          for k in FUSED), flush=True)
     print(f"summary config 4 main path (phase 14): peak device memory "
           f"{peak_rt} bytes; density min/max by step "
           f"{[(r['rho_min'], r['rho_max']) for r in per_step_rt]}",

@@ -200,6 +200,43 @@ def test_gsrb_var_kernel(cuda, dtype, n, ell_bc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((16, 8, 32), [(1, 2), (2, 1), (0, 0)]),
+    ((15, 9, 8), [(0, 0), (1, 1), (2, 2)]),
+    ((40, 36, 70), [(3, 3), (2, 0), (1, 3)]),
+    ((64, 64, 64), [(1, 1), (1, 1), (1, 1)]),
+])
+def test_gsrb_var_fused_kernel(cuda, dtype, n, ell_bc):
+    """Kernel 3's fused stages: one launch for up to two sweeps, the
+    correction in the first and the restriction in the last."""
+    lev, phi, rhs = _mg_level(n, ell_bc, dtype, cuda)
+    bv = [[0.1, 0.3], [0.15, 0.0], [0.0, -0.2]]
+    args = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
+    k = cuda_kernels
+    even = all(s % 2 == 0 for s in n)
+    rng = np.random.RandomState(4)
+    runs = [("smooth", ns, None, (2, 2, 2)) for ns in (1, 2, 3)]
+    if even:
+        for fac in ((2, 2, 2), (1, 2, 2)):
+            c = torch.as_tensor(rng.rand(*[s // f for s, f in zip(n, fac)])
+                                - 0.5, dtype=dtype, device=cuda)
+            runs.append(("smooth", 2, c, fac))
+        runs += [("smooth_restrict", ns, None, (2, 2, 2)) for ns in (1, 2)]
+    for emit, ns, corr, fac in runs:
+        before = k.gsrb_var_sweep_3d.launches
+        out = k.gsrb_var_sweep_3d(*args, emit=emit, nsweeps=ns, corr=corr,
+                                  cfac=fac)
+        torch.cuda.synchronize()
+        assert k.gsrb_var_sweep_3d.launches == before + (ns + 1) // 2
+        ref = k.gsrb_var_sweep_3d_plain(*args, emit=emit, nsweeps=ns,
+                                        corr=corr, cfac=fac)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for o, r in zip(outs, refs):
+            _close(o, r, dtype, f"gsrb_var {emit} n={n} ns={ns} fac={fac}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("alpha", [0.0, 0.7])
 @pytest.mark.parametrize("n,ell_bc", [
     ((8, 8, 8), [(0, 0), (2, 2), (1, 1)]),
@@ -279,6 +316,44 @@ def test_nodal_kernel(cuda, dtype, pmask):
                                                 dx, emit=emit)
         _close(out, ref, dtype, f"nodal {emit} pmask={pmask}")
     assert cuda_kernels.nodal_sweep_3d.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,pmask", [
+    ((24, 16, 20), (False, False, False)),
+    ((24, 16, 20), (True, False, True)),
+    ((40, 18, 70), (True, True, False)),
+    ((15, 9, 7), (False, True, False)),
+])
+def test_nodal_fused_kernel(cuda, dtype, n, pmask):
+    """Kernel 4's fused stages on the unpadded node tensor: one launch for
+    up to two sweeps, no padded copy."""
+    rng = np.random.RandomState(3)
+    dx = (0.1, 0.13, 0.07)
+    kw = dict(dtype=dtype, device=cuda)
+    ns = nodal.node_shape(n, pmask)
+    sigma = torch.as_tensor(rng.rand(*n) + 0.5, **kw)
+    phi = torch.as_tensor(rng.rand(*ns) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(*ns) - 0.5, **kw)
+    inv = 1.0 / nodal.node_diag(sigma, dx, pmask, 3)
+    runs = [("smooth", k, None) for k in (1, 2, 3)]
+    if all(s % 2 == 0 for s in n):
+        cn = tuple(s // 2 if p else s // 2 + 1 for s, p in zip(n, pmask))
+        corr = torch.as_tensor(rng.rand(*cn) - 0.5, **kw)
+        runs += [("smooth", 2, corr), ("smooth_restrict", 1, None),
+                 ("smooth_restrict", 2, None)]
+    k = cuda_kernels
+    for emit, nsw, corr in runs:
+        a = (phi, sigma, rhs, inv, dx, 0.85, emit)
+        before = k.nodal_sweep_3d.launches
+        out = k.nodal_sweep_3d(*a, pmask=pmask, nsweeps=nsw, corr=corr)
+        torch.cuda.synchronize()
+        assert k.nodal_sweep_3d.launches == before + (nsw + 1) // 2
+        ref = k.nodal_sweep_3d_plain(*a, pmask=pmask, nsweeps=nsw, corr=corr)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for o, r in zip(outs, refs):
+            _close(o, r, dtype, f"nodal {emit} n={n} pmask={pmask} ns={nsw}")
 
 
 @pytest.mark.parametrize("extra", [

@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Time the port's headline and AMR steps, and optionally kernel 2, in the
-checkout this is run from, so that two checkouts can be compared on one
-card in one call.
+"""Time the port's headline, AMR and Rayleigh-Taylor steps in the checkout
+this is run from, so that two checkouts can be compared on one card in one
+call.
 
-    cd CHECKOUT && python3 /path/to/tools/torch_step_compare.py TAG [--kernel2]
+    cd CHECKOUT && python3 /path/to/tools/torch_step_compare.py TAG
 
 It imports chip_smoke.py and varden_tpu_torch from the current directory
 (the checkout under test, which may be an older commit unpacked with `git
-archive`) and drives that checkout's own phase functions: the headline
-configuration (the viscous 256^3 bubble, float32, STEPS steps) and
-BASELINE config 5 (256^3 + 2 levels, float32, STEPS_AMR steps), with the
-same gates as chip_smoke.py. It prints one line "RESULT TAG {json}" with
-each step's seconds, the steady mean, and the launches of kernels 2, 6 and
-11 per step. With --kernel2 it first times kernel 2's phase-2 cases (256^3,
-and config 5's patches with the flux option where the checkout has them)
-against the plain version. Run the two checkouts in turns (A, B, B, A):
+archive`) and drives that checkout's own phase functions, with the same
+gates as chip_smoke.py: the headline configuration (the viscous 256^3
+bubble, float32, STEPS steps), BASELINE config 5 (256^3 + 2 levels,
+float32, STEPS_AMR steps) and config 4 (3-D Rayleigh-Taylor 128^3, float32,
+STEPS steps), each followed by one more step under torch.profiler. It
+prints one line "RESULT TAG {json}" with, per configuration, each step's
+seconds and the steady mean, the kernel launches of each step, the
+V-cycles of the single-level and composite solves (mg.v_cycle and
+nodal.v_cycle entered at the finest level, initialization included) and,
+of the profiled step, its wall seconds, the device's busy seconds and idle
+share and the device milliseconds and launches of each of the package's
+kernel functions. Run the two checkouts in turns (A, B, B, A):
 the host's share of a step varies from run to run.
 """
+import collections
 import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.getcwd())
 
@@ -28,13 +34,49 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from varden_tpu_torch.config import VardenConfig  # noqa: E402
 from varden_tpu_torch.ops import _cuda  # noqa: E402
+from varden_tpu_torch.solvers import mg, nodal  # noqa: E402
 
-KERNELS = ("mkflux_update_3d_fused", "update_3d", "mkflux_3d_fused")
+CYCLES = collections.Counter()
 
 
-def kernel2_only(cases_fn):
-    return lambda torch_, dtype: [c for c in cases_fn(torch_, dtype)
-                                  if c[0] == "mkflux_update_3d_fused"]
+def count_cycles(module, key, lev_pos):
+    """Count the V-cycles of ``module`` entered at the finest level (the
+    recursion and the composite solves call the module's global)."""
+    fn = module.v_cycle
+
+    def wrapped(*a, **k):
+        if k.get("lev", a[lev_pos] if len(a) > lev_pos else 0) == 0:
+            CYCLES[key] += 1
+        return fn(*a, **k)
+
+    module.v_cycle = wrapped
+
+
+def profiled(v, state):
+    """One more step under torch.profiler: wall and busy seconds, and
+    device ms and launches per kernel function of the package."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from varden_tpu_torch.advance import RANGES
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        (v.step_ml if v.ml else v.step)(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+    busy = sum(e.self_device_time_total for e in rows) * 1e-6
+    own = collections.defaultdict(lambda: [0.0, 0])
+    for e in rows:
+        if " vt::" in e.key:
+            name = e.key.split("vt::")[1].split("<")[0].split("(")[0]
+            own[name][0] += e.self_device_time_total * 1e-3
+            own[name][1] += e.count
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "own_ms": {k: {"ms": m, "launches": c} for k, (m, c)
+                       in sorted(own.items())}}
 
 
 def main():
@@ -44,27 +86,39 @@ def main():
     tag = sys.argv[1]
     print(f"card: {cs.smi_name_power()}", flush=True)
     _cuda.build_all()
-    if "--kernel2" in sys.argv:
-        for dtype in ("float32", "float64"):
-            reps = cs.REPS if dtype == "float32" else cs.REPS // 4
-            for fn in (cs.kernel_cases, cs.kernel_cases_amr):
-                cs.phase_kernels(torch, dtype, reps, kernel2_only(fn))
-                torch.cuda.empty_cache()
-    _, _, _, steps, _ = cs.phase_main(
-        torch, cs.bubble_kw(256, "float32", visc_coef=1.0e-3), cs.STEPS,
-        cs.KERNELS_3D)
-    torch.cuda.empty_cache()
-    _, _, _, steps_amr, _, init = cs.phase_main_ml(
-        torch, VardenConfig(**cs.cfg5_kw(256, "float32")), cs.STEPS_AMR,
-        cs.KERNELS_AMR, "config 5")
-    torch.cuda.empty_cache()
-    out = {"headline_steps_s": [r["seconds"] for r in steps],
-           "headline_steady_s": cs.mean_steady(steps),
-           "cfg5_steps_s": [r["seconds"] for r in steps_amr],
-           "cfg5_steady_s": cs.mean_steady(steps_amr), "cfg5_init_s": init}
-    for key, ps in (("headline", steps), ("cfg5", steps_amr)):
-        out[f"{key}_launches_per_step"] = {
-            k: [r["launches"][k] for r in ps] for k in KERNELS}
+    count_cycles(mg, "mg", 4)
+    count_cycles(nodal, "nodal", 3)
+    # config 4's MAC levels take no fused stage of kernel 3
+    rt_kw = {"fused": cs.FUSED_RT} if hasattr(cs, "FUSED_RT") else {}
+    out = {}
+    for key in ("headline", "cfg5", "rt"):
+        CYCLES.clear()
+        if key == "headline":
+            v, state, _, steps, _ = cs.phase_main(
+                torch, cs.bubble_kw(256, "float32", visc_coef=1.0e-3),
+                cs.STEPS, cs.KERNELS_3D)
+        elif key == "cfg5":
+            v, state, _, steps, _, _ = cs.phase_main_ml(
+                torch, VardenConfig(**cs.cfg5_kw(256, "float32")),
+                cs.STEPS_AMR, cs.KERNELS_AMR, "config 5")
+        else:
+            v, state, _, steps, _ = cs.phase_main(
+                torch, cs.rt_kw(cs.N_RT, "float32"), cs.STEPS,
+                cs.KERNELS_RT, bubble=False, **rt_kw)
+        rec = {"steps_s": [r["seconds"] for r in steps],
+               "steady_s": cs.mean_steady(steps),
+               "launches": [r["launches"] for r in steps],
+               "v_cycles": dict(CYCLES)}
+        for k in ("mac_outer", "hg_outer", "visc_outer", "visc_cycles"):
+            if k in steps[-1]:
+                rec[k] = [r[k] for r in steps]
+        rec["profiled"] = profiled(v, state)
+        out[key] = rec
+        print(f"  {tag} {key}: steady {rec['steady_s']:.4f} s, idle "
+              f"{rec['profiled']['idle_share']:.3f}, V-cycles "
+              f"{rec['v_cycles']}", flush=True)
+        del v, state
+        torch.cuda.empty_cache()
     print(f"RESULT {tag} {json.dumps(out)}", flush=True)
     return 0
 

@@ -48,6 +48,12 @@ __host__ inline Grid make_grid(const long long* n, int ng) {
   return g;
 }
 
+// v modulo n in [0, n)
+__device__ __forceinline__ int wrapi(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -277,6 +283,40 @@ __global__ void absmax_boxes(Boxes<T> bx, T* out) {
     cudaError_t e_ = cudaGetLastError();           \
     if (e_ != cudaSuccess) return (int)e_;         \
   } while (0)
+
+// Chunks along x for a kernel whose blocks march over a tile's planes:
+// ``tiles`` blocks a chunk, ``cap`` blocks resident on the card at once, a
+// block taking chunk + ``extra`` steps (warm-up planes and pipeline fill).
+// Returns the chunk count that minimises waves x steps a block, chunks of
+// an even number of planes.
+inline int pick_chunks(int n0, int tiles, int cap, int extra) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int ch = 1; ch <= (n0 + 1) / 2; ++ch) {
+    int c = (n0 + ch - 1) / ch;
+    c += c & 1;
+    int real = (n0 + c - 1) / c;
+    long long waves = ((long long)tiles * real + cap - 1) / cap;
+    long long cost = waves * (c + extra);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = real;
+    }
+  }
+  return best;
+}
+
+// Blocks of ``kern`` resident on the whole card at ``threads`` threads and
+// ``smem`` bytes of dynamic shared memory each (at least one).
+template <typename K>
+inline int resident_blocks(K kern, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  int cap = sms * per_sm;
+  return cap > 0 ? cap : 1;
+}
 
 inline int blocks_for(i64 n, int threads) {
   i64 b = (n + threads - 1) / threads;

@@ -1,24 +1,36 @@
 // Variable-coefficient cell-centred operator L = alpha*aco*phi - div(beta
-// grad phi): exact red-black Gauss-Seidel sweep, residual, and residual +
-// 2x2x2 restriction + max|r|.
+// grad phi): exact red-black Gauss-Seidel sweep, residual, residual + 2x2x2
+// restriction + max|r|, and two fused multigrid stages, each one launch:
+// "smooth" (an optional piecewise-constant coarse correction added, then
+// nsweeps sweeps) and "smooth_restrict" (nsweeps sweeps, then the residual,
+// its 2x2x2 average and max|r|).
 //
 // Replaces the TPU kernel varden_tpu/ops/pallas_kernels.py:gsrb_var_sweep_3d
 // (kernel _gsrb_var_kernel_3d :469, pallas_call at :632 and :649). Unlike
 // the TPU kernel, which is a tiled hybrid (tile-edge neighbours keep their
-// pre-sweep values), the sweep here is exact: red cells in one launch, black
-// cells in a second, each out of place, so it equals the plain mg.gsrb on
-// any grid, odd periodic extents included. The boundary ghosts are formed
+// pre-sweep values), every sweep here is exact: it equals the plain mg.gsrb
+// on any grid, odd periodic extents included. The boundary ghosts are formed
 // in the kernel from the elliptic BC codes (PER 0, NEU 1, DIR 2 quadratic
 // with face value bval, GHOST 3 = zero), so no padded copy of phi exists.
 // One kernel serves every multigrid level at any size.
 //
-// What bounds it on the card: bytes. Per cell the sweep reads phi, rhs,
-// inv_diag and three face coefficients (six fields) and writes phi, twice
-// (once per colour); about 15 floating-point operations per cell and pass.
-// Neighbour reads along the unit-stride axis coalesce, and the three plane
-// neighbours are served from L1/L2. The restriction fuses the residual, the
-// average and the max-norm into one pass; the max is reduced within each
-// block and combined with one atomicMax on the value's bits per block.
+// What bounds it on the card: bytes. A half-sweep reads phi, rhs, inv_diag
+// and three face coefficients (six fields) and writes phi, so the single
+// passes (one launch a colour) move the six fields per half-sweep. The
+// fused stages read them once per stage: a block owns a TY x TZ tile of
+// (y, z) columns and a chunk of x planes and marches along x, plane by
+// plane, with the half-sweeps staggered one plane apart (half-sweep h on
+// plane p-h-1 while plane p arrives), the residual and the restriction
+// trailing. Each stage keeps a ring of three planes in shared memory; a
+// plane carries a y-z halo of one cell per half-sweep still to come (plus
+// one for the residual), recomputed from the loaded values, and each chunk
+// starts with as many warm-up planes, so blocks never exchange data and
+// periodic axes simply wrap. Each half-sweep writes its stage out of place,
+// so a periodic seam of odd extent, where two neighbours share a colour,
+// reads the values before the half-sweep as the plain sweep does. A thread
+// takes two z-neighbours (one of each colour) per half-sweep, so a warp
+// does not diverge on the colour. The coefficients are read through L1/L2
+// at each use: only phi's stages live in shared memory.
 #include "common.cuh"
 
 namespace vt {
@@ -170,8 +182,327 @@ __global__ void restrict_kernel(GS s, const T* __restrict__ phi,
   block_max_to<T>(rmax, m);
 }
 
-// ptrs: phi, rhs, inv_diag, aco?, beta0, beta1, beta2, out, tmp, rmax
-// iv:   n0 n1 n2 ell_bc[3][2] emit(0 sweep, 1 residual, 2 restrict)
+// ---------------------------------------------------------------------------
+// fused stages
+// ---------------------------------------------------------------------------
+
+struct GF {
+  GS s;
+  int fsh[3];     // log2 of the coarsening factor of corr per axis (0, 1)
+  int chunk;      // output planes of a block along x (even)
+  int tiles_z;    // tiles along z
+};
+
+template <typename T>
+__device__ __forceinline__ T ghost_val(int bc, double bv, T c, T second) {
+  if (bc == BC_NEU) return c;
+  if (bc == BC_GHOST) return (T)0;
+  return (T)((8.0 / 3.0) * bv) - (T)2 * c + (T)(1.0 / 3.0) * second;
+}
+
+// The planes of one stage around plane lq (three ring slots).
+template <typename T>
+struct Planes {
+  const T* prv;
+  const T* cur;
+  const T* nxt;
+};
+
+// Coefficients of one cell, loaded ahead of their use: the six face betas
+// (x lo, x hi, y lo, y hi, z lo, z hi), rhs and inv_diag.
+template <typename T>
+struct Coef {
+  T b[6];
+  T rhs, inv;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_coef(Coef<T>& q, const T* const* beta,
+                                          const T* __restrict__ rhs,
+                                          const T* __restrict__ inv, i64 g,
+                                          int gx, int gy, int n1, int n2,
+                                          bool with_inv) {
+  q.b[0] = beta[0][g];
+  q.b[1] = beta[0][g + (i64)n1 * n2];
+  const i64 gb = g + (i64)gx * n2;  // beta[1] is (n0, n1+1, n2)
+  q.b[2] = beta[1][gb];
+  q.b[3] = beta[1][gb + n2];
+  const i64 gc = g + (i64)gx * n1 + gy;  // beta[2] is (n0, n1, n2+1)
+  q.b[4] = beta[2][gc];
+  q.b[5] = beta[2][gc + 1];
+  q.rhs = rhs[g];
+  q.inv = with_inv ? inv[g] : (T)0;
+}
+
+// -div(beta grad phi) at the cell idx of plane P.cur (global cell gx, gy,
+// gz; value c): the order of operations of lphi above, the alpha term left
+// to the caller. RZ: the row stride of a plane in shared memory.
+template <typename T, int RZ>
+__device__ __forceinline__ T div_flux(const GS& s, const Planes<T>& P, int idx,
+                                      int gx, int gy, int gz, T c,
+                                      const T* bt) {
+  const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
+  T pm, pp;
+  if (gx == 0 && s.ell[0][0] != BC_PER)
+    pm = ghost_val<T>(s.ell[0][0], s.bval[0][0], c, n0 > 1 ? P.nxt[idx] : c);
+  else
+    pm = P.prv[idx];
+  if (gx == n0 - 1 && s.ell[0][1] != BC_PER)
+    pp = ghost_val<T>(s.ell[0][1], s.bval[0][1], c, n0 > 1 ? P.prv[idx] : c);
+  else
+    pp = P.nxt[idx];
+  T acc = (T)s.dxi2[0] * (bt[1] * (pp - c) - bt[0] * (c - pm));
+  if (gy == 0 && s.ell[1][0] != BC_PER)
+    pm = ghost_val<T>(s.ell[1][0], s.bval[1][0], c,
+                      n1 > 1 ? P.cur[idx + RZ] : c);
+  else
+    pm = P.cur[idx - RZ];
+  if (gy == n1 - 1 && s.ell[1][1] != BC_PER)
+    pp = ghost_val<T>(s.ell[1][1], s.bval[1][1], c,
+                      n1 > 1 ? P.cur[idx - RZ] : c);
+  else
+    pp = P.cur[idx + RZ];
+  acc = acc + (T)s.dxi2[1] * (bt[3] * (pp - c) - bt[2] * (c - pm));
+  if (gz == 0 && s.ell[2][0] != BC_PER)
+    pm = ghost_val<T>(s.ell[2][0], s.bval[2][0], c,
+                      n2 > 1 ? P.cur[idx + 1] : c);
+  else
+    pm = P.cur[idx - 1];
+  if (gz == n2 - 1 && s.ell[2][1] != BC_PER)
+    pp = ghost_val<T>(s.ell[2][1], s.bval[2][1], c,
+                      n2 > 1 ? P.cur[idx - 1] : c);
+  else
+    pp = P.cur[idx + 1];
+  acc = acc + (T)s.dxi2[2] * (bt[5] * (pp - c) - bt[4] * (c - pm));
+  return -acc;
+}
+
+// L(phi) = div_flux + alpha*aco*phi
+template <typename T>
+__device__ __forceinline__ T add_alpha(const GS& s, T out,
+                                       const T* __restrict__ aco, i64 g, T c) {
+  return s.alpha != 0.0 ? out + (T)s.alpha * aco[g] * c : out;
+}
+
+// K half-sweeps (K/2 sweeps, red first) of the chunk's planes, then (RES)
+// the residual of the result on the tile, its 2x2x2 average into crs and
+// max|r| into rmax. Half-sweep h runs on plane t-2h-2 while plane t
+// arrives, the residual on plane t-2K-2 and the restriction of a plane
+// pair a step later: every part of step t reads only planes that earlier
+// steps finished, so a step is one phase between two barriers and its
+// loads all overlap. In place (INPLACE), plane p sits in slot p % (2K+4)
+// at whatever stage it has reached: a half-sweep writes its colour and
+// reads only the other one, which no part of the step writes. Else (a
+// periodic axis of odd extent, where two cells of one colour meet) each
+// stage has a ring of four planes and a half-sweep copies the other colour
+// forward. The rows and columns of the region map to global cells through
+// two tables (-1: outside a non-periodic domain).
+template <typename T, int K, bool RES, int TY, int TZ, int NT, bool INPLACE>
+__global__ void __launch_bounds__(NT)
+    gsrb_fused_kernel(GF f, const T* __restrict__ phi,
+                      const T* __restrict__ corr, const T* __restrict__ rhs,
+                      const T* __restrict__ inv, const T* __restrict__ aco,
+                      Betas3 B, T* __restrict__ out, T* __restrict__ crs,
+                      T* __restrict__ rmax) {
+  constexpr int H = K + (RES ? 1 : 0);
+  constexpr int RY = TY + 2 * H, RZ = TZ + 2 * H, RC = RY * RZ;
+  constexpr int NSLOT = INPLACE ? 2 * K + 4 : 4 * (K + 1);
+  extern __shared__ __align__(16) unsigned char vt_smem[];
+  T* ring = reinterpret_cast<T*>(vt_smem);  // [NSLOT][RC]
+  T* rb = ring + NSLOT * RC;                // [4 planes][TY*TZ] residuals
+  int* gyt = reinterpret_cast<int*>(rb + 4 * TY * TZ);  // [RY]
+  int* gzt = gyt + RY;                                  // [RZ]
+  // the slot of plane q at stage h
+  auto slot = [&](int h, int q) {
+    return INPLACE ? ring + (q % NSLOT) * RC : ring + (h * 4 + q % 4) * RC;
+  };
+  const GS& s = f.s;
+  const T* beta[3] = {(const T*)B.b[0], (const T*)B.b[1], (const T*)B.b[2]};
+  const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
+  const int wx = s.ell[0][0] == BC_PER || s.ell[0][1] == BC_PER;
+  const int wy = s.ell[1][0] == BC_PER || s.ell[1][1] == BC_PER;
+  const int wz = s.ell[2][0] == BC_PER || s.ell[2][1] == BC_PER;
+  const int y0 = (blockIdx.x / f.tiles_z) * TY;
+  const int z0 = (blockIdx.x % f.tiles_z) * TZ;
+  const int x0 = blockIdx.y * f.chunk;
+  const int x1 = min(x0 + f.chunk, n0);
+  const int px0 = wx ? x0 - H : max(0, x0 - H);
+  const int px1 = wx ? x1 + H : min(n0, x1 + H);
+  const int np = px1 - px0;
+  const int xlo_edge = !wx && px0 == 0, xhi_edge = !wx && px1 == n0;
+  const int tid = threadIdx.x;
+  for (int c = tid; c < RY + RZ; c += NT) {
+    if (c < RY) {
+      int g = y0 - H + c;
+      gyt[c] = wy ? wrapi(g, n1) : (g >= 0 && g < n1 ? g : -1);
+    } else {
+      int g = z0 - H + (c - RY);
+      gzt[c - RY] = wz ? wrapi(g, n2) : (g >= 0 && g < n2 ? g : -1);
+    }
+  }
+  __syncthreads();
+  T m = (T)0;
+  const i64 plane = (i64)n1 * n2;
+  const int last = np - 1 + 2 * K + (RES ? 3 : 1);
+  for (int t = 0; t <= last; ++t) {
+    // stage 0 of plane t, on the region dilated by H
+    if (t < np) {
+      const int gx = wx ? wrapi(px0 + t, n0) : px0 + t;
+      T* dst = slot(0, t);
+      const T* src = phi + gx * plane;
+      const int nc1 = n1 >> f.fsh[1], nc2 = n2 >> f.fsh[2];
+      const T* csrc =
+          corr ? corr + (i64)(gx >> f.fsh[0]) * nc1 * nc2 : nullptr;
+      for (int c = tid; c < RC; c += NT) {
+        int gy = gyt[c / RZ], gz = gzt[c % RZ];
+        if ((gy | gz) < 0) continue;
+        T v = src[(i64)gy * n2 + gz];
+        if (corr != nullptr)
+          v = v + csrc[(i64)(gy >> f.fsh[1]) * nc2 + (gz >> f.fsh[2])];
+        dst[c] = v;
+      }
+    }
+    // half-sweep h on plane t-2h-2: stage h -> h+1 on the region dilated
+    // by H-1-h; a pair away from a periodic seam holds one cell of each
+    // colour
+#pragma unroll
+    for (int h = 0; h < K; ++h) {
+      const int lq = t - 2 * h - 2;
+      const bool live = lq >= (xlo_edge ? 0 : h + 1) &&
+                        lq <= (xhi_edge ? np - 1 : np - 2 - h);
+      if (!live) continue;
+      const int dil = H - 1 - h, w = (TZ + 2 * dil) / 2;
+      const int cnt = (TY + 2 * dil) * w;
+      Planes<T> P = {slot(h, lq - 1), slot(h, lq), slot(h, lq + 1)};
+      T* dst = slot(h + 1, lq);
+      const int gx = wx ? wrapi(px0 + lq, n0) : px0 + lq;
+      const int colour = h & 1;
+      for (int c = tid; c < cnt; c += NT) {
+        const int a = H - dil + c / w, b0 = H - dil + 2 * (c % w);
+        const int gy = gyt[a];
+        if (gy < 0) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = b0 + e, gz = gzt[b];
+          if (gz < 0) continue;
+          const int idx = a * RZ + b;
+          T v = P.cur[idx];
+          if (((gx + gy + gz) & 1) == colour) {
+            const i64 g = gx * plane + (i64)gy * n2 + gz;
+            Coef<T> q;
+            load_coef<T>(q, beta, rhs, inv, g, gx, gy, n1, n2, true);
+            T lp = add_alpha<T>(
+                s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, q.b), aco, g, v);
+            v = v + (q.rhs - lp) * q.inv;
+            if (INPLACE) dst[idx] = v;
+          }
+          if (!INPLACE) dst[idx] = v;
+        }
+      }
+    }
+    // the finished stage K on plane t-2K-2 (RES; t-2K-1 otherwise): written
+    // out on the tile, and its residual
+    const int lr = t - 2 * K - (RES ? 2 : 1);
+    const int gxr = px0 + lr;  // unwrapped: output planes lie in [x0, x1)
+    if (lr >= 0 && gxr >= x0 && gxr < x1) {
+      const int gx = gxr;
+      Planes<T> P = {slot(K, lr - 1), slot(K, lr), slot(K, lr + 1)};
+      const i64 xb = gx * plane;
+      T* rp = rb + (gx & 3) * (TY * TZ);
+      for (int c = tid; c < TY * TZ; c += NT) {
+        const int yy = c / TZ, zz = c % TZ;
+        const int gy = y0 + yy, gz = z0 + zz;
+        if (gy >= n1 || gz >= n2) continue;
+        const int idx = (yy + H) * RZ + zz + H;
+        const T v = P.cur[idx];
+        const i64 g = xb + (i64)gy * n2 + gz;
+        out[g] = v;
+        if (RES) {
+          Coef<T> q;
+          load_coef<T>(q, beta, rhs, inv, g, gx, gy, n1, n2, false);
+          T r = q.rhs - add_alpha<T>(
+                            s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, q.b),
+                            aco, g, v);
+          rp[c] = r;
+          m = fmax(m, fabs(r));
+        }
+      }
+    }
+    // the restriction of the pair whose odd plane's residual came a step ago
+    const int gxc = gxr - 1;
+    if (RES && lr - 1 >= 0 && gxc >= x0 && gxc < x1 && (gxc & 1)) {
+      constexpr int cy = TY / 2, cz = TZ / 2;
+      const int nc1 = n1 / 2, nc2 = n2 / 2;
+      const T* re = rb + ((gxc - 1) & 3) * (TY * TZ);  // even x plane
+      const T* ro = rb + (gxc & 3) * (TY * TZ);        // odd x plane
+      for (int c = tid; c < cy * cz; c += NT) {
+        const int J = c / cz, L = c % cz;
+        const int gy = y0 / 2 + J, gz = z0 / 2 + L;
+        if (gy >= nc1 || gz >= nc2) continue;
+        const T* r0 = re + (2 * J) * TZ + 2 * L;
+        const T* r1 = ro + (2 * J) * TZ + 2 * L;
+        T ay[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          T ax0 = (T)0.5 * (r0[e] + r1[e]);
+          T ax1 = (T)0.5 * (r0[TZ + e] + r1[TZ + e]);
+          ay[e] = (T)0.5 * (ax0 + ax1);
+        }
+        crs[((i64)(gxc / 2) * nc1 + gy) * nc2 + gz] = (T)0.5 * (ay[0] + ay[1]);
+      }
+    }
+    __syncthreads();
+  }
+  if (RES) block_max_to<T>(rmax, m);
+}
+
+template <typename T>
+struct FusedTile {  // f64 halves TY so that the rings stay in shared memory
+  static constexpr int TY = sizeof(T) == 4 ? 16 : 8;
+  static constexpr int TZ = 32;
+  static constexpr int NT = 512;
+};
+
+template <typename T, int K, bool RES>
+int launch_fused(const GF& f0, const T* phi, const T* corr, const T* rhs,
+                 const T* inv, const T* aco, Betas3 B, T* out, T* crs,
+                 T* rmax, cudaStream_t st) {
+  constexpr int TY = FusedTile<T>::TY, TZ = FusedTile<T>::TZ;
+  constexpr int NT = FusedTile<T>::NT;
+  constexpr int H = K + (RES ? 1 : 0);
+  constexpr int RY = TY + 2 * H, RZ = TZ + 2 * H;
+  GF f = f0;
+  const int n0 = f.s.n[0];
+  const int ty = (f.s.n[1] + TY - 1) / TY;
+  f.tiles_z = (f.s.n[2] + TZ - 1) / TZ;
+  const int tiles = ty * f.tiles_z;
+  // in place unless a periodic axis of odd extent puts two cells of one
+  // colour side by side
+  bool odd_seam = false;
+  for (int d = 0; d < 3; ++d)
+    odd_seam |= (f.s.ell[d][0] == BC_PER || f.s.ell[d][1] == BC_PER) &&
+                (f.s.n[d] & 1);
+  size_t bytes = ((size_t)(odd_seam ? 4 * (K + 1) : 2 * K + 4) * RY * RZ +
+                  4 * TY * TZ) * sizeof(T) + (RY + RZ) * sizeof(int);
+  auto kern = odd_seam ? gsrb_fused_kernel<T, K, RES, TY, TZ, NT, false>
+                       : gsrb_fused_kernel<T, K, RES, TY, TZ, NT, true>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)bytes);
+  // a block takes its chunk, 2H warm-up planes and 2K+3 steps of fill
+  const int chunks = pick_chunks(n0, tiles, resident_blocks(kern, NT, bytes),
+                                 2 * H + 2 * K + 3);
+  f.chunk = (n0 + chunks - 1) / chunks;
+  f.chunk += f.chunk & 1;
+  kern<<<dim3(tiles, chunks), NT, bytes, st>>>(f, phi, corr, rhs, inv, aco, B,
+                                               out, crs, rmax);
+  VT_CHECK();
+  return 0;
+}
+
+// ptrs: phi, rhs, inv_diag, aco?, beta0, beta1, beta2, out, tmp, rmax,
+//       corr?, crs
+// iv:   n0 n1 n2 ell_bc[3][2] emit(0 sweep, 1 residual, 2 restrict,
+//       3 smooth, 4 smooth_restrict) nsweeps(1|2) fac[3]
 // dv:   dxi2[3] bvals[3][2] alpha
 template <typename T>
 int gsrb_var_impl(void** ptrs, const long long* iv, const double* dv,
@@ -194,6 +525,24 @@ int gsrb_var_impl(void** ptrs, const long long* iv, const double* dv,
   Betas3 B = {{ptrs[4], ptrs[5], ptrs[6]}};
   T* out = (T*)ptrs[7];
   i64 cnt = (i64)s.n[0] * s.n[1] * s.n[2];
+  if (emit >= 3) {
+    GF f;
+    f.s = s;
+    for (int d = 0; d < 3; ++d) f.fsh[d] = iv[11 + d] == 2 ? 1 : 0;
+    const T* corr = (const T*)ptrs[10];
+    T* crs = (T*)ptrs[11];
+    T* rmax = (T*)ptrs[9];
+    int ns = (int)iv[10];
+    if (emit == 3)
+      return ns == 1 ? launch_fused<T, 2, false>(f, phi, corr, rhs, inv, aco,
+                                                 B, out, crs, rmax, st)
+                     : launch_fused<T, 4, false>(f, phi, corr, rhs, inv, aco,
+                                                 B, out, crs, rmax, st);
+    return ns == 1 ? launch_fused<T, 2, true>(f, phi, corr, rhs, inv, aco, B,
+                                              out, crs, rmax, st)
+                   : launch_fused<T, 4, true>(f, phi, corr, rhs, inv, aco, B,
+                                              out, crs, rmax, st);
+  }
   if (emit == 0) {
     T* tmp = (T*)ptrs[8];
     gsrb_colour_kernel<T><<<blocks_for(cnt, 256), 256, 0, st>>>(

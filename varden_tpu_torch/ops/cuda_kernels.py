@@ -3,12 +3,16 @@ varden_tpu.ops.pallas_kernels).
 
   gsrb_var_sweep_3d  csrc/gsrb_var.cu  cell-centred variable-beta operator:
                                        exact red-black sweep, residual,
-                                       residual + restriction + max|r|
+                                       residual + restriction + max|r|, and
+                                       the fused V-cycle stages (smooth,
+                                       smooth_restrict)
   gsrb_const_sweep_3d csrc/gsrb_const.cu  batched constant-coefficient
                                        Helmholtz operator: exact red-black
                                        sweep, residual
   nodal_sweep_3d     csrc/nodal.cu     factored trilinear-FEM nodal operator:
-                                       apply, residual, weighted Jacobi
+                                       apply, residual, weighted Jacobi, and
+                                       the fused V-cycle stages (smooth,
+                                       smooth_restrict)
   gsrb_sweep_2d      csrc/gsrb2d.cu    the 2-D variable-beta operator: exact
                                        red-black sweep, residual
   gsrb_sweep_3d      csrc/gsrb_padded.cu  variable-beta red-black sweep on a
@@ -17,7 +21,9 @@ varden_tpu.ops.pallas_kernels).
 
 Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
 runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
-launches the kernel or raises. ``<wrapper>.launches`` counts CUDA launches.
+launches the kernel or raises. ``<wrapper>.launches`` counts CUDA launches;
+kernels 3 and 4 also count the launches of their fused multigrid stages
+apart (``.fused_launches``).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from . import _cuda
 
 # elliptic BC codes (bc.py BC_PER/NEU/DIR + mg.BC_GHOST)
 _BC_PER, _BC_NEU, _BC_DIR, _BC_GHOST = 0, 1, 2, 3
-_EMITS = ("sweep", "residual", "restrict")
+_EMITS = ("sweep", "residual", "restrict", "smooth", "smooth_restrict")
 
 
 def _ghost_planes(p, axis, lo_bc, hi_bc, blo, bhi):
@@ -83,42 +89,90 @@ def _avg_down(f):
     return f
 
 
+def cell_prolong(corr, fac):
+    """Piecewise-constant prolongation along the axes with factor 2 (the
+    order of mg.v_cycle)."""
+    for d, f in enumerate(fac):
+        if f == 2:
+            corr = corr.repeat_interleave(2, dim=corr.ndim - len(fac) + d)
+    return corr
+
+
 def gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
-                            aco=None, alpha=0.0, *, emit="sweep"):
+                            aco=None, alpha=0.0, *, emit="sweep", nsweeps=1,
+                            corr=None, cfac=(2, 2, 2)):
     """The plain PyTorch version of gsrb_var_sweep_3d (and, without the
-    restrict emit, of gsrb_sweep_2d: the arithmetic is written on phi's own
-    number of axes)."""
+    restrict emits, of gsrb_sweep_2d: the arithmetic is written on phi's own
+    number of axes). The fused emits are the compositions of the single
+    ones: phi + prolong(corr), then nsweeps sweeps (smooth); nsweeps sweeps,
+    then the restrict emit (smooth_restrict)."""
     dxi2 = tuple(1.0 / (float(h) * float(h)) for h in dx)
 
     def L(p):
         return _lphi(p, beta, dxi2, ell_bc, bvals, aco, alpha)
 
+    def sweep(p):
+        idx = _colour_index(p.shape, p.device)
+        for colour in (0, 1):
+            upd = p + (rhs - L(p)) * inv_diag
+            p = torch.where(idx % 2 == colour, upd, p)
+        return p
+
+    def restrict(p):
+        r = rhs - L(p)
+        return _avg_down(r), r.abs().max()
+
     if emit == "residual":
         return rhs - L(phi)
     if emit == "restrict":
-        r = rhs - L(phi)
-        return _avg_down(r), r.abs().max()
-    idx = _colour_index(phi.shape, phi.device)
-    for colour in (0, 1):
-        upd = phi + (rhs - L(phi)) * inv_diag
-        phi = torch.where(idx % 2 == colour, upd, phi)
-    return phi
+        return restrict(phi)
+    if emit == "sweep":
+        return sweep(phi)
+    if corr is not None:
+        phi = phi + cell_prolong(corr, cfac)
+    for _ in range(nsweeps):
+        phi = sweep(phi)
+    if emit == "smooth":
+        return phi
+    return (phi, *restrict(phi))
 
 
 def gsrb_var_sweep_3d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
-                      aco=None, alpha=0.0, *, emit="sweep"):
-    """Variable-beta GSRB sweep / residual / residual+restrict of
-    L = alpha*aco*phi - div(beta grad phi).
+                      aco=None, alpha=0.0, *, emit="sweep", nsweeps=1,
+                      corr=None, cfac=(2, 2, 2)):
+    """Variable-beta GSRB of L = alpha*aco*phi - div(beta grad phi): one
+    exact red-black sweep (emit="sweep"), the residual rhs - L(phi), the
+    residual's 2x2x2 average with max|r| ("restrict"), or a fused
+    multigrid stage:
 
-    phi/rhs/inv_diag/aco: (n0, n1, n2); beta: three face tensors. For
-    emit="restrict" returns (coarse residual (n/2), max|r| as a 0-d tensor);
-    else a tensor of phi's shape. inv_diag is read by the sweep only, aco
-    only when alpha != 0."""
+      "smooth"           phi + prolong(corr) (piecewise constant along the
+                         axes whose cfac is 2; corr None adds nothing),
+                         then nsweeps sweeps;
+      "smooth_restrict"  nsweeps sweeps, then the restrict emit of the
+                         result: returns (phi, coarse residual, max|r|).
+
+    phi/rhs/inv_diag/aco: (n0, n1, n2); beta: three face tensors. "restrict"
+    returns (coarse residual (n/2), max|r| as a 0-d tensor); "sweep",
+    "residual" and "smooth" a tensor of phi's shape. inv_diag is read by the
+    sweeps only, aco only when alpha != 0. On the card each emit is one
+    launch (two for "sweep", one a colour; a fused emit takes two sweeps a
+    launch)."""
     if emit not in _EMITS:
         raise ValueError(f"bad emit {emit!r}")
     if phi.device.type == "cpu":
         return gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
-                                       bvals, aco, alpha, emit=emit)
+                                       bvals, aco, alpha, emit=emit,
+                                       nsweeps=nsweeps, corr=corr, cfac=cfac)
+    return _gsrb_var_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco,
+                            alpha, emit, nsweeps, corr, cfac)
+
+
+# sweeps a fused launch takes at most (the kernel's halo grows with them)
+FUSED_SWEEPS = 2
+
+
+def _gsrb_var_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco,
+                     alpha, emit, nsweeps, corr, cfac):
     n = tuple(phi.shape)
     if len(n) != 3:
         raise ValueError(f"gsrb_var_sweep_3d: phi must be 3-D, got {n}")
@@ -132,31 +186,69 @@ def gsrb_var_sweep_3d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
         _cuda.check(aco, "aco", n, **kw)
     else:
         aco = None
-    if emit == "sweep":
+    fused = emit in ("smooth", "smooth_restrict")
+    if emit in ("sweep", "smooth", "smooth_restrict"):
         _cuda.check(inv_diag, "inv_diag", n, **kw)
-    if emit == "restrict" and any(s % 2 for s in n):
-        raise ValueError(f"restrict needs even extents, got {n}")
+    else:
+        inv_diag = None
+    if emit in ("restrict", "smooth_restrict") and any(s % 2 for s in n):
+        raise ValueError(f"{emit} needs even extents, got {n}")
+    if fused:
+        cfac = tuple(int(f) for f in cfac)
+        if corr is not None:
+            if any(f not in (1, 2) or s % f for f, s in zip(cfac, n)):
+                raise ValueError(f"cfac {cfac} does not divide {n}")
+            _cuda.check(corr, "corr", tuple(s // f for s, f in zip(n, cfac)),
+                        **kw)
+        if nsweeps < 1:
+            if emit == "smooth":
+                return phi if corr is None else phi + cell_prolong(corr, cfac)
+            return (phi, *_gsrb_var_launch(phi, rhs, None, beta, dx, ell_bc,
+                                           bvals, aco, alpha, "restrict", 1,
+                                           None, cfac))
     iv = [*n] + [int(ell_bc[d][s]) for d in range(3) for s in range(2)]
-    iv.append(_EMITS.index(emit))
     dv = [1.0 / (float(h) * float(h)) for h in dx]
     dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
     dv.append(float(alpha))
-    tmp = rmax = None
-    if emit == "restrict":
-        out = torch.empty(tuple(s // 2 for s in n), **kw)
-        rmax = torch.zeros(1, **kw)
-    else:
+    if not fused:
+        tmp = rmax = None
+        if emit == "restrict":
+            out = torch.empty(tuple(s // 2 for s in n), **kw)
+            rmax = torch.zeros(1, **kw)
+        else:
+            out = torch.empty(n, **kw)
+        if emit == "sweep":
+            tmp = torch.empty(n, **kw)
+        _cuda.call("gsrb_var", "gsrb_var3d",
+                   [phi, rhs, inv_diag, aco, beta[0], beta[1], beta[2], out,
+                    tmp, rmax], iv + [_EMITS.index(emit)], dv, phi)
+        gsrb_var_sweep_3d.launches += 2 if emit == "sweep" else 1
+        return (out, rmax[0]) if emit == "restrict" else out
+    # fused: FUSED_SWEEPS sweeps a launch, the correction in the first, the
+    # restriction in the last
+    left = nsweeps
+    crs = rmax = None
+    while left > 0:
+        k = min(left, FUSED_SWEEPS)
+        left -= k
+        last = left == 0 and emit == "smooth_restrict"
         out = torch.empty(n, **kw)
-    if emit == "sweep":
-        tmp = torch.empty(n, **kw)
-    _cuda.call("gsrb_var", "gsrb_var3d",
-               [phi, rhs, inv_diag if emit == "sweep" else None, aco,
-                beta[0], beta[1], beta[2], out, tmp, rmax], iv, dv, phi)
-    gsrb_var_sweep_3d.launches += 2 if emit == "sweep" else 1
-    return (out, rmax[0]) if emit == "restrict" else out
+        if last:
+            crs = torch.empty(tuple(s // 2 for s in n), **kw)
+            rmax = torch.zeros(1, **kw)
+        _cuda.call("gsrb_var", "gsrb_var3d",
+                   [phi, rhs, inv_diag, aco, beta[0], beta[1], beta[2], out,
+                    None, rmax, corr, crs],
+                   iv + [_EMITS.index("smooth_restrict" if last else "smooth"),
+                         k, *cfac], dv, phi)
+        gsrb_var_sweep_3d.launches += 1
+        gsrb_var_sweep_3d.fused_launches += 1
+        phi, corr = out, None
+    return (phi, crs, rmax[0]) if emit == "smooth_restrict" else phi
 
 
 gsrb_var_sweep_3d.launches = 0
+gsrb_var_sweep_3d.fused_launches = 0  # of them, the fused stages
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +363,94 @@ gsrb_const_sweep_3d.launches = 0
 # nodal
 # ---------------------------------------------------------------------------
 
-_NODAL_EMITS = ("apply", "residual", "jacobi")
+_NODAL_EMITS = ("apply", "residual", "jacobi", "smooth", "smooth_restrict")
+
+
+def _nsl(ndim, axis, s):
+    out = [slice(None)] * ndim
+    out[axis] = s
+    return tuple(out)
+
+
+def node_shift(phi, offset, pmask, dm):
+    """phi[i+offset] on the node lattice: wrap on periodic axes, zero-extend
+    on physical axes."""
+    out = phi
+    for d in range(dm):
+        o = offset[d]
+        if o == 0:
+            continue
+        axis = out.ndim - dm + d
+        if pmask[d]:
+            out = torch.roll(out, -o, dims=axis)
+        else:
+            n = out.shape[axis]
+            zero = torch.zeros_like(out.narrow(axis, 0, 1))
+            if o == 1:
+                out = torch.cat([out.narrow(axis, 1, n - 1), zero], dim=axis)
+            else:
+                out = torch.cat([zero, out.narrow(axis, 0, n - 1)], dim=axis)
+    return out
+
+
+def node_pad(phi, pmask, dm):
+    """Pad a node tensor with one ghost per axis: periodic wrap, else zero
+    (physical-side coefficients are exactly zero, so the value is unread)."""
+    for d in range(dm):
+        axis = phi.ndim - dm + d
+        if pmask[d]:
+            lo = phi[_nsl(phi.ndim, axis, slice(-1, None))]
+            hi = phi[_nsl(phi.ndim, axis, slice(0, 1))]
+        else:
+            lo = torch.zeros_like(phi[_nsl(phi.ndim, axis, slice(0, 1))])
+            hi = lo
+        phi = torch.cat([lo, phi, hi], dim=axis)
+    return phi
+
+
+def node_sigma_np(sigma, pmask, dm):
+    """Shifted-padded cell sigma: out[k] = sigma_cell[k-1] over the node
+    range (N+1 entries per axis), wrapping on periodic axes, zero outside."""
+    for d in range(dm):
+        axis = sigma.ndim - dm + d
+        if pmask[d]:
+            sigma = torch.cat(
+                [sigma[_nsl(sigma.ndim, axis, slice(-1, None))], sigma],
+                dim=axis)
+        else:
+            z = torch.zeros_like(sigma[_nsl(sigma.ndim, axis, slice(0, 1))])
+            sigma = torch.cat([z, sigma, z], dim=axis)
+    return sigma
+
+
+def node_restrict(r, pmask, dm):
+    """P^T full-weighting with per-axis weights (1/2, 1, 1/2)."""
+    for d in range(dm):
+        axis = r.ndim - dm + d
+        rm = node_shift(r, tuple(-1 if t == d else 0 for t in range(dm)),
+                        pmask, dm)
+        rp = node_shift(r, tuple(+1 if t == d else 0 for t in range(dm)),
+                        pmask, dm)
+        r = r + 0.5 * (rm + rp)
+        r = r[_nsl(r.ndim, axis, slice(0, None, 2))]
+    return r.contiguous()
+
+
+def node_prolong(c, fine_node_shape, pmask, dm):
+    """Linear interpolation: even fine nodes = coarse, odd = neighbor avg."""
+    for d in range(dm):
+        axis = c.ndim - dm + d
+        cp = node_shift(c, tuple(+1 if t == d else 0 for t in range(dm)),
+                        pmask, dm)
+        mid = 0.5 * (c + cp)
+        stacked = torch.stack([c, mid], dim=axis + 1)
+        new_shape = list(c.shape)
+        new_shape[axis] = 2 * c.shape[axis]
+        out = stacked.reshape(new_shape)
+        if not pmask[d]:
+            out = out[_nsl(out.ndim, axis, slice(0, fine_node_shape[d]))]
+        c = out
+    return c
 
 
 def nodal_apply_padded(phi_pad, sig_np, dxs):
@@ -313,8 +492,24 @@ def nodal_apply_padded(phi_pad, sig_np, dxs):
 
 
 def nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
-                         emit="jacobi"):
-    """The plain PyTorch version of nodal_sweep_3d."""
+                         emit="jacobi", *, pmask=None, nsweeps=1, corr=None):
+    """The plain PyTorch version of nodal_sweep_3d. The fused emits are the
+    compositions of the single ones on padded copies: phi + prolong(corr),
+    then nsweeps Jacobi sweeps (smooth); nsweeps sweeps, then the residual,
+    its restriction and max|r| (smooth_restrict)."""
+    if emit in ("smooth", "smooth_restrict"):
+        phi, sigma = phi_pad, sig_np
+        if corr is not None:
+            phi = phi + node_prolong(corr, tuple(phi.shape), pmask, 3)
+        sig_np = node_sigma_np(sigma, pmask, 3)
+        for _ in range(nsweeps):
+            phi = nodal_sweep_3d_plain(node_pad(phi, pmask, 3), sig_np, rhs,
+                                       inv_diag, dxs, omega, "jacobi")
+        if emit == "smooth":
+            return phi
+        res = nodal_sweep_3d_plain(node_pad(phi, pmask, 3), sig_np, rhs,
+                                   None, dxs, omega, "residual")
+        return phi, node_restrict(res, pmask, 3), res.abs().max()
     acc = nodal_apply_padded(phi_pad, sig_np, dxs)
     if emit == "apply":
         return acc
@@ -325,15 +520,30 @@ def nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
 
 
 def nodal_sweep_3d(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
-                   emit="jacobi"):
-    """One factored nodal pass. phi_pad: (N+2) node tensor with ghosts;
-    sig_np: (N+1) shifted-padded cell sigma; returns an N-node tensor. rhs
-    is read by residual and jacobi, inv_diag by jacobi only."""
+                   emit="jacobi", *, pmask=None, nsweeps=1, corr=None):
+    """One factored nodal pass, or a fused multigrid stage.
+
+    apply / residual / jacobi: phi_pad is the (N+2) node tensor with
+    ghosts, sig_np the (N+1) shifted-padded cell sigma; returns an N-node
+    tensor. rhs is read by residual and jacobi, inv_diag by jacobi only.
+
+    smooth / smooth_restrict: phi_pad is the unpadded node tensor (N) and
+    sig_np the cell sigma (n cells; N = n on the axes where pmask is True,
+    n + 1 elsewhere): the ghosts and the shifted sigma are formed in the
+    kernel (periodic wrap, else zero). "smooth" adds the linear prolongation
+    of corr (coarse nodes, n/2 cells) when given, then runs nsweeps Jacobi
+    sweeps; "smooth_restrict" runs nsweeps sweeps, then returns (phi, the
+    P^T full-weighting restriction of the residual, max|r|). On the card
+    each is one launch for up to FUSED_SWEEPS sweeps."""
     if emit not in _NODAL_EMITS:
         raise ValueError(f"bad emit {emit!r}")
     if phi_pad.device.type == "cpu":
         return nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv_diag, dxs,
-                                    omega, emit)
+                                    omega, emit, pmask=pmask,
+                                    nsweeps=nsweeps, corr=corr)
+    if emit in ("smooth", "smooth_restrict"):
+        return _nodal_fused_launch(phi_pad, sig_np, rhs, inv_diag, dxs, omega,
+                                   emit, pmask, nsweeps, corr)
     if phi_pad.ndim != 3:
         raise ValueError("nodal_sweep_3d: phi_pad must be 3-D")
     ns = tuple(s - 2 for s in phi_pad.shape)
@@ -354,7 +564,58 @@ def nodal_sweep_3d(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
     return out
 
 
+def _nodal_fused_launch(phi, sigma, rhs, inv_diag, dxs, omega, emit, pmask,
+                        nsweeps, corr):
+    if pmask is None or len(pmask) != 3 or phi.ndim != 3:
+        raise ValueError("nodal_sweep_3d: the fused emits need a 3-D phi "
+                         "and pmask")
+    n = tuple(sigma.shape)
+    ns = tuple(s if p else s + 1 for s, p in zip(n, pmask))
+    _cuda.check(phi, "phi", ns)
+    kw = dict(dtype=phi.dtype, device=phi.device)
+    _cuda.check(sigma, "sigma", n, **kw)
+    _cuda.check(rhs, "rhs", ns, **kw)
+    _cuda.check(inv_diag, "inv_diag", ns, **kw)
+    even = all(s % 2 == 0 for s in n)
+    if (emit == "smooth_restrict" or corr is not None) and not even:
+        raise ValueError(f"{emit}: the cells {n} must be even on every axis")
+    cshape = tuple(s // 2 if p else s // 2 + 1 for s, p in zip(n, pmask))
+    if corr is not None:
+        _cuda.check(corr, "corr", cshape, **kw)
+    if nsweeps < 1:
+        if corr is not None:
+            phi = phi + node_prolong(corr, ns, pmask, 3)
+        if emit == "smooth":
+            return phi
+        res = nodal_sweep_3d(node_pad(phi, pmask, 3),
+                             node_sigma_np(sigma, pmask, 3), rhs, None, dxs,
+                             omega, "residual")
+        return phi, node_restrict(res, pmask, 3), res.abs().max()
+    iv_tail = [*n, *(int(bool(p)) for p in pmask)]
+    dv = [*map(float, dxs), float(omega)]
+    left = nsweeps
+    crs = rmax = None
+    while left > 0:
+        k = min(left, FUSED_SWEEPS)
+        left -= k
+        last = left == 0 and emit == "smooth_restrict"
+        out = torch.empty(ns, **kw)
+        if last:
+            crs = torch.empty(cshape, **kw)
+            rmax = torch.zeros(1, **kw)
+        _cuda.call("nodal", "nodal3d",
+                   [phi, sigma, rhs, inv_diag, out, corr, crs, rmax],
+                   [*ns, _NODAL_EMITS.index("smooth_restrict" if last
+                                            else "smooth"), *iv_tail, k],
+                   dv, phi)
+        nodal_sweep_3d.launches += 1
+        nodal_sweep_3d.fused_launches += 1
+        phi, corr = out, None
+    return (phi, crs, rmax[0]) if emit == "smooth_restrict" else phi
+
+
 nodal_sweep_3d.launches = 0
+nodal_sweep_3d.fused_launches = 0  # of them, the fused stages
 
 
 # ---------------------------------------------------------------------------

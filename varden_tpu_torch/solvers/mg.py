@@ -9,8 +9,10 @@ smoothing and a dense direct bottom solve.
 
 In 3-D the smoothing sweeps, the residuals and the restriction run through
 two kernels of ops/cuda_kernels.py: gsrb_var_sweep_3d where beta is a face
-tensor per axis (the MAC projection, alpha = 0; on a level periodic in x
-the sweeps take gsrb_sweep_3d on a ghost-padded phi instead, as
+tensor per axis (the MAC projection, alpha = 0: a V-cycle's level visit is
+two of its fused passes, the pre-smooth with the residual and the
+restriction, and the prolongation with the post-smooth; on a level periodic
+in x the sweeps take gsrb_sweep_3d on a ghost-padded phi instead, as
 varden_tpu's do on its accelerator), gsrb_const_sweep_3d where
 beta is one number per axis (the viscous and diffusive Helmholtz solves,
 whose right-hand side may carry a leading batch axis, and the explicit
@@ -323,12 +325,21 @@ def _const_sweep(level: CCLevel, phi, rhs, bvals, emit):
     return out if batched else out[0]
 
 
-def _var_sweep(level: CCLevel, phi, rhs, bvals, emit):
-    """One pass of the face-tensor-beta kernel of the level's dimension."""
+def _var_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
+    """One pass of the face-tensor-beta kernel of the level's dimension
+    (``fused``: nsweeps, corr and cfac of kernel 3's fused emits)."""
     kernel = ck.gsrb_var_sweep_3d if level.dm == 3 else ck.gsrb_sweep_2d
     return kernel(phi, rhs, level.inv_diag, level.beta, level.dx,
                   level.ell_bc, bvals, aco=level.aco, alpha=level.alpha,
-                  emit=emit)
+                  emit=emit, **fused)
+
+
+def _fused_route(level: CCLevel, phi) -> bool:
+    """Whether the level smooths through kernel 3's fused stages: a 3-D
+    face-tensor level without a batch axis that is not on _padded_route."""
+    return (level.dm == 3 and phi.ndim == 3
+            and not any(_is_scalar_coef(b) for b in level.beta)
+            and not _padded_route(level, phi))
 
 
 def _residual(level: CCLevel, phi, rhs, bvals):
@@ -364,6 +375,8 @@ def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
             phi = ck.gsrb_sweep_3d(pad, rhs, level.inv_diag, level.beta,
                                    level.dx, aco=aco, alpha=level.alpha)
         return phi
+    if _fused_route(level, phi):
+        return _var_sweep(level, phi, rhs, bvals, "smooth", nsweeps=nsweeps)
     if not _scalar_beta(level.beta):
         for _ in range(nsweeps):
             phi = _var_sweep(level, phi, rhs, bvals, "sweep")
@@ -523,23 +536,33 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
             r = r - _mean_sp(r, level.dm)
         out = phi + bottom_solve(level, r, singular, bottom)
         return (out, r.abs().max()) if return_resnorm else out
-    phi = gsrb(level, phi, rhs, bv, nu1)
     fac = level.cfac if level.cfac is not None else (2,) * level.dm
-    if (level.dm == 3 and not _scalar_beta(level.beta)
-            and fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)):
-        # residual + 2^dm restriction + max|r| in one pass
-        crs, rmax = _var_sweep(level, phi, rhs, bv, "restrict")
+    fused = _fused_route(level, phi)
+    full = fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)
+    if fused and full:
+        # nu1 sweeps, the residual, its 2^dm restriction and max|r|: one
+        # pass of kernel 3
+        phi, crs, rmax = _var_sweep(level, phi, rhs, bv, "smooth_restrict",
+                                    nsweeps=nu1)
     else:
-        res = _residual(level, phi, rhs, bv)
-        crs = _cell_avg_down(res, level.dm, fac)
-        rmax = res.abs().max()
+        phi = gsrb(level, phi, rhs, bv, nu1)
+        if level.dm == 3 and not _scalar_beta(level.beta) and full:
+            # residual + 2^dm restriction + max|r| in one pass
+            crs, rmax = _var_sweep(level, phi, rhs, bv, "restrict")
+        else:
+            res = _residual(level, phi, rhs, bv)
+            crs = _cell_avg_down(res, level.dm, fac)
+            rmax = res.abs().max()
     corr = v_cycle(levels, torch.zeros_like(crs), crs, bvals, lev + 1, nu1,
                    nu2, singular, bottom=bottom)
+    if fused:
+        # phi + the piecewise-constant prolongation of corr, then nu2 sweeps:
+        # one pass of kernel 3
+        phi = _var_sweep(level, phi, rhs, bv, "smooth", nsweeps=nu2,
+                         corr=corr, cfac=fac)
+        return (phi, rmax) if return_resnorm else phi
     # piecewise-constant prolongation (only the coarsened axes)
-    for d in range(level.dm):
-        if fac[d] == 2:
-            corr = corr.repeat_interleave(2, dim=corr.ndim - level.dm + d)
-    phi = gsrb(level, phi + corr, rhs, bv, nu2)
+    phi = gsrb(level, phi + ck.cell_prolong(corr, fac), rhs, bv, nu2)
     return (phi, rmax) if return_resnorm else phi
 
 

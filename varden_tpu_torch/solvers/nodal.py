@@ -12,10 +12,13 @@ or smoothing sweeps, CG or BiCGStab (hg_bottom_solver, see
 mg.BOTTOM_METHODS).
 
 In 3-D every operator application of the V-cycle, the smoothing and the
-residuals run through the nodal_sweep_3d kernel (ops/cuda_kernels.py); the
-dense bottom matrix is assembled once per hierarchy by the plain factored
-apply. In 2-D, where varden_tpu has no nodal kernel either, they all run
-through the plain factored apply.
+residuals run through the nodal_sweep_3d kernel (ops/cuda_kernels.py): on
+an unmasked level a V-cycle's visit is two of its fused passes, the
+pre-smooth with the residual and the restriction, and the prolongation with
+the post-smooth, on the unpadded node tensor; masked levels apply the
+operator and update outside it. The dense bottom matrix is assembled once
+per hierarchy by the plain factored apply. In 2-D, where varden_tpu has no
+nodal kernel either, they all run through the plain factored apply.
 """
 from __future__ import annotations
 
@@ -73,25 +76,11 @@ def _pad_cell(f, pmask, dm, fill=0.0):
     return f
 
 
-def _shift_node(phi, offset, pmask, dm):
-    """phi[i+offset] on the node lattice: wrap on periodic axes, zero-extend
-    on physical axes."""
-    out = phi
-    for d in range(dm):
-        o = offset[d]
-        if o == 0:
-            continue
-        axis = out.ndim - dm + d
-        if pmask[d]:
-            out = torch.roll(out, -o, dims=axis)
-        else:
-            n = out.shape[axis]
-            zero = torch.zeros_like(out.narrow(axis, 0, 1))
-            if o == 1:
-                out = torch.cat([out.narrow(axis, 1, n - 1), zero], dim=axis)
-            else:
-                out = torch.cat([zero, out.narrow(axis, 0, n - 1)], dim=axis)
-    return out
+_shift_node = ck.node_shift
+_pad_node = ck.node_pad
+_sigma_np = ck.node_sigma_np
+_restrict = ck.node_restrict
+_prolong = ck.node_prolong
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +92,10 @@ class NodalLevel:
     diag: torch.Tensor            # operator diagonal on nodes
     mask: Optional[torch.Tensor]  # 1 = solve, 0 = Dirichlet(0) node; None
     binv: Optional[torch.Tensor] = None  # bottom level only
+    # the smoother's 1/diag and the shifted-padded sigma, formed once per
+    # level by build_hierarchy (None: formed at each use)
+    inv_diag: Optional[torch.Tensor] = None
+    sig_np: Optional[torch.Tensor] = None
 
     @property
     def dm(self):
@@ -165,53 +158,36 @@ def _factored_apply(phi, sigma, dx, pmask, dm):
     return out
 
 
-def _pad_node(phi, pmask, dm):
-    """Pad a node tensor with one ghost per axis: periodic wrap, else zero
-    (physical-side coefficients are exactly zero, so the value is unread)."""
-    for d in range(dm):
-        axis = phi.ndim - dm + d
-        if pmask[d]:
-            lo = phi[_sl(phi.ndim, axis, slice(-1, None))]
-            hi = phi[_sl(phi.ndim, axis, slice(0, 1))]
-        else:
-            lo = torch.zeros_like(phi[_sl(phi.ndim, axis, slice(0, 1))])
-            hi = lo
-        phi = torch.cat([lo, phi, hi], dim=axis)
-    return phi
-
-
-def _sigma_np(sigma, pmask, dm):
-    """Shifted-padded cell sigma: out[k] = sigma_cell[k-1] over the node
-    range (N+1 entries per axis), wrapping on periodic axes, zero outside."""
-    for d in range(dm):
-        axis = sigma.ndim - dm + d
-        if pmask[d]:
-            sigma = torch.cat([sigma[_sl(sigma.ndim, axis, slice(-1, None))],
-                               sigma], dim=axis)
-        else:
-            z = torch.zeros_like(sigma[_sl(sigma.ndim, axis, slice(0, 1))])
-            sigma = torch.cat([z, sigma, z], dim=axis)
-    return sigma
-
-
-def _kernel_nodal(level: NodalLevel, phi, rhs, omega, emit, sig_np=None):
-    """One nodal_sweep_3d pass (apply / residual / jacobi) on a level.
-    ``sig_np`` lets callers hoist the sweep-invariant shifted-padded sigma
-    out of smoothing loops."""
-    phi_pad = _pad_node(phi, level.pmask, level.dm)
+def _kernel_nodal(level: NodalLevel, phi, rhs, emit):
+    """One nodal_sweep_3d pass (apply / residual) on a level."""
+    sig_np = level.sig_np
     if sig_np is None:
         sig_np = _sigma_np(level.sigma, level.pmask, level.dm)
-    inv = None
-    if emit == "jacobi":
-        inv = _inv_diag(level)
-    return ck.nodal_sweep_3d(phi_pad, sig_np, rhs, inv, level.dx,
-                             omega=omega, emit=emit)
+    return ck.nodal_sweep_3d(_pad_node(phi, level.pmask, level.dm), sig_np,
+                             rhs, None, level.dx, emit=emit)
 
 
 def _inv_diag(level):
+    if level.inv_diag is not None:
+        return level.inv_diag
     d = level.diag
     return torch.where(d > 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
                        torch.zeros_like(d))
+
+
+def _fused_route(level: NodalLevel) -> bool:
+    """Whether the level smooths through kernel 4's fused stages (unmasked
+    3-D levels; the masked fine levels of the composite solve take the
+    apply with the update outside)."""
+    return level.mask is None and level.dm == 3
+
+
+def _fused(level: NodalLevel, phi, rhs, emit, nsweeps, corr=None,
+           omega=JACOBI_OMEGA):
+    """One of kernel 4's fused stages (smooth / smooth_restrict)."""
+    return ck.nodal_sweep_3d(phi, level.sigma, rhs, _inv_diag(level),
+                             level.dx, omega, emit, pmask=level.pmask,
+                             nsweeps=nsweeps, corr=corr)
 
 
 def nd_apply_raw(level: NodalLevel, phi):
@@ -219,7 +195,7 @@ def nd_apply_raw(level: NodalLevel, phi):
     boundary nodes carry inhomogeneous (coarse-interpolated) values. In 3-D
     the kernel's apply emit."""
     if level.dm == 3:
-        return _kernel_nodal(level, phi, None, 0.0, "apply")
+        return _kernel_nodal(level, phi, None, "apply")
     return _factored_apply(phi, level.sigma, level.dx, level.pmask, level.dm)
 
 
@@ -227,7 +203,7 @@ def nd_apply(level: NodalLevel, phi):
     if level.mask is not None:
         phi = phi * level.mask
     if level.dm == 3:
-        out = _kernel_nodal(level, phi, None, 0.0, "apply")
+        out = _kernel_nodal(level, phi, None, "apply")
     else:
         out = _factored_apply(phi, level.sigma, level.dx, level.pmask,
                               level.dm)
@@ -260,14 +236,11 @@ def node_diag(sigma, dx, pmask, dm):
 
 
 def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
-    """Weighted-Jacobi sweeps: the kernel's jacobi emit, or (masked levels,
-    and 2-D) the operator apply with the update outside."""
-    if level.mask is None and level.dm == 3:
-        sig_np = _sigma_np(level.sigma, level.pmask, level.dm)
-        for _ in range(nsweeps):
-            phi = _kernel_nodal(level, phi, rhs, omega, "jacobi",
-                                sig_np=sig_np)
-        return phi
+    """Weighted-Jacobi sweeps: kernel 4's fused smooth emit (nsweeps sweeps
+    a launch pair), or (masked levels, and 2-D) the operator apply with the
+    update outside."""
+    if _fused_route(level):
+        return _fused(level, phi, rhs, "smooth", nsweeps, omega=omega)
     inv = _inv_diag(level)
     for _ in range(nsweeps):
         r = rhs - nd_apply(level, phi)
@@ -278,35 +251,8 @@ def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
 
 def _residual(level: NodalLevel, phi, rhs):
     if level.mask is None and level.dm == 3:
-        return _kernel_nodal(level, phi, rhs, 0.0, "residual")
+        return _kernel_nodal(level, phi, rhs, "residual")
     return rhs - nd_apply(level, phi)
-
-
-def _restrict(r, pmask, dm):
-    """P^T full-weighting with per-axis weights (1/2, 1, 1/2)."""
-    for d in range(dm):
-        axis = r.ndim - dm + d
-        rm = _shift_node(r, tuple(-1 if t == d else 0 for t in range(dm)), pmask, dm)
-        rp = _shift_node(r, tuple(+1 if t == d else 0 for t in range(dm)), pmask, dm)
-        r = r + 0.5 * (rm + rp)
-        r = r[_sl(r.ndim, axis, slice(0, None, 2))]
-    return r.contiguous()
-
-
-def _prolong(c, fine_node_shape, pmask, dm):
-    """Linear interpolation: even fine nodes = coarse, odd = neighbor avg."""
-    for d in range(dm):
-        axis = c.ndim - dm + d
-        cp = _shift_node(c, tuple(+1 if t == d else 0 for t in range(dm)), pmask, dm)
-        mid = 0.5 * (c + cp)
-        stacked = torch.stack([c, mid], dim=axis + 1)
-        new_shape = list(c.shape)
-        new_shape[axis] = 2 * c.shape[axis]
-        out = stacked.reshape(new_shape)
-        if not pmask[d]:
-            out = out[_sl(out.ndim, axis, slice(0, fine_node_shape[d]))]
-        c = out
-    return c
 
 
 def _coarsen_mask(mask, pmask, dm):
@@ -333,8 +279,10 @@ def build_hierarchy(n, dx, pmask, sigma, mask,
     dx = list(dx)
     while True:
         diag = node_diag(sigma, dx, pmask, dm)
-        levels.append(NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma,
-                                 diag, mask))
+        lev = NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma, diag, mask)
+        levels.append(dataclasses.replace(
+            lev, inv_diag=_inv_diag(lev),
+            sig_np=_sigma_np(sigma, pmask, dm) if dm == 3 else None))
         if any(s % 2 != 0 or s <= BOTTOM_SIZE for s in n):
             break
         n = [s // 2 for s in n]
@@ -428,20 +376,31 @@ def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
         r = _residual(level, phi, rhs)
         out = phi + bottom_solve(level, r, bottom)
         return (out, r.abs().max()) if return_resnorm else out
-    phi = jacobi(level, phi, rhs, nu1)
-    res = _residual(level, phi, rhs)
-    crs_rhs = _restrict(res, level.pmask, level.dm)
+    fused = _fused_route(level)
+    if fused:
+        # nu1 sweeps, the residual, its restriction and max|r|: one pass of
+        # kernel 4
+        phi, crs_rhs, rmax = _fused(level, phi, rhs, "smooth_restrict", nu1)
+    else:
+        phi = jacobi(level, phi, rhs, nu1)
+        res = _residual(level, phi, rhs)
+        crs_rhs = _restrict(res, level.pmask, level.dm)
+        rmax = res.abs().max()
     nxt = levels[lev + 1]
     if nxt.mask is not None:
         crs_rhs = crs_rhs * nxt.mask
     corr = v_cycle(levels, torch.zeros_like(crs_rhs), crs_rhs, lev + 1, nu1,
                    nu2, bottom=bottom)
+    if fused:
+        # phi + the linear prolongation of corr, then nu2 sweeps: one pass
+        phi = _fused(level, phi, rhs, "smooth", nu2, corr=corr)
+        return (phi, rmax) if return_resnorm else phi
     corr_f = _prolong(corr, node_shape(level.n, level.pmask), level.pmask,
                       level.dm)
     if level.mask is not None:
         corr_f = corr_f * level.mask
     phi = jacobi(level, phi + corr_f, rhs, nu2)
-    return (phi, res.abs().max()) if return_resnorm else phi
+    return (phi, rmax) if return_resnorm else phi
 
 
 def divu_rhs(u, dx, pmask, dm, inflow_pad=None):
