@@ -338,16 +338,17 @@ def mkflux_update_ops(cons, force, fupd, order):
 # (22); the sweep adds * inv_diag and + phi; the restriction |r| and max per
 # fine cell and 7 adds and 7 halvings per coarse cell
 GSRB_OPS = {"sweep": 24, "residual": 22, "restrict": 24 + 14 / 8}
-# the fused stages of kernels 3 and 4 with two sweeps: the sweeps, then the
-# residual with |r| and max and the restriction per fine cell (kernel 3: 7
-# adds and 7 halvings per coarse cell; kernel 4: 13 weighted sums of three
-# per coarse node, 39 operations); or the prolongation and its add per fine
-# cell (kernel 3: the add; kernel 4: at most 3 weighted sums of two and the
-# add), then the sweeps
-FUSED_SWEEPS = 2
-GSRB_FUSED_OPS = {"smooth_restrict": FUSED_SWEEPS * GSRB_OPS["sweep"]
-                  + GSRB_OPS["restrict"],
-                  "smooth+corr": 1 + FUSED_SWEEPS * GSRB_OPS["sweep"]}
+
+
+def gsrb_fused_ops(case, nsweeps):
+    """Kernel 3's fused stages per fine cell: the sweeps, then the residual
+    with |r| and max and the restriction (7 adds and 7 halvings per coarse
+    cell) (smooth_restrict); or the prolongation's add, then the sweeps
+    (smooth+corr)."""
+    sweeps = nsweeps * GSRB_OPS["sweep"]
+    if case == "smooth_restrict":
+        return sweeps + GSRB_OPS["restrict"]
+    return 1 + sweeps
 
 
 def gsrb_const_ops(emit, use_alpha, have_rhs=True):
@@ -366,12 +367,13 @@ def nodal_ops(emit):
     return 3 * (1 + 16 + 5 + 8) + NODAL_EMIT_OPS[emit]
 
 
-def nodal_fused_ops(case):
-    """Kernel 4's fused stages with two sweeps, per fine node: the sweeps
-    and (smooth_restrict) the residual with |r| and max and 39/8 of the
-    restriction, or (smooth+corr) the prolongation (3 sums of two, 3
-    halvings) and its add, then the sweeps."""
-    sweeps = FUSED_SWEEPS * nodal_ops("jacobi")
+def nodal_fused_ops(case, nsweeps):
+    """Kernel 4's fused stages per fine node: the sweeps and
+    (smooth_restrict) the residual with |r| and max and 39/8 of the
+    restriction (13 weighted sums of three per coarse node), or
+    (smooth+corr) the prolongation (3 sums of two, 3 halvings) and its add,
+    then the sweeps."""
+    sweeps = nsweeps * nodal_ops("jacobi")
     if case == "smooth_restrict":
         return sweeps + nodal_ops("residual") + 2 + 39 / 8
     return 7 + sweeps
@@ -437,13 +439,17 @@ def bound(bytes_moved, ops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(torch, out, ref):
-    if isinstance(out, (tuple, list)):
-        errs = [max_err(torch, o, r) for o, r in zip(out, ref)]
-        return max(e[0] for e in errs), max(e[1] for e in errs)
-    d = (out.double() - ref.double()).abs().max().item()
-    s = ref.double().abs().max().item()
-    return d, s
+def max_errs(out, ref):
+    """[(max |out - ref|, max |ref|)] for each output tensor, nested tuples
+    flattened: the outputs of a tuple (a fused stage's phi, coarse residual
+    and max|r|; a face set's three components) are each held on their own
+    scale."""
+    if not isinstance(out, (tuple, list)):
+        return [((out.double() - ref.double()).abs().max().item(),
+                 ref.double().abs().max().item())]
+    need(isinstance(ref, (tuple, list)) and len(out) == len(ref),
+         "the kernel's outputs do not match its plain version's in number")
+    return [e for o, r in zip(out, ref) for e in max_errs(o, r)]
 
 
 # ---------------------------------------------------------------------------
@@ -573,8 +579,8 @@ def kernel_cases(torch, dtype_name, n=256):
     phin = smooth(torch, ns, 7, 0.5, dev, dt_)
     rhsn = smooth(torch, ns, 8, 1e-4, dev, dt_)
     inv = 1.0 / nodal.node_diag(sigma, sim.dx, pmask, 3)
-    phi_pad = nodal._pad_node(phin, pmask, 3)
-    sig_np = nodal._sigma_np(sigma, pmask, 3)
+    phi_pad = ck.node_pad(phin, pmask, 3)
+    sig_np = ck.node_sigma_np(sigma, pmask, 3)
     node = phin.element_size() * math.prod(ns)
     for emit, b in (("jacobi", nbytes([phi_pad, sig_np]) + 3 * node),
                     ("residual", nbytes([phi_pad, sig_np]) + 2 * node),
@@ -797,16 +803,17 @@ def kernel_cases_amr(torch, dtype_name):
 
 
 def smoother_cases(torch, dtype_name, n):
-    """Kernels 3 and 4's fused stages (two sweeps, as the V-cycles call
-    them) at n^3: the MAC operator of a seeded density in [1, 10] with
-    Neumann walls at the 256^3 base and the coarse-fine ghost code (3) on
-    every side of config 5's patches, the nodal operator of sigma = 1/rho
-    with walls; each beside the old single emits that a V-cycle's level
-    visit called instead (two two-launch sweeps and the restriction; the
-    plain prolongation and two sweeps; the nodal pads, Jacobi passes,
-    residual, plain restriction and prolongation)."""
+    """Kernels 3 and 4's fused stages (ck.FUSED_SWEEPS sweeps, as the
+    V-cycles call them) at n^3: the MAC operator of a seeded density in
+    [1, 10] with Neumann walls at the 256^3 base and the coarse-fine ghost
+    code (3) on every side of config 5's patches, the nodal operator of
+    sigma = 1/rho with walls; each beside the old single emits that a
+    V-cycle's level visit called instead (two-launch sweeps and the
+    restriction; the plain prolongation and the sweeps; the nodal pads,
+    Jacobi passes, residual, plain restriction and prolongation)."""
     from varden_tpu_torch.ops import cuda_kernels as ck
     from varden_tpu_torch.solvers import mg, nodal
+    nsw = ck.FUSED_SWEEPS
     dev, dt_ = torch.device("cuda"), getattr(torch, dtype_name)
     N = (n,) * 3
     dx = (1.0 / n,) * 3
@@ -832,24 +839,29 @@ def smoother_cases(torch, dtype_name, n):
     g = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell, bv)
     fb = 4 * nbytes([phi]) + nbytes(beta)  # phi, rhs, inv_diag in, phi out
     tag = f"{n}^3"
-    sw = (lambda p: ck.gsrb_var_sweep_3d(p, *g[1:]))
+
+    def sweeps(p):
+        for _ in range(nsw):
+            p = ck.gsrb_var_sweep_3d(p, *g[1:])
+        return p
+
     cases = [
         ("gsrb_var_sweep_3d", f"smooth_restrict {tag}",
          (lambda: ck.gsrb_var_sweep_3d(*g, emit="smooth_restrict",
-                                       nsweeps=FUSED_SWEEPS)),
+                                       nsweeps=nsw)),
          (lambda: ck.gsrb_var_sweep_3d_plain(*g, emit="smooth_restrict",
-                                             nsweeps=FUSED_SWEEPS)),
-         fb + nbytes([phi]) // 8, GSRB_FUSED_OPS["smooth_restrict"] * cells,
-         (lambda: ck.gsrb_var_sweep_3d(sw(sw(phi)), *g[1:],
+                                             nsweeps=nsw)),
+         fb + nbytes([phi]) // 8,
+         gsrb_fused_ops("smooth_restrict", nsw) * cells,
+         (lambda: ck.gsrb_var_sweep_3d(sweeps(phi), *g[1:],
                                        emit="restrict"))),
         ("gsrb_var_sweep_3d", f"smooth+corr {tag}",
          (lambda: ck.gsrb_var_sweep_3d(*g, emit="smooth",
-                                       nsweeps=FUSED_SWEEPS, corr=corr)),
+                                       nsweeps=nsw, corr=corr)),
          (lambda: ck.gsrb_var_sweep_3d_plain(*g, emit="smooth",
-                                             nsweeps=FUSED_SWEEPS,
-                                             corr=corr)),
-         fb + nbytes([corr]), GSRB_FUSED_OPS["smooth+corr"] * cells,
-         (lambda: sw(sw(phi + ck.cell_prolong(corr, (2, 2, 2)))))),
+                                             nsweeps=nsw, corr=corr)),
+         fb + nbytes([corr]), gsrb_fused_ops("smooth+corr", nsw) * cells,
+         (lambda: sweeps(phi + ck.cell_prolong(corr, (2, 2, 2))))),
     ]
     del rho
     pmask = (False,) * 3
@@ -865,37 +877,39 @@ def smoother_cases(torch, dtype_name, n):
     node = phin.element_size() * nodes
 
     def jac(p, sig_np):
-        return ck.nodal_sweep_3d(nodal._pad_node(p, pmask, 3), sig_np, rhsn,
-                                 inv, dx, nodal.JACOBI_OMEGA, "jacobi")
+        for _ in range(nsw):
+            p = ck.nodal_sweep_3d(ck.node_pad(p, pmask, 3), sig_np, rhsn,
+                                  inv, dx, nodal.JACOBI_OMEGA, "jacobi")
+        return p
 
     def old_restrict():
-        sig_np = nodal._sigma_np(sigma, pmask, 3)
-        p = jac(jac(phin, sig_np), sig_np)
-        r = ck.nodal_sweep_3d(nodal._pad_node(p, pmask, 3),
-                              nodal._sigma_np(sigma, pmask, 3), rhsn, None,
-                              dx, emit="residual")
-        return p, nodal._restrict(r, pmask, 3), r.abs().max()
+        sig_np = ck.node_sigma_np(sigma, pmask, 3)
+        p = jac(phin, sig_np)
+        r = ck.nodal_sweep_3d(ck.node_pad(p, pmask, 3),
+                              ck.node_sigma_np(sigma, pmask, 3), rhsn,
+                              None, dx, emit="residual")
+        return p, ck.node_restrict(r, pmask, 3), r.abs().max()
 
     def old_corr():
-        sig_np = nodal._sigma_np(sigma, pmask, 3)
-        p = phin + nodal._prolong(corrn, ns, pmask, 3)
-        return jac(jac(p, sig_np), sig_np)
+        sig_np = ck.node_sigma_np(sigma, pmask, 3)
+        p = phin + ck.node_prolong(corrn, ns, pmask, 3)
+        return jac(p, sig_np)
 
     nb = 4 * node + nbytes([sigma])  # phi, rhs, inv_diag in, phi out
     cases += [
         ("nodal_sweep_3d", f"smooth_restrict {tag}",
          (lambda: ck.nodal_sweep_3d(*a, "smooth_restrict", pmask=pmask,
-                                    nsweeps=FUSED_SWEEPS)),
+                                    nsweeps=nsw)),
          (lambda: ck.nodal_sweep_3d_plain(*a, "smooth_restrict", pmask=pmask,
-                                          nsweeps=FUSED_SWEEPS)),
-         nb + node // 8, nodal_fused_ops("smooth_restrict") * nodes,
+                                          nsweeps=nsw)),
+         nb + node // 8, nodal_fused_ops("smooth_restrict", nsw) * nodes,
          old_restrict),
         ("nodal_sweep_3d", f"smooth+corr {tag}",
          (lambda: ck.nodal_sweep_3d(*a, "smooth", pmask=pmask,
-                                    nsweeps=FUSED_SWEEPS, corr=corrn)),
+                                    nsweeps=nsw, corr=corrn)),
          (lambda: ck.nodal_sweep_3d_plain(*a, "smooth", pmask=pmask,
-                                          nsweeps=FUSED_SWEEPS, corr=corrn)),
-         nb + nbytes([corrn]), nodal_fused_ops("smooth+corr") * nodes,
+                                          nsweeps=nsw, corr=corrn)),
+         nb + nbytes([corrn]), nodal_fused_ops("smooth+corr", nsw) * nodes,
          old_corr),
     ]
     return cases
@@ -977,26 +991,34 @@ def phase_kernels(torch, dtype_name, reps, cases_fn=kernel_cases):
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
-        err, scale = max_err(torch, out, ref)
+        errs = max_errs(out, ref)
         del out, ref
-        ok = err <= tol * max(scale, 1e-30)
+        bad = [i for i, (e, sc) in enumerate(errs)
+               if not e <= tol * max(sc, 1e-30)]
+        ok = not bad
+        err = max(e for e, _ in errs)
         ms = cuda_ms(torch, kern, reps)
         plain_ms = cuda_ms(torch, plain, max(1, reps // 4))
         # the old single emits that a fused stage replaces, where given
         old_ms = cuda_ms(torch, old[0], reps) if old else None
         bms, by = bound(b, ops, dtype_name)
+        # max_abs_err: the largest over the outputs; errs, ref_max and tol
+        # each output's
         row = dict(name=name, case=case, dtype=dtype_name, max_abs_err=err,
-                   ref_max=scale, tol=tol * scale, ok=ok, ms=ms,
+                   errs=[e for e, _ in errs], ref_max=[sc for _, sc in errs],
+                   tol=[tol * sc for _, sc in errs], ok=ok, ms=ms,
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=b,
                    ops=ops, old_ms=old_ms)
-        print(f"  {name:24s} {case:12s} {dtype_name}: max abs err {err:.3e} "
-              f"(tol {tol:.0e} x max|ref| {scale:.3e}) "
+        each = ", ".join(f"{e:.3e} (tol {tol:.0e} x max|ref| {sc:.3e})"
+                         for e, sc in errs)
+        print(f"  {name:24s} {case:12s} {dtype_name}: max abs err {each} "
               f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
               f"({b} B, {ops:.0f} ops)"
               + (f", old emits {old_ms:.4f} ms" if old else ""), flush=True)
         need(ok, f"{name} ({case}, {dtype_name}) disagrees with its plain "
-                 f"version: {err} > {tol} x {scale}")
+                 f"version in output(s) {bad}: (max abs err, max|ref|) "
+                 f"{errs}, tol {tol} x max|ref|")
         rows.append(row)
         torch.cuda.empty_cache()
     return rows

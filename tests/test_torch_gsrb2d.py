@@ -260,9 +260,9 @@ def test_nodal_pieces_2d_match(pmask):
                 jnd.divu_rhs(jnp.asarray(u), dx, pmask, 2)) < 1e-12
     assert _err(tnd.cell_grad(torch.as_tensor(phi), dx, pmask, 2),
                 jnd.cell_grad(jnp.asarray(phi), dx, pmask, 2)) < 1e-11
-    r = tnd._restrict(torch.as_tensor(rhs), pmask, 2)
+    r = tck.node_restrict(torch.as_tensor(rhs), pmask, 2)
     assert _err(r, jnd._restrict(jnp.asarray(rhs), pmask, 2)) < 1e-12
-    assert _err(tnd._prolong(r, ns, pmask, 2),
+    assert _err(tck.node_prolong(r, ns, pmask, 2),
                 jnd._prolong(jnp.asarray(r.numpy()), ns, pmask, 2)) < 1e-12
 
 

@@ -306,8 +306,8 @@ def test_nodal_kernel(cuda, dtype, pmask):
     phi = torch.as_tensor(rng.rand(*ns) - 0.5, **kw)
     rhs = torch.as_tensor(rng.rand(*ns) - 0.5, **kw)
     inv = 1.0 / nodal.node_diag(sigma, dx, pmask, 3)
-    phi_pad = nodal._pad_node(phi, pmask, 3)
-    sig_np = nodal._sigma_np(sigma, pmask, 3)
+    phi_pad = cuda_kernels.node_pad(phi, pmask, 3)
+    sig_np = cuda_kernels.node_sigma_np(sigma, pmask, 3)
     before = cuda_kernels.nodal_sweep_3d.launches
     for emit in ("apply", "residual", "jacobi"):
         out = cuda_kernels.nodal_sweep_3d(phi_pad, sig_np, rhs, inv, dx,

@@ -61,8 +61,8 @@ def test_nodal_sweep_emits_match_the_tpu_kernel(pmask):
     inv = 1.0 / np.asarray(jnd.node_diag(jnp.asarray(sigma), DX, pmask, 3))
     jpad = jnd._pad_node(jnp.asarray(phi), pmask, 3)
     jsig = jnd._sigma_np(jnp.asarray(sigma), pmask, 3)
-    tpad = tnd._pad_node(torch.as_tensor(phi), pmask, 3)
-    tsig = tnd._sigma_np(torch.as_tensor(sigma), pmask, 3)
+    tpad = tck.node_pad(torch.as_tensor(phi), pmask, 3)
+    tsig = tck.node_sigma_np(torch.as_tensor(sigma), pmask, 3)
     assert _err(tpad, jpad) == 0.0 and _err(tsig, jsig) == 0.0
     for emit in ("apply", "residual", "jacobi"):
         ref = jpk.nodal_sweep_3d(jpad, jsig, jnp.asarray(rhs),

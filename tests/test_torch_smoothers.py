@@ -134,3 +134,18 @@ def test_nodal_fused_stages_match_varden_tpu(n, pmask):
                            emit="residual", interpret=True)
     _close(crs, jnd._restrict(r, pmask, 3), "smooth_restrict coarse rhs")
     _close(rmax, jnp.max(jnp.abs(r)), "smooth_restrict max|r|")
+
+
+@pytest.mark.parametrize("kernel", ["gsrb_var", "nodal"])
+@pytest.mark.parametrize("emit", ["smooth", "smooth_restrict"])
+def test_fused_stages_refuse_no_sweep(kernel, emit):
+    """A fused stage runs at least one sweep: nsweeps 0 is refused, on the
+    CPU as on the card."""
+    z = torch.zeros((4, 4, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="nsweeps"):
+        if kernel == "gsrb_var":
+            tck.gsrb_var_sweep_3d(z, z, z, (z,) * 3, DX, [(1, 1)] * 3,
+                                  [[0.0, 0.0]] * 3, emit=emit, nsweeps=0)
+        else:
+            tck.nodal_sweep_3d(z, z, z, z, DX, 0.85, emit,
+                               pmask=(True,) * 3, nsweeps=0)

@@ -30,6 +30,7 @@ import torch
 
 from ..bc import BC_DIR, BC_NEU
 from ..config import OUTLET
+from ..ops import cuda_kernels as ck
 from ..solvers import mg, nodal
 from .fill import MLGeom
 from .hierarchy import _sl, prolong_cells, prolong_nodes, restrict_cells
@@ -629,7 +630,7 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
                 continue
             r_own = rhs_uncov[l] - nodal.nd_apply_raw(lev_uncov[l], phis[l])
             for c in geom.children[l]:
-                r_own[covered_nodes(c, True)] += nodal._restrict(
+                r_own[covered_nodes(c, True)] += ck.node_restrict(
                     res[c], pmask_l[c], dm)
             res[l] = r_own
         return res
@@ -649,7 +650,7 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
             p = geom.parent[l]
             d[l] = nodal.v_cycle(hiers[l], d[l], res[l] * masks[l]) * masks[l]
             # fold the correction's composite defect into the parent rows
-            res[p][covered_nodes(l, True)] += nodal._restrict(
+            res[p][covered_nodes(l, True)] += ck.node_restrict(
                 -nodal.nd_apply_raw(hiers[l][0], d[l]), pmask_l[l], dm)
         r0 = res[0]
         if singular:

@@ -318,6 +318,26 @@ inline int resident_blocks(K kern, int threads, size_t smem) {
   return cap > 0 ? cap : 1;
 }
 
+// resident_blocks of a kernel that takes ``smem`` bytes of dynamic shared
+// memory, with the attribute that allows them set first: both once per
+// device into ``cache`` (a static array of the caller's, one per kernel
+// instantiation, whose threads and smem are fixed), since a fused smoother
+// launches hundreds of times a step and neither value changes.
+constexpr int MAX_DEVICES = 16;
+template <typename K>
+inline int resident_blocks_once(int (&cache)[MAX_DEVICES], K kern,
+                                int threads, size_t smem) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = cache[dev % MAX_DEVICES];
+  if (c == 0) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    c = resident_blocks(kern, threads, smem);
+  }
+  return c;
+}
+
 inline int blocks_for(i64 n, int threads) {
   i64 b = (n + threads - 1) / threads;
   return (int)(b < 1 ? 1 : b);

@@ -14,23 +14,18 @@
 // with face value bval, GHOST 3 = zero), so no padded copy of phi exists.
 // One kernel serves every multigrid level at any size.
 //
-// What bounds it on the card: bytes. A half-sweep reads phi, rhs, inv_diag
-// and three face coefficients (six fields) and writes phi, so the single
-// passes (one launch a colour) move the six fields per half-sweep. The
-// fused stages read them once per stage: a block owns a TY x TZ tile of
-// (y, z) columns and a chunk of x planes and marches along x, plane by
-// plane, with the half-sweeps staggered one plane apart (half-sweep h on
-// plane p-h-1 while plane p arrives), the residual and the restriction
-// trailing. Each stage keeps a ring of three planes in shared memory; a
-// plane carries a y-z halo of one cell per half-sweep still to come (plus
-// one for the residual), recomputed from the loaded values, and each chunk
-// starts with as many warm-up planes, so blocks never exchange data and
-// periodic axes simply wrap. Each half-sweep writes its stage out of place,
-// so a periodic seam of odd extent, where two neighbours share a colour,
-// reads the values before the half-sweep as the plain sweep does. A thread
-// takes two z-neighbours (one of each colour) per half-sweep, so a warp
-// does not diverge on the colour. The coefficients are read through L1/L2
-// at each use: only phi's stages live in shared memory.
+// What bounds it on the card. The single passes (one launch a colour) are
+// bound by bytes: a half-sweep reads phi, rhs, inv_diag and three face
+// coefficients and writes phi. The fused stages read those fields from
+// memory once per stage: a block owns a TY x TZ tile of (y, z) columns and
+// a chunk of x planes and marches along x, plane by plane, with the
+// half-sweeps staggered two planes apart and the residual and the
+// restriction trailing (gsrb_fused_kernel). A plane carries a y-z halo of
+// one cell per half-sweep still to come (plus one for the residual),
+// recomputed, and each chunk starts with as many warm-up planes, so blocks
+// never exchange data and periodic axes simply wrap. Only phi's stages
+// live in shared memory; the coefficients are read again through L2 at
+// each use. The latency of a plane step, not the bytes, bounds them.
 #include "common.cuh"
 
 namespace vt {
@@ -289,14 +284,19 @@ __device__ __forceinline__ T add_alpha(const GS& s, T out,
 // max|r| into rmax. Half-sweep h runs on plane t-2h-2 while plane t
 // arrives, the residual on plane t-2K-2 and the restriction of a plane
 // pair a step later: every part of step t reads only planes that earlier
-// steps finished, so a step is one phase between two barriers and its
-// loads all overlap. In place (INPLACE), plane p sits in slot p % (2K+4)
-// at whatever stage it has reached: a half-sweep writes its colour and
-// reads only the other one, which no part of the step writes. Else (a
-// periodic axis of odd extent, where two cells of one colour meet) each
-// stage has a ring of four planes and a half-sweep copies the other colour
-// forward. The rows and columns of the region map to global cells through
-// two tables (-1: outside a non-periodic domain).
+// steps finished, so a step is one phase between two barriers. A thread
+// owns the same cells of every plane (one pair of z-neighbours a
+// half-sweep, one residual cell) and issues all of a step's global loads
+// before any of its work, so that their latencies overlap: loads issued
+// stage by stage left each step waiting on five or six in turn, and a
+// stage ran at ~5x its byte bound even with no coefficient load at all
+// (measured on an H100). In place (INPLACE), plane p sits in slot
+// p % (2K+4) at whatever stage it has reached: a half-sweep writes its
+// colour and reads only the other one, which no part of the step writes.
+// Else (a periodic axis of odd extent, where two cells of one colour meet)
+// each stage has a ring of four planes and a half-sweep copies the other
+// colour forward. The rows and columns of the region map to global cells
+// through two tables (-1: outside a non-periodic domain).
 template <typename T, int K, bool RES, int TY, int TZ, int NT, bool INPLACE>
 __global__ void __launch_bounds__(NT)
     gsrb_fused_kernel(GF f, const T* __restrict__ phi,
@@ -341,104 +341,161 @@ __global__ void __launch_bounds__(NT)
     }
   }
   __syncthreads();
+  static_assert((TY + 2 * H - 2) * (TZ + 2 * H - 2) / 2 <= NT &&
+                    TY * TZ <= NT,
+                "a thread takes one pair a half-sweep and one residual cell");
   T m = (T)0;
   const i64 plane = (i64)n1 * n2;
   const int last = np - 1 + 2 * K + (RES ? 3 : 1);
+  constexpr int NS0 = (RC + NT - 1) / NT;
+  const int nc1 = n1 >> f.fsh[1], nc2 = n2 >> f.fsh[2];
   for (int t = 0; t <= last; ++t) {
-    // stage 0 of plane t, on the region dilated by H
-    if (t < np) {
-      const int gx = wx ? wrapi(px0 + t, n0) : px0 + t;
-      T* dst = slot(0, t);
+    // every global load of the step first: stage 0 of plane t (phi, plus
+    // the prolonged corr), each half-sweep's coefficients and the
+    // residual's
+    T v0[NS0];
+    const bool st0 = t < np;
+    {
+      const int gx = st0 ? (wx ? wrapi(px0 + t, n0) : px0 + t) : 0;
       const T* src = phi + gx * plane;
-      const int nc1 = n1 >> f.fsh[1], nc2 = n2 >> f.fsh[2];
       const T* csrc =
           corr ? corr + (i64)(gx >> f.fsh[0]) * nc1 * nc2 : nullptr;
-      for (int c = tid; c < RC; c += NT) {
-        int gy = gyt[c / RZ], gz = gzt[c % RZ];
-        if ((gy | gz) < 0) continue;
-        T v = src[(i64)gy * n2 + gz];
-        if (corr != nullptr)
-          v = v + csrc[(i64)(gy >> f.fsh[1]) * nc2 + (gz >> f.fsh[2])];
-        dst[c] = v;
+#pragma unroll
+      for (int j = 0; j < NS0; ++j) {
+        const int c = tid + j * NT;
+        v0[j] = (T)0;
+        if (st0 && c < RC) {
+          const int gy = gyt[c / RZ], gz = gzt[c % RZ];
+          if ((gy | gz) >= 0) {
+            T v = src[(i64)gy * n2 + gz];
+            if (corr != nullptr)
+              v = v + csrc[(i64)(gy >> f.fsh[1]) * nc2 + (gz >> f.fsh[2])];
+            v0[j] = v;
+          }
+        }
       }
     }
-    // half-sweep h on plane t-2h-2: stage h -> h+1 on the region dilated
-    // by H-1-h; a pair away from a periodic seam holds one cell of each
-    // colour
+    // each half-sweep's pair of z-neighbours (at most one a thread): in
+    // place, the index of its cell of the half-sweep's colour; else 4 x the
+    // pair's first index + 1 + which of the two has the colour (0:
+    // neither); -1 for none. q[h]: that cell's coefficients
+    Coef<T> q[K];
+    int cell[K];
 #pragma unroll
     for (int h = 0; h < K; ++h) {
+      cell[h] = -1;
       const int lq = t - 2 * h - 2;
       const bool live = lq >= (xlo_edge ? 0 : h + 1) &&
                         lq <= (xhi_edge ? np - 1 : np - 2 - h);
-      if (!live) continue;
       const int dil = H - 1 - h, w = (TZ + 2 * dil) / 2;
       const int cnt = (TY + 2 * dil) * w;
-      Planes<T> P = {slot(h, lq - 1), slot(h, lq), slot(h, lq + 1)};
-      T* dst = slot(h + 1, lq);
-      const int gx = wx ? wrapi(px0 + lq, n0) : px0 + lq;
-      const int colour = h & 1;
-      for (int c = tid; c < cnt; c += NT) {
-        const int a = H - dil + c / w, b0 = H - dil + 2 * (c % w);
+      if (live && tid < cnt) {
+        const int a = H - dil + tid / w, b0 = H - dil + 2 * (tid % w);
         const int gy = gyt[a];
-        if (gy < 0) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int b = b0 + e, gz = gzt[b];
-          if (gz < 0) continue;
-          const int idx = a * RZ + b;
-          T v = P.cur[idx];
-          if (((gx + gy + gz) & 1) == colour) {
-            const i64 g = gx * plane + (i64)gy * n2 + gz;
-            Coef<T> q;
-            load_coef<T>(q, beta, rhs, inv, g, gx, gy, n1, n2, true);
-            T lp = add_alpha<T>(
-                s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, q.b), aco, g, v);
-            v = v + (q.rhs - lp) * q.inv;
-            if (INPLACE) dst[idx] = v;
-          }
-          if (!INPLACE) dst[idx] = v;
+        const int gx = wx ? wrapi(px0 + lq, n0) : px0 + lq;
+        const int gz0 = gzt[b0], gz1 = gzt[b0 + 1];
+        const int colour = h & 1;
+        int e = -1, gz = -1;
+        if (gz0 >= 0 && ((gx + gy + gz0) & 1) == colour) {
+          e = 0;
+          gz = gz0;
+        } else if (gz1 >= 0 && ((gx + gy + gz1) & 1) == colour) {
+          e = 1;
+          gz = gz1;
+        }
+        if (gy >= 0 && (e >= 0 || !INPLACE)) {
+          cell[h] = INPLACE ? a * RZ + b0 + e : 4 * (a * RZ + b0) + 1 + e;
+          if (e >= 0)
+            load_coef<T>(q[h], beta, rhs, inv, gx * plane + (i64)gy * n2 + gz,
+                         gx, gy, n1, n2, true);
         }
       }
     }
-    // the finished stage K on plane t-2K-2 (RES; t-2K-1 otherwise): written
-    // out on the tile, and its residual
     const int lr = t - 2 * K - (RES ? 2 : 1);
     const int gxr = px0 + lr;  // unwrapped: output planes lie in [x0, x1)
-    if (lr >= 0 && gxr >= x0 && gxr < x1) {
-      const int gx = gxr;
-      Planes<T> P = {slot(K, lr - 1), slot(K, lr), slot(K, lr + 1)};
-      const i64 xb = gx * plane;
-      T* rp = rb + (gx & 3) * (TY * TZ);
-      for (int c = tid; c < TY * TZ; c += NT) {
-        const int yy = c / TZ, zz = c % TZ;
-        const int gy = y0 + yy, gz = z0 + zz;
-        if (gy >= n1 || gz >= n2) continue;
-        const int idx = (yy + H) * RZ + zz + H;
+    const bool rlive = lr >= 0 && gxr >= x0 && gxr < x1;
+    Coef<T> qr;
+    const int ryy = tid / TZ, rzz = tid % TZ;
+    const bool rcell = rlive && tid < TY * TZ && y0 + ryy < n1 &&
+                       z0 + rzz < n2;
+    const i64 rg = gxr * plane + (i64)(y0 + ryy) * n2 + z0 + rzz;
+    if (RES && rcell)
+      load_coef<T>(qr, beta, rhs, inv, rg, gxr, y0 + ryy, n1, n2, false);
+    // the work of the step
+    if (st0) {
+      T* dst = slot(0, t);
+#pragma unroll
+      for (int j = 0; j < NS0; ++j) {
+        const int c = tid + j * NT;
+        if (c < RC) dst[c] = v0[j];
+      }
+    }
+    // half-sweep h on plane t-2h-2: stage h -> h+1. In place, the pair's
+    // cell of the colour alone; else both cells go forward, and a second
+    // cell of the colour (at a periodic seam of odd extent) loads its
+    // coefficients here
+#pragma unroll
+    for (int h = 0; h < K; ++h) {
+      if (cell[h] < 0) continue;
+      const int lq = t - 2 * h - 2;
+      const int gx = wx ? wrapi(px0 + lq, n0) : px0 + lq;
+      Planes<T> P = {slot(h, lq - 1), slot(h, lq), slot(h, lq + 1)};
+      T* dst = slot(h + 1, lq);
+      if constexpr (INPLACE) {
+        const int idx = cell[h];
+        const int gy = gyt[idx / RZ], gz = gzt[idx % RZ];
         const T v = P.cur[idx];
-        const i64 g = xb + (i64)gy * n2 + gz;
-        out[g] = v;
-        if (RES) {
-          Coef<T> q;
-          load_coef<T>(q, beta, rhs, inv, g, gx, gy, n1, n2, false);
-          T r = q.rhs - add_alpha<T>(
-                            s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, q.b),
-                            aco, g, v);
-          rp[c] = r;
-          m = fmax(m, fabs(r));
+        const i64 g = gx * plane + (i64)gy * n2 + gz;
+        T lp = add_alpha<T>(
+            s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, q[h].b), aco, g, v);
+        dst[idx] = v + (q[h].rhs - lp) * q[h].inv;
+      } else {
+        const int base = cell[h] >> 2, ce = (cell[h] & 3) - 1;
+        const int gy = gyt[base / RZ];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = base + e, gz = gzt[idx % RZ];
+          if (gz < 0) continue;
+          T v = P.cur[idx];
+          if (((gx + gy + gz) & 1) == (h & 1)) {
+            const i64 g = gx * plane + (i64)gy * n2 + gz;
+            Coef<T> qe = q[h];
+            if (e != ce)
+              load_coef<T>(qe, beta, rhs, inv, g, gx, gy, n1, n2, true);
+            T lp = add_alpha<T>(
+                s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, qe.b), aco, g,
+                v);
+            v = v + (qe.rhs - lp) * qe.inv;
+          }
+          dst[idx] = v;
         }
+      }
+    }
+    if (rcell) {
+      const int gx = gxr, gy = y0 + ryy, gz = z0 + rzz;
+      Planes<T> P = {slot(K, lr - 1), slot(K, lr), slot(K, lr + 1)};
+      const int idx = (ryy + H) * RZ + rzz + H;
+      const T v = P.cur[idx];
+      out[rg] = v;
+      if (RES) {
+        T r = qr.rhs - add_alpha<T>(
+                           s, div_flux<T, RZ>(s, P, idx, gx, gy, gz, v, qr.b),
+                           aco, rg, v);
+        rb[(gx & 3) * (TY * TZ) + tid] = r;
+        m = fmax(m, fabs(r));
       }
     }
     // the restriction of the pair whose odd plane's residual came a step ago
     const int gxc = gxr - 1;
     if (RES && lr - 1 >= 0 && gxc >= x0 && gxc < x1 && (gxc & 1)) {
       constexpr int cy = TY / 2, cz = TZ / 2;
-      const int nc1 = n1 / 2, nc2 = n2 / 2;
+      const int nc1r = n1 / 2, nc2r = n2 / 2;
       const T* re = rb + ((gxc - 1) & 3) * (TY * TZ);  // even x plane
       const T* ro = rb + (gxc & 3) * (TY * TZ);        // odd x plane
       for (int c = tid; c < cy * cz; c += NT) {
         const int J = c / cz, L = c % cz;
         const int gy = y0 / 2 + J, gz = z0 / 2 + L;
-        if (gy >= nc1 || gz >= nc2) continue;
+        if (gy >= nc1r || gz >= nc2r) continue;
         const T* r0 = re + (2 * J) * TZ + 2 * L;
         const T* r1 = ro + (2 * J) * TZ + 2 * L;
         T ay[2];
@@ -448,7 +505,8 @@ __global__ void __launch_bounds__(NT)
           T ax1 = (T)0.5 * (r0[TZ + e] + r1[TZ + e]);
           ay[e] = (T)0.5 * (ax0 + ax1);
         }
-        crs[((i64)(gxc / 2) * nc1 + gy) * nc2 + gz] = (T)0.5 * (ay[0] + ay[1]);
+        crs[((i64)(gxc / 2) * nc1r + gy) * nc2r + gz] =
+            (T)0.5 * (ay[0] + ay[1]);
       }
     }
     __syncthreads();
@@ -462,6 +520,11 @@ struct FusedTile {  // f64 halves TY so that the rings stay in shared memory
   static constexpr int TZ = 32;
   static constexpr int NT = 512;
 };
+
+// internal linkage, so that every loaded copy of this library keeps its own
+// launch cache (a static of a template function with external linkage is
+// one object across all the libraries that define it)
+namespace {
 
 template <typename T, int K, bool RES>
 int launch_fused(const GF& f0, const T* phi, const T* corr, const T* rhs,
@@ -486,11 +549,11 @@ int launch_fused(const GF& f0, const T* phi, const T* corr, const T* rhs,
                   4 * TY * TZ) * sizeof(T) + (RY + RZ) * sizeof(int);
   auto kern = odd_seam ? gsrb_fused_kernel<T, K, RES, TY, TZ, NT, false>
                        : gsrb_fused_kernel<T, K, RES, TY, TZ, NT, true>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
+  static int cap[2][MAX_DEVICES] = {};  // [odd_seam]: one per kernel
   // a block takes its chunk, 2H warm-up planes and 2K+3 steps of fill
-  const int chunks = pick_chunks(n0, tiles, resident_blocks(kern, NT, bytes),
-                                 2 * H + 2 * K + 3);
+  const int chunks = pick_chunks(
+      n0, tiles, resident_blocks_once(cap[odd_seam], kern, NT, bytes),
+      2 * H + 2 * K + 3);
   f.chunk = (n0 + chunks - 1) / chunks;
   f.chunk += f.chunk & 1;
   kern<<<dim3(tiles, chunks), NT, bytes, st>>>(f, phi, corr, rhs, inv, aco, B,
@@ -498,6 +561,8 @@ int launch_fused(const GF& f0, const T* phi, const T* corr, const T* rhs,
   VT_CHECK();
   return 0;
 }
+
+}  // namespace
 
 // ptrs: phi, rhs, inv_diag, aco?, beta0, beta1, beta2, out, tmp, rmax,
 //       corr?, crs

@@ -457,6 +457,11 @@ struct NodalTile {  // f64 halves TY to keep the rings in shared memory
   static constexpr int NT = sizeof(T) == 4 && !RES ? 256 : 512;
 };
 
+// internal linkage, so that every loaded copy of this library keeps its own
+// launch cache (a static of a template function with external linkage is
+// one object across all the libraries that define it)
+namespace {
+
 template <typename T, int K, bool RES>
 int launch_nodal_fused(const NF& f0, const T* phi, const T* corr,
                        const T* sigma, const T* rhs, const T* inv, T* out,
@@ -474,11 +479,10 @@ int launch_nodal_fused(const NF& f0, const T* phi, const T* corr,
                   3 * (TY + 2) * (TZ + 2)) * sizeof(T) +
                  2 * (TY + TZ + 4 * H) * sizeof(int);
   auto kern = nodal_fused_kernel<T, K, RES, TY, TZ, NT>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
+  static int cap[MAX_DEVICES] = {};
   // a block takes its chunk, 2H warm-up planes and S+1 steps of fill
-  const int chunks = pick_chunks(N0, tiles, resident_blocks(kern, NT, bytes),
-                                 2 * H + S + 1);
+  const int chunks = pick_chunks(
+      N0, tiles, resident_blocks_once(cap, kern, NT, bytes), 2 * H + S + 1);
   f.chunk = (N0 + chunks - 1) / chunks;
   f.chunk += f.chunk & 1;
   kern<<<dim3(tiles, chunks), NT, bytes, st>>>(f, phi, corr, sigma, rhs, inv,
@@ -486,6 +490,8 @@ int launch_nodal_fused(const NF& f0, const T* phi, const T* corr,
   VT_CHECK();
   return 0;
 }
+
+}  // namespace
 
 // ptrs: phi_pad, sig_np, rhs?, inv_diag?, out (emits 0-2)
 //       phi, sigma, rhs, inv_diag, out, corr?, crs, rmax (emits 3-4)

@@ -35,6 +35,15 @@ from . import _cuda
 _BC_PER, _BC_NEU, _BC_DIR, _BC_GHOST = 0, 1, 2, 3
 _EMITS = ("sweep", "residual", "restrict", "smooth", "smooth_restrict")
 
+# sweeps a fused launch takes at most (the kernel's halo grows with them)
+FUSED_SWEEPS = 2
+
+
+def _check_nsweeps(emit, nsweeps):
+    """A fused stage runs at least one sweep."""
+    if emit in ("smooth", "smooth_restrict") and nsweeps < 1:
+        raise ValueError(f"{emit}: nsweeps must be >= 1, got {nsweeps}")
+
 
 def _ghost_planes(p, axis, lo_bc, hi_bc, blo, bhi):
     """Boundary ghost planes of ``p`` along ``axis``: DIR quadratic
@@ -159,16 +168,13 @@ def gsrb_var_sweep_3d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
     launch)."""
     if emit not in _EMITS:
         raise ValueError(f"bad emit {emit!r}")
+    _check_nsweeps(emit, nsweeps)
     if phi.device.type == "cpu":
         return gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
                                        bvals, aco, alpha, emit=emit,
                                        nsweeps=nsweeps, corr=corr, cfac=cfac)
     return _gsrb_var_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco,
                             alpha, emit, nsweeps, corr, cfac)
-
-
-# sweeps a fused launch takes at most (the kernel's halo grows with them)
-FUSED_SWEEPS = 2
 
 
 def _gsrb_var_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco,
@@ -200,12 +206,6 @@ def _gsrb_var_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco,
                 raise ValueError(f"cfac {cfac} does not divide {n}")
             _cuda.check(corr, "corr", tuple(s // f for s, f in zip(n, cfac)),
                         **kw)
-        if nsweeps < 1:
-            if emit == "smooth":
-                return phi if corr is None else phi + cell_prolong(corr, cfac)
-            return (phi, *_gsrb_var_launch(phi, rhs, None, beta, dx, ell_bc,
-                                           bvals, aco, alpha, "restrict", 1,
-                                           None, cfac))
     iv = [*n] + [int(ell_bc[d][s]) for d in range(3) for s in range(2)]
     dv = [1.0 / (float(h) * float(h)) for h in dx]
     dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
@@ -537,6 +537,7 @@ def nodal_sweep_3d(phi_pad, sig_np, rhs, inv_diag, dxs, omega=0.85,
     each is one launch for up to FUSED_SWEEPS sweeps."""
     if emit not in _NODAL_EMITS:
         raise ValueError(f"bad emit {emit!r}")
+    _check_nsweeps(emit, nsweeps)
     if phi_pad.device.type == "cpu":
         return nodal_sweep_3d_plain(phi_pad, sig_np, rhs, inv_diag, dxs,
                                     omega, emit, pmask=pmask,
@@ -582,15 +583,6 @@ def _nodal_fused_launch(phi, sigma, rhs, inv_diag, dxs, omega, emit, pmask,
     cshape = tuple(s // 2 if p else s // 2 + 1 for s, p in zip(n, pmask))
     if corr is not None:
         _cuda.check(corr, "corr", cshape, **kw)
-    if nsweeps < 1:
-        if corr is not None:
-            phi = phi + node_prolong(corr, ns, pmask, 3)
-        if emit == "smooth":
-            return phi
-        res = nodal_sweep_3d(node_pad(phi, pmask, 3),
-                             node_sigma_np(sigma, pmask, 3), rhs, None, dxs,
-                             omega, "residual")
-        return phi, node_restrict(res, pmask, 3), res.abs().max()
     iv_tail = [*n, *(int(bool(p)) for p in pmask)]
     dv = [*map(float, dxs), float(omega)]
     left = nsweeps

@@ -76,13 +76,6 @@ def _pad_cell(f, pmask, dm, fill=0.0):
     return f
 
 
-_shift_node = ck.node_shift
-_pad_node = ck.node_pad
-_sigma_np = ck.node_sigma_np
-_restrict = ck.node_restrict
-_prolong = ck.node_prolong
-
-
 @dataclasses.dataclass(frozen=True)
 class NodalLevel:
     n: Tuple[int, ...]            # cells per axis
@@ -162,8 +155,8 @@ def _kernel_nodal(level: NodalLevel, phi, rhs, emit):
     """One nodal_sweep_3d pass (apply / residual) on a level."""
     sig_np = level.sig_np
     if sig_np is None:
-        sig_np = _sigma_np(level.sigma, level.pmask, level.dm)
-    return ck.nodal_sweep_3d(_pad_node(phi, level.pmask, level.dm), sig_np,
+        sig_np = ck.node_sigma_np(level.sigma, level.pmask, level.dm)
+    return ck.nodal_sweep_3d(ck.node_pad(phi, level.pmask, level.dm), sig_np,
                              rhs, None, level.dx, emit=emit)
 
 
@@ -282,7 +275,7 @@ def build_hierarchy(n, dx, pmask, sigma, mask,
         lev = NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma, diag, mask)
         levels.append(dataclasses.replace(
             lev, inv_diag=_inv_diag(lev),
-            sig_np=_sigma_np(sigma, pmask, dm) if dm == 3 else None))
+            sig_np=ck.node_sigma_np(sigma, pmask, dm) if dm == 3 else None))
         if any(s % 2 != 0 or s <= BOTTOM_SIZE for s in n):
             break
         n = [s // 2 for s in n]
@@ -384,7 +377,7 @@ def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
     else:
         phi = jacobi(level, phi, rhs, nu1)
         res = _residual(level, phi, rhs)
-        crs_rhs = _restrict(res, level.pmask, level.dm)
+        crs_rhs = ck.node_restrict(res, level.pmask, level.dm)
         rmax = res.abs().max()
     nxt = levels[lev + 1]
     if nxt.mask is not None:
@@ -395,8 +388,8 @@ def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
         # phi + the linear prolongation of corr, then nu2 sweeps: one pass
         phi = _fused(level, phi, rhs, "smooth", nu2, corr=corr)
         return (phi, rmax) if return_resnorm else phi
-    corr_f = _prolong(corr, node_shape(level.n, level.pmask), level.pmask,
-                      level.dm)
+    corr_f = ck.node_prolong(corr, node_shape(level.n, level.pmask),
+                             level.pmask, level.dm)
     if level.mask is not None:
         corr_f = corr_f * level.mask
     phi = jacobi(level, phi + corr_f, rhs, nu2)
