@@ -351,6 +351,17 @@ def gsrb_fused_ops(case, nsweeps):
     return 1 + sweeps
 
 
+def const_fused_ops(case, nsweeps):
+    """Kernel 5's fused stages per cell and field: the sweeps (the alpha
+    term in), then the residual with |r| and max and the restriction (7
+    adds and 7 halvings per coarse cell) (smooth_restrict); or the
+    prolongation's add, then the sweeps (smooth+corr)."""
+    sweeps = nsweeps * gsrb_const_ops("sweep", True)
+    if case == "smooth_restrict":
+        return sweeps + gsrb_const_ops("residual", True) + 2 + 14 / 8
+    return 1 + sweeps
+
+
 def gsrb_const_ops(emit, use_alpha, have_rhs=True):
     """Constant-coefficient L(phi) per cell and field: per axis the two
     neighbours' sum, 2 phi, a subtract and the coefficient (4; 2 phi counted
@@ -915,12 +926,107 @@ def smoother_cases(torch, dtype_name, n):
     return cases
 
 
+def const_cases(torch, dtype_name, n, B):
+    """Kernel 5's fused stages (ck.FUSED_SWEEPS sweeps, as the V-cycles call
+    them) at n^3 on B fields: the viscous operator rho - mu lap of a seeded
+    density in [1, 10], Dirichlet on every face at the 256^3 base and a
+    coarse level, the coarse-fine ghost code (3) on config 5's finer
+    patches; each beside the single passes that a V-cycle's level visit
+    called instead (two-launch sweeps, the residual, the plain restriction
+    and max|r|; the plain prolongation and add, then the sweeps)."""
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.solvers import mg
+    nsw = ck.FUSED_SWEEPS
+    dev, dt_ = torch.device("cuda"), getattr(torch, dtype_name)
+    N = (n,) * 3
+    dx = (1.0 / n,) * 3
+    code = 3 if n in N_AMR_PATCHES[1:] else 2
+    ell = [(code, code)] * 3
+    rho = 5.5 + 4.5 * smooth(torch, N, 80, 1.0, dev, dt_)
+    mu = 0.5 * dx[0] * 1.0e-3  # dt visc_coef / 2 at dt = dx
+    lev = mg.make_level(N, dx, ell, rho, (mu,) * 3, 1.0)
+    coef = [mu / h ** 2 for h in dx] + [1.0]
+    phi = smooth(torch, (B,) + N, 81, 0.5, dev, dt_)
+    rhs = smooth(torch, (B,) + N, 82, 2.0, dev, dt_)
+    corr = smooth(torch, (B,) + (n // 2,) * 3, 83, 0.1, dev, dt_)
+    bv = [[0.0, 0.0]] * 3
+    g = (phi, rhs, lev.inv_diag, coef, ell, bv)
+    kw = dict(aco=rho)
+    # phi and rhs in and phi out per field; inv_diag and aco once
+    fb = 3 * nbytes([phi]) + nbytes([lev.inv_diag, rho])
+    tag = f"{n}^3 B{B}"
+    cells = B * n ** 3
+
+    def sweeps(p):
+        for _ in range(nsw):
+            p = ck.gsrb_const_sweep_3d(p, *g[1:], **kw)
+        return p
+
+    def old_restrict():
+        p = sweeps(phi)
+        r = ck.gsrb_const_sweep_3d(p, rhs, None, coef, ell, bv,
+                                   emit="residual", **kw)
+        return p, mg._cell_avg_down(r, 3), r.abs().max()
+
+    return [
+        ("gsrb_const_sweep_3d", f"smooth_restrict {tag}",
+         (lambda: ck.gsrb_const_sweep_3d(*g, emit="smooth_restrict",
+                                         nsweeps=nsw, **kw)),
+         (lambda: ck.gsrb_const_sweep_3d_plain(*g, emit="smooth_restrict",
+                                               nsweeps=nsw, **kw)),
+         fb + nbytes([phi]) // 8,
+         const_fused_ops("smooth_restrict", nsw) * cells, old_restrict),
+        ("gsrb_const_sweep_3d", f"smooth+corr {tag}",
+         (lambda: ck.gsrb_const_sweep_3d(*g, emit="smooth", nsweeps=nsw,
+                                         corr=corr, **kw)),
+         (lambda: ck.gsrb_const_sweep_3d_plain(*g, emit="smooth",
+                                               nsweeps=nsw, corr=corr, **kw)),
+         fb + nbytes([corr]), const_fused_ops("smooth+corr", nsw) * cells,
+         (lambda: sweeps(phi + ck.cell_prolong(corr, (2, 2, 2))))),
+    ]
+
+
+# kernel 5's fused stages in phase 2: (n, B) at the base, config 5's finer
+# patches and a coarse level of the viscous hierarchies
+CONST_FUSED_SHAPES = ((256, 3), (256, 1), (240, 3), (384, 3), (64, 3))
+
+
 def kernel_cases_smoothers(torch, dtype_name):
     """The fused stages of kernels 3 and 4 at 256^3 and config 5's 240^3
-    and 384^3."""
+    and 384^3, and kernel 5's at CONST_FUSED_SHAPES."""
     cases = []
     for n in N_AMR_PATCHES:
         cases += smoother_cases(torch, dtype_name, n)
+    for n, B in CONST_FUSED_SHAPES:
+        cases += const_cases(torch, dtype_name, n, B)
+    return cases
+
+
+def kernel_cases_velpred(torch, dtype_name):
+    """Kernel 1 at BASELINE config 5's level shapes (256^3 with its walls;
+    240^3 and 384^3, interior patches whose every side is coarse-fine), in
+    float32 and float64: config 5's Sim, smooth seeded u and force."""
+    from varden_tpu_torch.config import INTERIOR, VardenConfig
+    from varden_tpu_torch.ops import cuda_godunov as cg
+    from varden_tpu_torch.state import Sim
+    cases = []
+    for n in N_AMR_PATCHES:
+        sim = Sim(VardenConfig(**cfg5_kw(n, dtype_name)), device="cuda")
+        dev, dt_, ng, N = sim.device, sim.dtype, sim.ng, sim.n_cell
+        pbc = (sim.phys_bc if n == N_AMR_PATCHES[0]
+               else ((INTERIOR, INTERIOR),) * 3)
+        u = smooth(torch, (3,) + N, 90, 0.5, dev, dt_)
+        f = smooth(torch, (3,) + N, 91, 0.3, dev, dt_)
+        a = (sim.fill_vel(u), sim.fill_extrap(f, ng), 0.5 * sim.dx[0],
+             sim.dx, pbc, [sim.adv_bc[d] for d in range(3)], ng, N,
+             sim.cfg.slope_order, sim.cfg.use_minion)
+        del u, f
+        faces = 3 * (n + 1) * n * n * a[0].element_size()
+        cases.append(("velpred_3d_fused", f"velocity {n}^3",
+                      (lambda a=a: cg.velpred_3d_fused(*a)),
+                      (lambda a=a: cg.velpred_3d_plain(*a)),
+                      nbytes(a[:2]) + faces,
+                      velpred_ops(sim.cfg.slope_order) * n ** 3))
     return cases
 
 
@@ -1190,12 +1296,15 @@ def counters():
             "gsrb_sweep_3d": ck.gsrb_sweep_3d}
 
 
-# kernels 3 and 4 count the launches of their fused V-cycle stages apart
-# (key "<name>:fused"): a 3-D path's V-cycles smooth through them, except
-# on config 4's MAC levels, which are periodic in x and take the padded
-# sweep (kernel 7), with kernel 3's single restrict emit
-FUSED = ("gsrb_var_sweep_3d", "nodal_sweep_3d")
-FUSED_RT = ("nodal_sweep_3d",)
+# kernels 3, 4 and 5 count the launches of their fused V-cycle stages
+# apart (key "<name>:fused"): a 3-D path's V-cycles smooth through them,
+# except on config 4's MAC levels, which are periodic in x and take the
+# padded sweep (kernel 7), with kernel 3's single restrict emit. Kernel 5's
+# fused stages take the viscous solves' levels of at most
+# mg.CONST_FUSED_MAX_CELLS cells, and every V-cycle of a 3-D path's viscous
+# solve visits such levels (its hierarchy coarsens to 8^3)
+FUSED = ("gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
+FUSED_RT = ("nodal_sweep_3d", "gsrb_const_sweep_3d")
 
 
 def zero_counts(fns):
@@ -1719,7 +1828,8 @@ def main(argv=None) -> int:
           flush=True)
     rows32, rows64 = [], []
     for cases_fn in (kernel_cases, kernel_cases_2d, kernel_cases_amr,
-                     kernel_cases_rt, kernel_cases_smoothers):
+                     kernel_cases_rt, kernel_cases_smoothers,
+                     kernel_cases_velpred):
         rows32 += phase_kernels(torch, "float32", REPS, cases_fn)
         rows64 += phase_kernels(torch, "float64", max(2, REPS // 4), cases_fn)
         torch.cuda.empty_cache()
@@ -1884,7 +1994,8 @@ def main(argv=None) -> int:
                  "mkflux_update_3d_fused": "velocity",
                  "gsrb_var_sweep_3d": "smooth_restrict 256^3",
                  "nodal_sweep_3d": "smooth_restrict 256^3",
-                 "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
+                 "gsrb_const_sweep_3d": "smooth_restrict 256^3 B3",
+                 "gsrb_sweep_2d": "sweep",
                  "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
                  "update_3d": "nc2 [T,F] 384x384x384",
                  "mkflux_3d_fused": "scalars 384x384x384",
@@ -1964,11 +2075,14 @@ def main(argv=None) -> int:
                     ("AMR main path (phase 11)", per_step_amr),
                     ("config 4 main path (phase 14)", per_step_rt)):
         steady = ps[1:] or ps
-        print(f"summary {tag}: kernels 3 and 4, launches per steady step "
+        print(f"summary {tag}: kernels 3, 4 and 5, launches per steady step "
               "(of them the fused stages) "
               + ", ".join(f"{k} {[r['launches'][k] for r in steady]} "
                           f"({[r['launches'][k + ':fused'] for r in steady]})"
-                          for k in FUSED), flush=True)
+                          for k in FUSED)
+              + "; kernel 1 velpred_3d_fused "
+              f"{[r['launches']['velpred_3d_fused'] for r in steady]}",
+              flush=True)
     print(f"summary config 4 main path (phase 14): peak device memory "
           f"{peak_rt} bytes; density min/max by step "
           f"{[(r['rho_min'], r['rho_max']) for r in per_step_rt]}",

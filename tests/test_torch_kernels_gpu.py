@@ -66,18 +66,25 @@ def test_kernels_build():
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("bc", BCS)
-def test_velpred_kernel(cuda, bc, dtype):
-    sim = _sim(bc, (24, 40, 16), dtype, cuda)
+@pytest.mark.parametrize("order,use_minion", [(4, False), (2, True),
+                                              (4, True), (2, False)])
+@pytest.mark.parametrize("n", [(24, 40, 16), (13, 7, 19)])
+def test_velpred_kernel(cuda, bc, dtype, order, use_minion, n):
+    """Kernel 1, two launches (the tie epsilon and one brick pass), at every
+    physical BC code, both slope orders, with and without the minion
+    forcing, at extents that are and are not multiples of the brick."""
+    sim = _sim(bc, n, dtype, cuda)
     ng, n = sim.ng, sim.n_cell
     u = sim.tensor(_smooth((3,) + n, 1))
     f = sim.tensor(_smooth((3,) + n, 2, amp=0.3))
     u_pad, f_pad = sim.fill_vel(u), sim.fill_extrap(f, ng)
     adv = [sim.adv_bc[d] for d in range(3)]
-    args = (u_pad, f_pad, 2e-3, sim.dx, sim.phys_bc, adv, ng, n, 4, False)
+    args = (u_pad, f_pad, 2e-3, sim.dx, sim.phys_bc, adv, ng, n, order,
+            use_minion)
     before = cuda_godunov.velpred_3d_fused.launches
     out = cuda_godunov.velpred_3d_fused(*args)
     torch.cuda.synchronize()
-    assert cuda_godunov.velpred_3d_fused.launches == before + 5
+    assert cuda_godunov.velpred_3d_fused.launches == before + 2
     ref = cuda_godunov.velpred_3d_plain(*args)
     for d in range(3):
         _close(out[d], ref[d], sim.dtype, f"velpred bc={bc} face {d}")
@@ -293,6 +300,59 @@ def test_gsrb_const_kernel(cuda, dtype, B, n, ell_bc):
     with pytest.raises(ValueError, match="contiguous"):
         k.gsrb_const_sweep_3d(phi.transpose(2, 3), rhs, lev.inv_diag, coef,
                               ell_bc, bv, aco=aco)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((16, 8, 32), [(2, 2), (2, 2), (2, 2)]),
+    ((15, 9, 8), [(0, 0), (1, 1), (2, 2)]),
+    ((40, 36, 70), [(3, 3), (2, 0), (1, 3)]),
+    ((9, 7, 5), [(0, 0), (0, 0), (1, 3)]),
+    ((64, 64, 64), [(2, 2), (2, 2), (2, 2)]),
+])
+def test_gsrb_const_fused_kernel(cuda, dtype, B, n, ell_bc):
+    """Kernel 5's fused stages: one launch for up to two sweeps, the
+    correction in the first and the restriction (max|r| over the batch) in
+    the last; every elliptic BC code with non-zero face values, extents
+    that do not divide the tile, odd periodic extents."""
+    rng = np.random.RandomState(12)
+    kw = dict(dtype=dtype, device=cuda)
+    dx, mu = (0.1, 0.11, 0.12), 0.03
+    aco = torch.as_tensor(1.0 + 9.0 * rng.rand(*n), **kw)
+    phi = torch.as_tensor(rng.rand(B, *n) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(B, *n) - 0.5, **kw)
+    lev = mg.make_level(n, dx, ell_bc, aco, (mu,) * 3, 1.0)
+    coef = [mu / h ** 2 for h in dx] + [1.0]
+    bv = [[0.2, -0.3], [0.15, 0.1], [-0.1, 0.4]]
+    args = (phi, rhs, lev.inv_diag, coef, ell_bc, bv)
+    k = cuda_kernels
+    runs = [("smooth", ns, None, (2, 2, 2)) for ns in (1, 2, 3)]
+    if all(s % 2 == 0 for s in n):
+        for fac in ((2, 2, 2), (1, 2, 2)):
+            c = torch.as_tensor(rng.rand(B, *[s // f for s, f in zip(n, fac)])
+                                - 0.5, **kw)
+            runs.append(("smooth", 2, c, fac))
+        runs += [("smooth_restrict", ns, None, (2, 2, 2)) for ns in (1, 2, 3)]
+    for a in (aco, None):
+        for emit, ns, corr, fac in runs:
+            before = (k.gsrb_const_sweep_3d.launches,
+                      k.gsrb_const_sweep_3d.fused_launches)
+            out = k.gsrb_const_sweep_3d(*args, aco=a, emit=emit, nsweeps=ns,
+                                        corr=corr, cfac=fac)
+            torch.cuda.synchronize()
+            step = (ns + 1) // 2
+            assert (k.gsrb_const_sweep_3d.launches,
+                    k.gsrb_const_sweep_3d.fused_launches) == (
+                        before[0] + step, before[1] + step)
+            ref = k.gsrb_const_sweep_3d_plain(*args, aco=a, emit=emit,
+                                              nsweeps=ns, corr=corr,
+                                              cfac=fac)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            for o, r in zip(outs, refs):
+                _close(o, r, dtype, f"gsrb_const {emit} n={n} B={B} "
+                       f"ns={ns} fac={fac} aco={a is not None}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's headline, AMR and Rayleigh-Taylor steps in the checkout
+"""Time the port's headline, AMR, Rayleigh-Taylor and 2-D steps in the checkout
 this is run from, so that two checkouts can be compared on one card in one
 call.
 
@@ -10,12 +10,15 @@ It imports chip_smoke.py and varden_tpu_torch from the current directory
 archive`) and drives that checkout's own phase functions, with the same
 gates as chip_smoke.py: the headline configuration (the viscous 256^3
 bubble, float32, STEPS steps), BASELINE config 5 (256^3 + 2 levels,
-float32, STEPS_AMR steps) and config 4 (3-D Rayleigh-Taylor 128^3, float32,
-STEPS steps), each followed by one more step under torch.profiler. It
-prints one line "RESULT TAG {json}" with, per configuration, each step's
-seconds and the steady mean, the kernel launches of each step, the
-V-cycles of the single-level and composite solves (mg.v_cycle and
-nodal.v_cycle entered at the finest level, initialization included) and,
+float32, STEPS_AMR steps), config 4 (3-D Rayleigh-Taylor 128^3, float32,
+STEPS steps) and the 2-D main cell (the viscous 2-D bubble's geometry at
+N_2D^2, float32, STEPS steps), each followed by one more step under
+torch.profiler. It prints one line "RESULT TAG {json}" with, per
+configuration, each step's seconds and the steady mean, the kernel
+launches of each step, the peak device memory, the V-cycles of the
+single-level and composite solves (mg.v_cycle and nodal.v_cycle entered at
+the finest level, initialization included), the outer cycles and solver
+ratios of each step and,
 of the profiled step, its wall seconds, the device's busy seconds and idle
 share and the device milliseconds and launches of each of the package's
 kernel functions. Run the two checkouts in turns (A, B, B, A):
@@ -91,25 +94,32 @@ def main():
     # config 4's MAC levels take no fused stage of kernel 3
     rt_kw = {"fused": cs.FUSED_RT} if hasattr(cs, "FUSED_RT") else {}
     out = {}
-    for key in ("headline", "cfg5", "rt"):
+    for key in ("headline", "cfg5", "rt", "2d"):
         CYCLES.clear()
         if key == "headline":
-            v, state, _, steps, _ = cs.phase_main(
+            v, state, _, steps, peak = cs.phase_main(
                 torch, cs.bubble_kw(256, "float32", visc_coef=1.0e-3),
                 cs.STEPS, cs.KERNELS_3D)
         elif key == "cfg5":
-            v, state, _, steps, _, _ = cs.phase_main_ml(
+            v, state, _, steps, peak, _ = cs.phase_main_ml(
                 torch, VardenConfig(**cs.cfg5_kw(256, "float32")),
                 cs.STEPS_AMR, cs.KERNELS_AMR, "config 5")
-        else:
-            v, state, _, steps, _ = cs.phase_main(
+        elif key == "rt":
+            v, state, _, steps, peak = cs.phase_main(
                 torch, cs.rt_kw(cs.N_RT, "float32"), cs.STEPS,
                 cs.KERNELS_RT, bubble=False, **rt_kw)
+        else:
+            # the 2-D main cell: the viscous 2-D bubble's geometry at N_2D^2
+            v, state, _, steps, peak = cs.phase_main(
+                torch, cs.bubble2d_kw(cs.N_2D, "float32",
+                                      visc_coef=cs.VISC_2D),
+                cs.STEPS, cs.KERNELS_2D)
         rec = {"steps_s": [r["seconds"] for r in steps],
                "steady_s": cs.mean_steady(steps),
                "launches": [r["launches"] for r in steps],
-               "v_cycles": dict(CYCLES)}
-        for k in ("mac_outer", "hg_outer", "visc_outer", "visc_cycles"):
+               "v_cycles": dict(CYCLES), "peak_bytes": peak}
+        for k in ("mac_outer", "hg_outer", "visc_outer", "visc_cycles",
+                  "mac_ratio", "hg_ratio", "visc_ratio"):
             if k in steps[-1]:
                 rec[k] = [r[k] for r in steps]
         rec["profiled"] = profiled(v, state)

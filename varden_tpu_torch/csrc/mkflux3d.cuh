@@ -38,6 +38,29 @@ __host__ __device__ constexpr int other(int n, int k) {
   return k == 0 ? (n == 0 ? 1 : 0) : (n == 2 ? 1 : 2);
 }
 
+// a box of brick-local points [lo, lo + e) per axis, axis 2 fastest: the
+// tiles of the brick kernels (mkflux_update.cu, velpred.cu)
+struct Box {
+  int lo[3];
+  int e[3];
+};
+
+__host__ __device__ constexpr int box_size(Box b) {
+  return b.e[0] * b.e[1] * b.e[2];
+}
+
+__device__ __forceinline__ int bidx(Box b, const int* l) {
+  return ((l[0] - b.lo[0]) * b.e[1] + (l[1] - b.lo[1])) * b.e[2] +
+         (l[2] - b.lo[2]);
+}
+
+__device__ __forceinline__ void bpoint(Box b, int i, int* l) {
+  l[2] = i % b.e[2] + b.lo[2];
+  i /= b.e[2];
+  l[1] = i % b.e[1] + b.lo[1];
+  l[0] = i / b.e[1] + b.lo[0];
+}
+
 // the mkflux.f90 boundary overrides of a hat or double-hat l/r pair of
 // component c on a boundary a-face (side 0 lo, 1 hi); s_m, s_p: s on either
 // side of the face (godunov3d.mkflux_3d face_bc)

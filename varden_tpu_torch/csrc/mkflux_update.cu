@@ -45,28 +45,6 @@ struct FluxOut {
   int comp[MAXC];
 };
 
-// a box of brick-local points [lo, lo + e) per axis, axis 2 fastest
-struct Box {
-  int lo[3];
-  int e[3];
-};
-
-__host__ __device__ constexpr int box_size(Box b) {
-  return b.e[0] * b.e[1] * b.e[2];
-}
-
-__device__ __forceinline__ int bidx(Box b, const int* l) {
-  return ((l[0] - b.lo[0]) * b.e[1] + (l[1] - b.lo[1])) * b.e[2] +
-         (l[2] - b.lo[2]);
-}
-
-__device__ __forceinline__ void bpoint(Box b, int i, int* l) {
-  l[2] = i % b.e[2] + b.lo[2];
-  i /= b.e[2];
-  l[1] = i % b.e[1] + b.lo[1];
-  l[0] = i / b.e[1] + b.lo[0];
-}
-
 // The shared-memory plan of a brick of B0 x B1 x B2 cells, all of it known
 // at compile time (so every index below folds to constants and shifts):
 //   sbox   s of one component, [-3, B+3) on every axis

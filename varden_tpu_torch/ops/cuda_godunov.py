@@ -13,8 +13,9 @@ varden_tpu.ops.pallas_godunov).
 Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
-CUDA launches the wrapper made (every stage counts: mkflux_update_3d_fused
-makes two, the tie epsilon and one shared-memory pass).
+CUDA launches the wrapper made (every stage counts: velpred_3d_fused and
+mkflux_update_3d_fused make two each, the tie epsilon and one
+shared-memory pass).
 """
 from __future__ import annotations
 
@@ -50,23 +51,29 @@ def velpred_3d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
                      slope_order, use_minion):
     """Corner-coupled BCG MAC predictor. u, force: (3, *padded) with ng
     ghosts. Returns interior (umac, vmac, wmac) exactly as
-    godunov3d.velpred_3d."""
+    godunov3d.velpred_3d, at any extent and in both dtypes. On the card:
+    two launches, the tie epsilon and one shared-memory brick pass."""
     if u.device.type == "cpu":
         return velpred_3d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
                                 n_cell, slope_order, use_minion)
+    return _velpred_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                           slope_order, use_minion)
+
+
+def _velpred_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                    slope_order, use_minion):
     P = _padded(n_cell, ng)
     _cuda.check(u, "u", (3,) + P)
     _cuda.check(force, "force", (3,) + P, u.dtype, u.device)
     opts = dict(dtype=u.dtype, device=u.device)
     outs = [torch.empty(tuple(n_cell[t] + (1 if t == d else 0)
                               for t in range(3)), **opts) for d in range(3)]
-    work = torch.empty((24,) + P, **opts)
     umax = torch.zeros(1, **opts)
     iv = [*n_cell, ng, slope_order, int(bool(use_minion))]
     iv += _flat_bc(phys_bc, adv_bc_vel)
-    _cuda.call("velpred", "velpred3d", [u, force, *outs, work, umax], iv,
+    _cuda.call("velpred", "velpred3d", [u, force, *outs, umax], iv,
                [float(dt), *map(float, dx)], u)
-    velpred_3d_fused.launches += 5
+    velpred_3d_fused.launches += 2
     return tuple(outs)
 
 

@@ -8,7 +8,9 @@ varden_tpu.ops.pallas_kernels).
                                        smooth_restrict)
   gsrb_const_sweep_3d csrc/gsrb_const.cu  batched constant-coefficient
                                        Helmholtz operator: exact red-black
-                                       sweep, residual
+                                       sweep, residual, and the fused
+                                       V-cycle stages (smooth,
+                                       smooth_restrict)
   nodal_sweep_3d     csrc/nodal.cu     factored trilinear-FEM nodal operator:
                                        apply, residual, weighted Jacobi, and
                                        the fused V-cycle stages (smooth,
@@ -22,7 +24,7 @@ varden_tpu.ops.pallas_kernels).
 Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
 runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
 launches the kernel or raises. ``<wrapper>.launches`` counts CUDA launches;
-kernels 3 and 4 also count the launches of their fused multigrid stages
+kernels 3, 4 and 5 also count the launches of their fused multigrid stages
 apart (``.fused_launches``).
 """
 from __future__ import annotations
@@ -89,11 +91,13 @@ def _lphi(phi, beta, dxi2, ell_bc, bvals, aco, alpha):
 
 
 def _avg_down(f):
-    """2x2x2 cell average, x then y then z (mg._cell_avg_down order)."""
+    """2x2x2 cell average over the trailing three axes, x then y then z
+    (mg._cell_avg_down order)."""
     for d in range(3):
-        ev = [slice(None)] * 3
-        od = [slice(None)] * 3
-        ev[d], od[d] = slice(0, None, 2), slice(1, None, 2)
+        ev = [slice(None)] * f.ndim
+        od = [slice(None)] * f.ndim
+        ax = f.ndim - 3 + d
+        ev[ax], od[ax] = slice(0, None, 2), slice(1, None, 2)
         f = 0.5 * (f[tuple(ev)] + f[tuple(od)])
     return f
 
@@ -255,7 +259,11 @@ gsrb_var_sweep_3d.fused_launches = 0  # of them, the fused stages
 # constant-coefficient Helmholtz, batched
 # ---------------------------------------------------------------------------
 
-_CONST_EMITS = ("sweep", "residual")
+_CONST_EMITS = ("sweep", "residual", "smooth", "smooth_restrict")
+
+# kernel 5's fused stages take a block per field (False) or one block for
+# the three fields of a batch, sharing inv_diag and aco (True)
+CONST_WHOLE_BATCH = False
 
 
 def _colour_index(n, device):
@@ -286,8 +294,13 @@ def _lphi_const(phi, coef, ell_bc, bvals, aco):
 
 
 def gsrb_const_sweep_3d_plain(phi, rhs, inv_diag, coef, ell_bc, bvals,
-                              aco=None, *, emit="sweep"):
-    """The plain PyTorch version of gsrb_const_sweep_3d."""
+                              aco=None, *, emit="sweep", nsweeps=1,
+                              corr=None, cfac=(2, 2, 2)):
+    """The plain PyTorch version of gsrb_const_sweep_3d. The fused emits
+    are the compositions of the single ones in mg.v_cycle's order: phi +
+    prolong(corr), then nsweeps sweeps (smooth); nsweeps sweeps, then the
+    residual, its 2x2x2 average and max|r| over the batch
+    (smooth_restrict)."""
     coef = [float(c) for c in coef]
     bvals = [[float(v) for v in bv] for bv in bvals]
 
@@ -295,28 +308,52 @@ def gsrb_const_sweep_3d_plain(phi, rhs, inv_diag, coef, ell_bc, bvals,
         lp = _lphi_const(p, coef, ell_bc, bvals, aco)
         return -lp if rhs is None else rhs - lp
 
+    def sweep(p):
+        idx = _colour_index(p.shape[1:], p.device)
+        for colour in (0, 1):
+            upd = p + res(p) * inv_diag
+            p = torch.where(idx % 2 == colour, upd, p)
+        return p
+
     if emit == "residual":
         return res(phi)
-    idx = _colour_index(phi.shape[1:], phi.device)
-    for colour in (0, 1):
-        upd = phi + res(phi) * inv_diag
-        phi = torch.where(idx % 2 == colour, upd, phi)
-    return phi
+    if emit == "sweep":
+        return sweep(phi)
+    if corr is not None:
+        phi = phi + cell_prolong(corr, cfac)
+    for _ in range(nsweeps):
+        phi = sweep(phi)
+    if emit == "smooth":
+        return phi
+    r = res(phi)
+    return phi, _avg_down(r), r.abs().max()
 
 
 def gsrb_const_sweep_3d(phi, rhs, inv_diag, coef, ell_bc, bvals, aco=None,
-                        *, emit="sweep"):
-    """One exact red-black sweep of (alpha*aco - beta lap) phi = rhs
-    (emit="sweep"), or the residual rhs - L(phi) (emit="residual"), on a
-    batch of fields that share the operator.
+                        *, emit="sweep", nsweeps=1, corr=None,
+                        cfac=(2, 2, 2)):
+    """Batched constant-coefficient GSRB of (alpha*aco - beta lap) phi = rhs
+    on fields that share the operator: one exact red-black sweep
+    (emit="sweep"), the residual rhs - L(phi) (emit="residual"), or a fused
+    multigrid stage:
+
+      "smooth"           phi + prolong(corr) (piecewise constant along the
+                         axes whose cfac is 2; corr None adds nothing),
+                         then nsweeps sweeps;
+      "smooth_restrict"  nsweeps sweeps, then the residual's 2x2x2 average
+                         and max|r| over the whole batch: returns (phi,
+                         coarse residual, max|r| as a 0-d tensor).
 
     phi/rhs: (B, n0, n1, n2), a leading batch axis is required (phi[None]
-    for one field); inv_diag/aco: (n0, n1, n2), shared over the batch;
-    coef: [beta/dx0^2, beta/dx1^2, beta/dx2^2, alpha] as host numbers. aco
-    None drops the alpha term. rhs None means zero (residual only);
-    inv_diag is read by the sweep only. Returns a tensor of phi's shape."""
+    for one field); corr (B, n0/f0, n1/f1, n2/f2); inv_diag/aco: (n0, n1,
+    n2), shared over the batch; coef: [beta/dx0^2, beta/dx1^2, beta/dx2^2,
+    alpha] as host numbers. aco None drops the alpha term. rhs None means
+    zero (residual only); inv_diag is read by the sweeps only. On the card
+    "sweep" is two launches (one a colour), "residual" one, and a fused
+    emit one launch for every FUSED_SWEEPS sweeps."""
     if emit not in _CONST_EMITS:
         raise ValueError(f"bad emit {emit!r}")
+    _check_nsweeps(emit, nsweeps)
     if phi.ndim != 4:
         raise ValueError("gsrb_const_sweep_3d: phi must be (B, n0, n1, n2), "
                          f"got {tuple(phi.shape)}")
@@ -326,7 +363,15 @@ def gsrb_const_sweep_3d(phi, rhs, inv_diag, coef, ell_bc, bvals, aco=None,
         raise ValueError("rhs=None (zero) is for emit='residual' only")
     if phi.device.type == "cpu":
         return gsrb_const_sweep_3d_plain(phi, rhs, inv_diag, coef, ell_bc,
-                                         bvals, aco, emit=emit)
+                                         bvals, aco, emit=emit,
+                                         nsweeps=nsweeps, corr=corr,
+                                         cfac=cfac)
+    return _gsrb_const_launch(phi, rhs, inv_diag, coef, ell_bc, bvals, aco,
+                              emit, nsweeps, corr, cfac)
+
+
+def _gsrb_const_launch(phi, rhs, inv_diag, coef, ell_bc, bvals, aco, emit,
+                       nsweeps, corr, cfac):
     shape = tuple(phi.shape)
     n = shape[1:]
     _cuda.check(phi, "phi")
@@ -339,24 +384,59 @@ def gsrb_const_sweep_3d(phi, rhs, inv_diag, coef, ell_bc, bvals, aco=None,
         _cuda.check(rhs, "rhs", shape, **kw)
     if aco is not None:
         _cuda.check(aco, "aco", n, **kw)
-    tmp = None
-    if emit == "sweep":
-        _cuda.check(inv_diag, "inv_diag", n, **kw)
-        tmp = torch.empty(shape, **kw)
-    else:
+    fused = emit in ("smooth", "smooth_restrict")
+    if emit == "residual":
         inv_diag = None
-    out = torch.empty(shape, **kw)
+    else:
+        _cuda.check(inv_diag, "inv_diag", n, **kw)
+    if emit == "smooth_restrict" and any(s % 2 for s in n):
+        raise ValueError(f"{emit} needs even extents, got {n}")
     iv = [*shape] + [int(ell_bc[d][s]) for d in range(3) for s in range(2)]
-    iv.append(_CONST_EMITS.index(emit))
     dv = [float(c) for c in coef]
     dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
-    _cuda.call("gsrb_const", "gsrb_const3d",
-               [phi, rhs, inv_diag, aco, out, tmp], iv, dv, phi)
-    gsrb_const_sweep_3d.launches += 2 if emit == "sweep" else 1
-    return out
+    if not fused:
+        tmp = torch.empty(shape, **kw) if emit == "sweep" else None
+        out = torch.empty(shape, **kw)
+        _cuda.call("gsrb_const", "gsrb_const3d",
+                   [phi, rhs, inv_diag, aco, out, tmp],
+                   iv + [_CONST_EMITS.index(emit)], dv, phi)
+        gsrb_const_sweep_3d.launches += 2 if emit == "sweep" else 1
+        return out
+    if shape[0] * n[0] * n[1] * n[2] >= 2 ** 31:
+        # the fused stages index a batch with 32-bit offsets
+        raise ValueError(f"gsrb_const_sweep_3d: {emit} takes fields of "
+                         f"fewer than 2^31 cells, got {shape}")
+    cfac = tuple(int(f) for f in cfac)
+    if corr is not None:
+        if any(f not in (1, 2) or s % f for f, s in zip(cfac, n)):
+            raise ValueError(f"cfac {cfac} does not divide {n}")
+        _cuda.check(corr, "corr", (shape[0],) + tuple(
+            s // f for s, f in zip(n, cfac)), **kw)
+    # FUSED_SWEEPS sweeps a launch, the correction in the first, the
+    # restriction in the last
+    left = nsweeps
+    crs = rmax = None
+    while left > 0:
+        k = min(left, FUSED_SWEEPS)
+        left -= k
+        last = left == 0 and emit == "smooth_restrict"
+        out = torch.empty(shape, **kw)
+        if last:
+            crs = torch.empty((shape[0],) + tuple(s // 2 for s in n), **kw)
+            rmax = torch.zeros(1, **kw)
+        _cuda.call("gsrb_const", "gsrb_const3d",
+                   [phi, rhs, inv_diag, aco, out, None, corr, crs, rmax],
+                   iv + [_CONST_EMITS.index("smooth_restrict" if last
+                                            else "smooth"), k, *cfac,
+                         int(CONST_WHOLE_BATCH)], dv, phi)
+        gsrb_const_sweep_3d.launches += 1
+        gsrb_const_sweep_3d.fused_launches += 1
+        phi, corr = out, None
+    return (phi, crs, rmax[0]) if emit == "smooth_restrict" else phi
 
 
 gsrb_const_sweep_3d.launches = 0
+gsrb_const_sweep_3d.fused_launches = 0  # of them, the fused stages
 
 
 # ---------------------------------------------------------------------------

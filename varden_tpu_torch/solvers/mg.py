@@ -312,17 +312,25 @@ def cc_apply(level: CCLevel, phi, bvals=None):
     return apply_padded(p, level.aco, level.beta, level.alpha, level.dx, dm)
 
 
-def _const_sweep(level: CCLevel, phi, rhs, bvals, emit):
-    """One gsrb_const_sweep_3d pass on a scalar-beta level; phi and rhs may
-    carry the batch axis or not."""
+def _const_sweep(level: CCLevel, phi, rhs, bvals, emit, corr=None,
+                 **fused):
+    """One gsrb_const_sweep_3d pass on a scalar-beta level; phi, rhs and
+    corr may carry the batch axis or not (``fused``: nsweeps and cfac of
+    kernel 5's fused emits)."""
     coef = [level.beta[d] / level.dx[d] ** 2 for d in range(level.dm)]
     coef.append(level.alpha)
     batched = phi.ndim > level.dm
+    if corr is not None and not batched:
+        corr = corr[None]
     out = ck.gsrb_const_sweep_3d(
         phi if batched else phi[None], rhs if batched else rhs[None],
         level.inv_diag, coef, level.ell_bc, bvals,
-        aco=level.aco if level.alpha != 0.0 else None, emit=emit)
-    return out if batched else out[0]
+        aco=level.aco if level.alpha != 0.0 else None, emit=emit, corr=corr,
+        **fused)
+    if batched:
+        return out
+    return (out[0][0], out[1][0], out[2]) if emit == "smooth_restrict" \
+        else out[0]
 
 
 def _var_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
@@ -340,6 +348,25 @@ def _fused_route(level: CCLevel, phi) -> bool:
     return (level.dm == 3 and phi.ndim == 3
             and not any(_is_scalar_coef(b) for b in level.beta)
             and not _padded_route(level, phi))
+
+
+# The largest level, in cells, whose constant-coefficient smoothing runs
+# through kernel 5's fused stages. Measured on an H100 (PERF.md, PR 8): up
+# to 64^3 cells a level visit through the fused stages is 2.6-4x faster
+# than the single passes, which are launch-bound there; above, the fused
+# stages run at about the single passes' speed (0.8-1.3x) and the fast
+# path's sweeps slower, so the single passes stay. The rule reads the
+# level's extents only, never the device or the dtype, so on the CPU both
+# routes compute the same plain composition.
+CONST_FUSED_MAX_CELLS = 64 ** 3
+
+
+def _const_fused_route(level: CCLevel) -> bool:
+    """Whether the level smooths through kernel 5's fused stages: a 3-D
+    scalar-beta level of at most CONST_FUSED_MAX_CELLS cells, with or
+    without a batch axis."""
+    return (level.dm == 3 and _scalar_beta(level.beta)
+            and math.prod(level.n) <= CONST_FUSED_MAX_CELLS)
 
 
 def _residual(level: CCLevel, phi, rhs, bvals):
@@ -381,6 +408,9 @@ def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
         for _ in range(nsweeps):
             phi = _var_sweep(level, phi, rhs, bvals, "sweep")
         return phi
+    if _const_fused_route(level):
+        return _const_sweep(level, phi, rhs, bvals, "smooth",
+                            nsweeps=nsweeps)
     if level.dm == 3:
         for _ in range(nsweeps):
             phi = _const_sweep(level, phi, rhs, bvals, "sweep")
@@ -538,12 +568,17 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
         return (out, r.abs().max()) if return_resnorm else out
     fac = level.cfac if level.cfac is not None else (2,) * level.dm
     fused = _fused_route(level, phi)
+    cfused = _const_fused_route(level)
     full = fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)
     if fused and full:
         # nu1 sweeps, the residual, its 2^dm restriction and max|r|: one
         # pass of kernel 3
         phi, crs, rmax = _var_sweep(level, phi, rhs, bv, "smooth_restrict",
                                     nsweeps=nu1)
+    elif cfused and full:
+        # the same through kernel 5, max|r| over the batch
+        phi, crs, rmax = _const_sweep(level, phi, rhs, bv,
+                                      "smooth_restrict", nsweeps=nu1)
     else:
         phi = gsrb(level, phi, rhs, bv, nu1)
         if level.dm == 3 and not _scalar_beta(level.beta) and full:
@@ -555,11 +590,12 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
             rmax = res.abs().max()
     corr = v_cycle(levels, torch.zeros_like(crs), crs, bvals, lev + 1, nu1,
                    nu2, singular, bottom=bottom)
-    if fused:
+    if fused or cfused:
         # phi + the piecewise-constant prolongation of corr, then nu2 sweeps:
-        # one pass of kernel 3
-        phi = _var_sweep(level, phi, rhs, bv, "smooth", nsweeps=nu2,
-                         corr=corr, cfac=fac)
+        # one pass of kernel 3 or 5
+        sweep = _var_sweep if fused else _const_sweep
+        phi = sweep(level, phi, rhs, bv, "smooth", nsweeps=nu2, corr=corr,
+                    cfac=fac)
         return (phi, rmax) if return_resnorm else phi
     # piecewise-constant prolongation (only the coarsened axes)
     phi = gsrb(level, phi + ck.cell_prolong(corr, fac), rhs, bv, nu2)
