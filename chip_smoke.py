@@ -13,13 +13,15 @@ Phases, each of which asserts and any failure of which exits non-zero:
      three 2-D ones, BASELINE config 5's patches for kernels 6 and 11 and
      for kernel 2's flux option (the AMR scalar advance's call), and
      128^3 and 256^3 with config 4's boundaries for the padded sweep,
-     beside kernel 3's sweep and the ghost pad at the same shapes, and
-     the fused V-cycle stages of kernels 3 and 4 at 256^3 and config 5's
-     240^3 and 384^3, beside the old single emits they replace), in
-     float32 and again in float64: max abs error against the stated
-     tolerance, the kernel's time (CUDA events), the plain version's time
-     and the bound (bytes or operations, the operations counted by hand
-     from each kernel's body);
+     beside kernel 3's sweep and the ghost pad at the same shapes, the
+     fused V-cycle stages of kernels 3 and 4 at 256^3 and config 5's
+     240^3 and 384^3 and kernel 5's at CONST_FUSED_SHAPES, beside the
+     old single emits they replace, and kernel 1 at config 5's three
+     level shapes), in float32 and again in float64: max abs error of
+     each output against the stated tolerance times its own largest
+     value, the kernel's time (CUDA events), the plain version's time and
+     the bound (bytes or operations, the operations counted by hand from
+     each kernel's body);
   3. one advance_timestep of the 3-D bubble at 32^3 in float64 on the card
      against the plain path on the CPU, from one numpy-made state: once
      inviscid, once with visc_coef = diff_coef = 1e-3 (Crank-Nicolson);
@@ -27,7 +29,7 @@ Phases, each of which asserts and any failure of which exits non-zero:
      bubble (prob_type 1, 256^3, float32, no-slip walls on all six faces,
      visc_coef 1e-3), initial projection, one pressure iteration and STEPS
      regular steps, with every launch counter set to 0 just before and read
-     just after; all five kernels must have launched, kernels 3 and 4
+     just after; all five kernels must have launched, kernels 3, 4 and 5
      through their fused V-cycle stages (counted apart);
   5. the main path once more in float64 for STEPS_SHORT steps: the same
      gates, and the float32 run's density extrema and max|u| held against it
@@ -60,8 +62,9 @@ Phases, each of which asserts and any failure of which exits non-zero:
      initialization and STEPS_AMR regular steps, every launch counter set
      to 0 just before and read just after; kernels 1-5 must have
      launched (kernel 2 advances the scalars of every level with its flux
-     option), kernels 6 and 11 and the 2-D ones not; the launches of
-     kernels 2, 6 and 11 per steady step are printed; every composite
+     option; kernels 3, 4 and 5 through their fused stages too), kernels
+     6 and 11 and the 2-D ones not; the launches of kernels 1-6 and 11
+     per steady step are printed; every composite
      solve at or below its
      tolerance, div(umac) falling across the MAC projection, every field
      finite and density in [1, 10] on every level; each composite solve's
@@ -77,7 +80,8 @@ Phases, each of which asserts and any failure of which exits non-zero:
      visc_coef 1e-3, cflfac 0.9, four pressure iterations): initialization
      and STEPS steps with the launch counters zeroed before and read
      after; kernels 1-5 and the padded sweep (kernel 7) must have
-     launched, the others not; the gates of phase 4 except the density
+     launched (kernels 4 and 5 through their fused stages too), the
+     others not; the gates of phase 4 except the density
      range, which varden_tpu itself leaves on this problem: the density
      extrema of every step are printed, and the float32 run's extrema and
      max|u| are held to the same path in float64 (STEPS_SHORT steps);
@@ -1994,8 +1998,7 @@ def main(argv=None) -> int:
                  "mkflux_update_3d_fused": "velocity",
                  "gsrb_var_sweep_3d": "smooth_restrict 256^3",
                  "nodal_sweep_3d": "smooth_restrict 256^3",
-                 "gsrb_const_sweep_3d": "smooth_restrict 256^3 B3",
-                 "gsrb_sweep_2d": "sweep",
+                 "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
                  "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
                  "update_3d": "nc2 [T,F] 384x384x384",
                  "mkflux_3d_fused": "scalars 384x384x384",

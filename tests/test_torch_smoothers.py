@@ -203,10 +203,10 @@ def test_gsrb_const_fused_stages_match_varden_tpu(n, ell_bc, B, alpha,
 ])
 def test_const_fused_route_is_the_single_pass_composition(n, ell_bc, alpha,
                                                           batched):
-    """mg.v_cycle and mg.gsrb on a scalar-beta level take kernel 5's fused
-    stages up to CONST_FUSED_MAX_CELLS: on the CPU the two routes compute
-    the same plain composition, bit for bit, with the batch axis and
-    without."""
+    """mg.v_cycle visits the scalar-beta levels of at most
+    CONST_FUSED_MAX_CELLS cells through kernel 5's fused stages: on the CPU
+    the two routes compute the same plain composition, bit for bit, with
+    the batch axis and without, and so does a solve."""
     rng = np.random.RandomState(5)
     dx = (0.1, 0.11, 0.12)
     aco = torch.as_tensor(1.0 + rng.rand(*n))
@@ -222,8 +222,10 @@ def test_const_fused_route_is_the_single_pass_composition(n, ell_bc, alpha,
         for ceiling in (0, 2 ** 62):
             tmg.CONST_FUSED_MAX_CELLS = ceiling
             p, mon = tmg.v_cycle(levels, phi0, rhs, bv, return_resnorm=True)
-            g = tmg.gsrb(levels[0], phi0, rhs, bv, 3)
-            outs.append((p, mon, g))
+            sol, (rn, cycles, _) = tmg.solve(
+                n, dx, ell_bc, aco, beta, rhs, alpha=alpha, bvals=bv,
+                max_cycles=3, return_info=True)
+            outs.append((p, mon, sol, rn, torch.tensor(cycles)))
     finally:
         tmg.CONST_FUSED_MAX_CELLS = saved
     for a, b in zip(*outs):

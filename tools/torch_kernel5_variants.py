@@ -12,8 +12,6 @@ varden_tpu_torch/_build/variants/ and swapped in for the package's own
 library:
 
   source   the file as it is;
-  whole    the file as it is, one block for the three fields of a batch
-           (ck.CONST_WHOLE_BATCH) instead of a block per field;
   lb2      the fused kernel asked to fit two blocks an SM
            (__launch_bounds__(NT, 2): at most 64 registers a thread);
   t32      tiles twice as high, 1024 threads a block;
@@ -53,10 +51,8 @@ from varden_tpu_torch.solvers import mg  # noqa: E402
 
 LB = "__global__ void __launch_bounds__(NT)\n    const_fused_kernel("
 LB2 = "__global__ void __launch_bounds__(NT, 2)\n    const_fused_kernel("
-TILE = ("static constexpr int TY = (sizeof(T) == 4 ? 16 : 8) / (FB > 1 ? 2 "
-        ": 1);")
-TILE2 = ("static constexpr int TY = (sizeof(T) == 4 ? 32 : 16) / (FB > 1 ? "
-         "2 : 1);")
+TILE = "static constexpr int TY = sizeof(T) == 4 ? 16 : 8;"
+TILE2 = "static constexpr int TY = sizeof(T) == 4 ? 32 : 16;"
 NT = "static constexpr int NT = 512;"
 NT2 = "static constexpr int NT = 1024;"
 
@@ -67,7 +63,7 @@ def sources(path, against):
         if old not in src:
             raise SystemExit(f"{path} does not hold the text a variant "
                              "edits: update this tool")
-    out = {"source": src, "whole": src, "lb2": src.replace(LB, LB2),
+    out = {"source": src, "lb2": src.replace(LB, LB2),
            "t32": src.replace(TILE, TILE2).replace(NT, NT2)}
     if against:
         out["against"] = open(against).read()
@@ -159,7 +155,6 @@ def main():
                         *g, emit="smooth", nsweeps=2, corr=corr, **kw)}
                 for name in names:
                     use(built[name][0])
-                    ck.CONST_WHOLE_BATCH = name == "whole"
                     row = dict(variant=name, dtype=dt, n=n, B=B)
                     for case, fn in stages.items():
                         row[f"{case}_errs"] = errs(fn(), refs[case])
@@ -175,7 +170,6 @@ def main():
                             torch, lambda: ck.gsrb_const_sweep_3d(*g, **kw),
                             args.reps)
                     print(json.dumps(row), flush=True)
-                ck.CONST_WHOLE_BATCH = False
                 del g, kw, corr, refs
                 torch.cuda.empty_cache()
     return 0

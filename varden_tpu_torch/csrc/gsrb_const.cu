@@ -18,23 +18,27 @@
 // and aco are indexed without the batch. The four coefficients
 // (beta/dx_d^2 and alpha) come by value.
 //
-// What bounds it on the card: bytes. Per cell and field a sweep reads phi
-// and rhs and writes phi, and shares inv_diag and aco over the batch; the
-// stencil is about 20 floating-point operations. The single passes (one
-// launch a colour, one thread a cell) each move every array, so a sweep
-// moves about twice its bound and a V-cycle level visit (two sweeps, the
-// residual, then the plain restriction, prolongation and two sweeps) some
-// ten times. The fused stages read each field once a stage: a block owns a
-// TY x TZ tile of (y, z) columns and a chunk of x planes of FB fields (one,
-// or the whole batch) and marches along x, plane by plane, with the
-// half-sweeps staggered two planes apart and the residual and the
-// restriction trailing (const_fused_kernel, the layout of gsrb_var.cu's
-// fused stages). A plane carries a y-z halo of one cell per half-sweep
-// still to come (plus one for the residual), recomputed, and each chunk
-// starts with as many warm-up planes, so blocks never exchange data and
-// periodic axes simply wrap. A thread issues all of a plane step's global
-// loads before its work; inv_diag and aco are loaded once a cell for the
-// FB fields of the block.
+// What bounds it on the card. The single passes (one launch a colour, one
+// thread a cell, a block a stretch of one (y, z) plane) are bound by bytes:
+// per cell and field a pass reads phi and rhs and writes phi, and shares
+// inv_diag and aco over the batch; the stencil is about 20 floating-point
+// operations. A V-cycle level visit through them is nine launches and some
+// six plain torch passes (restriction, max|r|, prolongation, add), each
+// over the whole batch. The fused stages read each field once a stage: a
+// block owns a TY x TZ tile of (y, z) columns and a chunk of x planes of
+// one field and marches along x, plane by plane, with the half-sweeps
+// staggered two planes apart and the residual and the restriction trailing
+// (const_fused_kernel, the layout of gsrb_var.cu's fused stages). A plane
+// carries a y-z halo of one cell per half-sweep still to come (plus one for
+// the residual), recomputed, and each chunk starts with as many warm-up
+// planes, so blocks never exchange data and periodic axes simply wrap. A
+// thread issues all of a plane step's global loads before its work. The
+// plane steps' latency and instruction issue, not the bytes, bound them: on
+// an H100 a fused level visit is 2.6-4x faster than the single passes up
+// to 64^3 cells, where those are launch-bound, and runs at about their
+// speed above (0.8-1.3x), so mg.py routes only the small levels through
+// them. One block for the three fields of a batch, sharing inv_diag and
+// aco, measured 1.1-2x slower than a block per field and was dropped.
 #include "common.cuh"
 
 namespace vt {
@@ -222,22 +226,19 @@ __device__ __forceinline__ T lphi_tile(const GC& s, const CK<T>& k,
   return out;
 }
 
-// What a cell's update reads besides phi, loaded ahead of its use: rhs of
-// each of the block's fields, and inv_diag and aco, shared by them.
-template <typename T, int FB>
+// What a cell's update reads besides phi, loaded ahead of its use.
+template <typename T>
 struct CCoef {
-  T rhs[FB];
-  T inv, aco;
+  T rhs, inv, aco;
 };
 
-template <typename T, int FB>
-__device__ __forceinline__ void load_ccoef(CCoef<T, FB>& q,
+template <typename T>
+__device__ __forceinline__ void load_ccoef(CCoef<T>& q,
                                            const T* __restrict__ rhs,
                                            const T* __restrict__ inv,
                                            const T* __restrict__ aco, int g,
-                                           int fstride, bool with_inv) {
-#pragma unroll
-  for (int fi = 0; fi < FB; ++fi) q.rhs[fi] = rhs[g + fi * fstride];
+                                           bool with_inv) {
+  q.rhs = rhs[g];
   q.inv = with_inv ? inv[g] : (T)0;
   q.aco = aco != nullptr ? aco[g] : (T)0;
 }
@@ -249,31 +250,30 @@ __device__ __forceinline__ int ring_slot(int ts, int d) {
   return r < 0 ? r + N : r;
 }
 
-// K half-sweeps (K/2 sweeps, red first) of the chunk's planes of FB fields,
-// then (RES) the residual of the result on the tile, its 2x2x2 average into
-// crs and max|r| into rmax: the x-marching layout of gsrb_var.cu's fused
-// stages with the constant stencil, the batch and no face coefficients.
-// Half-sweep h runs on plane t-2h-2 while plane t arrives, the residual on
-// plane t-2K-2 and the restriction of a plane pair a step later: every part
-// of step t reads only planes that earlier steps finished, so a step is one
-// phase between two barriers. Half-sweep h updates the cells of its colour
-// within h+1 of the plane's region edge (dil = H-1-h cells of halo around
-// the tile). A thread owns one pair of z-neighbours of the widest region,
-// the same in every half-sweep, plane and field, so that its cells' global
-// coordinates, colours and boundary sides are formed once; it takes part
-// in the half-sweeps whose region holds its pair's row and one of its
-// cells (a cell of the pair outside the region is updated too: nothing of
-// the region's later stages reads it). It issues all of a step's global
-// loads before any of its work. In place (INPLACE), plane p of a field sits
-// in slot p % (2K+4) at whatever stage it has reached: a half-sweep writes
-// its colour and reads only the other one. Else (a periodic axis of odd
-// extent, where two cells of one colour meet) each stage has a ring of four
-// planes and a half-sweep copies its pair forward. The block's fields are
-// fields blockIdx.z*FB ... +FB-1; the rows and columns of the region map to
-// global cells through two tables (-1: outside a non-periodic domain).
-// Offsets within a field are 32-bit (the wrapper bounds a field's cells).
-template <typename T, int K, bool RES, int FB, int TY, int TZ, int NT,
-          bool INPLACE>
+// K half-sweeps (K/2 sweeps, red first) of the chunk's planes of one field
+// (blockIdx.z), then (RES) the residual of the result on the tile, its
+// 2x2x2 average into crs and max|r| into rmax: the x-marching layout of
+// gsrb_var.cu's fused stages with the constant stencil and no face
+// coefficients. Half-sweep h runs on plane t-2h-2 while plane t arrives,
+// the residual on plane t-2K-2 and the restriction of a plane pair a step
+// later: every part of step t reads only planes that earlier steps
+// finished, so a step is one phase between two barriers. Half-sweep h
+// updates the cells of its colour within h+1 of the plane's region edge
+// (dil = H-1-h cells of halo around the tile). A thread owns one pair of
+// z-neighbours of the widest region, the same in every half-sweep and
+// plane, so that its cells' global coordinates, colours and boundary sides
+// are formed once; it takes part in the half-sweeps whose region holds its
+// pair's row and one of its cells (a cell of the pair outside the region is
+// updated too: nothing of the region's later stages reads it). It issues
+// all of a step's global loads before any of its work. In place (INPLACE),
+// plane p sits in slot p % (2K+4) at whatever stage it has reached: a
+// half-sweep writes its colour and reads only the other one. Else (a
+// periodic axis of odd extent, where two cells of one colour meet) each
+// stage has a ring of four planes and a half-sweep copies its pair
+// forward. The rows and columns of the region map to global cells through
+// two tables (-1: outside a non-periodic domain). Offsets within a field
+// are 32-bit (the wrapper bounds a field's cells).
+template <typename T, int K, bool RES, int TY, int TZ, int NT, bool INPLACE>
 __global__ void __launch_bounds__(NT)
     const_fused_kernel(CF f, const T* __restrict__ phi,
                        const T* __restrict__ corr, const T* __restrict__ rhs,
@@ -287,12 +287,11 @@ __global__ void __launch_bounds__(NT)
   static_assert((RY - 2) * WP <= NT && TY * TZ <= NT,
                 "a thread takes one pair and one residual cell");
   extern __shared__ __align__(16) unsigned char vt_smem[];
-  // [FB][stages][NSLOT][RC]: one ring in place, else one a stage
+  // [stages][NSLOT][RC]: one ring in place, else one a stage
   T* ring = reinterpret_cast<T*>(vt_smem);
-  constexpr int FRING = (INPLACE ? 1 : K + 1) * NSLOT * RC;
-  T* rb = ring + FB * FRING;  // [FB][4 planes][TY*TZ]
-  int* gyt = reinterpret_cast<int*>(rb + FB * 4 * TY * TZ);  // [RY]
-  int* gzt = gyt + RY;                                       // [RZ]
+  T* rb = ring + (INPLACE ? 1 : K + 1) * NSLOT * RC;  // [4 planes][TY*TZ]
+  int* gyt = reinterpret_cast<int*>(rb + 4 * TY * TZ);  // [RY]
+  int* gzt = gyt + RY;                                  // [RZ]
   const GC& s = f.s;
   CK<T> k;
   for (int d = 0; d < 3; ++d) {
@@ -316,18 +315,17 @@ __global__ void __launch_bounds__(NT)
   const int xlo_edge = !wx && px0 == 0, xhi_edge = !wx && px1 == n0;
   const int tid = threadIdx.x;
   const int plane = n1 * n2;
-  const int fcells = n0 * plane;  // one field
-  const int nc0 = n0 >> f.fsh[0], nc1 = n1 >> f.fsh[1], nc2 = n2 >> f.fsh[2];
-  const int fcorr = nc0 * nc1 * nc2;
+  const int nc1 = n1 >> f.fsh[1], nc2 = n2 >> f.fsh[2];
   const int nc1r = n1 / 2, nc2r = n2 / 2;
-  const int fcrs = (n0 / 2) * nc1r * nc2r;
-  // the block's first field
-  const i64 fld0 = (i64)blockIdx.z * FB;
-  phi += fld0 * fcells;
-  rhs += fld0 * fcells;
-  out += fld0 * fcells;
-  if (corr != nullptr) corr += fld0 * fcorr;
-  if (RES) crs += fld0 * fcrs;
+  // the block's field
+  {
+    const i64 fld = blockIdx.z;
+    phi += fld * n0 * plane;
+    rhs += fld * n0 * plane;
+    out += fld * n0 * plane;
+    if (corr != nullptr) corr += fld * (n0 >> f.fsh[0]) * nc1 * nc2;
+    if (RES) crs += fld * (n0 / 2) * nc1r * nc2r;
+  }
   for (int c = tid; c < RY + RZ; c += NT) {
     if (c < RY) {
       int g = y0 - H + c;
@@ -343,22 +341,19 @@ __global__ void __launch_bounds__(NT)
   // (-1 outside the domain), in-plane offsets and boundary sides
   int hmax = -1, pidx = 0, gyp = -1, gzp[2] = {-1, -1}, off[2] = {0, 0};
   int sides[2] = {0, 0};
-  {
-    const int p = tid;
-    if (p < (RY - 2) * WP) {
-      const int pa = 1 + p / WP, pb = 1 + 2 * (p % WP);
-      hmax = min(min(pa - 1, RY - 2 - pa), min(pb, RZ - 2 - pb));
-      hmax = min(hmax, K - 1);
-      pidx = pa * RZ + pb;
-      gyp = gyt[pa];
-      if (gyp < 0) hmax = -1;
+  if (tid < (RY - 2) * WP) {
+    const int pa = 1 + tid / WP, pb = 1 + 2 * (tid % WP);
+    hmax = min(min(pa - 1, RY - 2 - pa), min(pb, RZ - 2 - pb));
+    hmax = min(hmax, K - 1);
+    pidx = pa * RZ + pb;
+    gyp = gyt[pa];
+    if (gyp < 0) hmax = -1;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        gzp[e] = gzt[pb + e];
-        if (gzp[e] >= 0) {
-          off[e] = gyp * n2 + gzp[e];
-          sides[e] = side_bits(s, 1, gyp) | side_bits(s, 2, gzp[e]);
-        }
+    for (int e = 0; e < 2; ++e) {
+      gzp[e] = gzt[pb + e];
+      if (gzp[e] >= 0) {
+        off[e] = gyp * n2 + gzp[e];
+        sides[e] = side_bits(s, 1, gyp) | side_bits(s, 2, gzp[e]);
       }
     }
   }
@@ -367,15 +362,15 @@ __global__ void __launch_bounds__(NT)
   constexpr int NS0 = (RC + NT - 1) / NT;
   for (int t = 0; t <= last; ++t) {
     const int ts = t % NSLOT;
-    // the slot of plane t - d of field fi at stage h
-    auto slot = [&](int fi, int h, int d) {
-      return ring + fi * FRING + (INPLACE ? 0 : h * NSLOT * RC) +
+    // the slot of plane t - d at stage h
+    auto slot = [&](int h, int d) {
+      return ring + (INPLACE ? 0 : h * NSLOT * RC) +
              ring_slot<NSLOT>(ts, d) * RC;
     };
     // every global load of the step first: stage 0 of plane t (phi, plus
     // the prolonged corr), each half-sweep's rhs, inv_diag and aco and the
     // residual's
-    T v0[FB][NS0];
+    T v0[NS0];
     const bool st0 = t < np;
     {
       const int gx = st0 ? (wx ? wrapi(px0 + t, n0) : px0 + t) : 0;
@@ -384,26 +379,22 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < NS0; ++j) {
         const int c = tid + j * NT;
-#pragma unroll
-        for (int fi = 0; fi < FB; ++fi) v0[fi][j] = (T)0;
+        v0[j] = (T)0;
         if (st0 && c < RC) {
           const int gy = gyt[c / RZ], gz = gzt[c % RZ];
           if ((gy | gz) >= 0) {
-#pragma unroll
-            for (int fi = 0; fi < FB; ++fi) {
-              T v = src[fi * fcells + gy * n2 + gz];
-              if (corr != nullptr)
-                v = v + csrc[fi * fcorr + (gy >> f.fsh[1]) * nc2 +
-                             (gz >> f.fsh[2])];
-              v0[fi][j] = v;
-            }
+            T v = src[gy * n2 + gz];
+            if (corr != nullptr)
+              v = v + csrc[(gy >> f.fsh[1]) * nc2 + (gz >> f.fsh[2])];
+            v0[j] = v;
           }
         }
       }
     }
     // half-sweep h on plane t-2h-2: which cells of the pair it updates
-    // (bit e: cell e), and the coefficients of the first of them
-    CCoef<T, FB> q[K];
+    // (bit e: cell e; bit 2: copy the pair forward), and the coefficients
+    // of the first of them
+    CCoef<T> q[K];
     int upd[K];
 #pragma unroll
     for (int h = 0; h < K; ++h) {
@@ -423,33 +414,27 @@ __global__ void __launch_bounds__(NT)
             if (first < 0) first = e;
           }
         if (first >= 0)
-          load_ccoef<T, FB>(q[h], rhs, inv, aco,
-                            gx * plane + (first ? off[1] : off[0]), fcells,
-                            true);
-        else if (INPLACE)
-          upd[h] = 0;
-        if (!INPLACE) upd[h] |= 4;  // copy the pair forward
+          load_ccoef<T>(q[h], rhs, inv, aco,
+                        gx * plane + (first ? off[1] : off[0]), true);
+        if (!INPLACE) upd[h] |= 4;
       }
     }
     const int lr = t - 2 * K - (RES ? 2 : 1);
     const int gxr = px0 + lr;  // unwrapped: output planes lie in [x0, x1)
     const bool rlive = lr >= 0 && gxr >= x0 && gxr < x1;
-    CCoef<T, FB> qr;
+    CCoef<T> qr;
     const int ryy = tid / TZ, rzz = tid % TZ;
     const bool rcell = rlive && tid < TY * TZ && y0 + ryy < n1 &&
                        z0 + rzz < n2;
     const int rg = gxr * plane + (y0 + ryy) * n2 + z0 + rzz;
-    if (RES && rcell) load_ccoef<T, FB>(qr, rhs, inv, aco, rg, fcells, false);
+    if (RES && rcell) load_ccoef<T>(qr, rhs, inv, aco, rg, false);
     // the work of the step
     if (st0) {
+      T* dst = slot(0, 0);
 #pragma unroll
-      for (int fi = 0; fi < FB; ++fi) {
-        T* dst = slot(fi, 0, 0);
-#pragma unroll
-        for (int j = 0; j < NS0; ++j) {
-          const int c = tid + j * NT;
-          if (c < RC) dst[c] = v0[fi][j];
-        }
+      for (int j = 0; j < NS0; ++j) {
+        const int c = tid + j * NT;
+        if (c < RC) dst[c] = v0[j];
       }
     }
 #pragma unroll
@@ -458,65 +443,56 @@ __global__ void __launch_bounds__(NT)
       const int lq = t - 2 * h - 2;
       const int gx = wx ? wrapi(px0 + lq, n0) : px0 + lq;
       const int xs = side_bits(s, 0, gx);
+      const T* prv = slot(h, 2 * h + 3);
+      const T* cur = slot(h, 2 * h + 2);
+      const T* nxt = slot(h, 2 * h + 1);
+      T* dst = slot(h + 1, 2 * h + 2);
+      bool loaded = false;
 #pragma unroll
-      for (int fi = 0; fi < FB; ++fi) {
-        const T* prv = slot(fi, h, 2 * h + 3);
-        const T* cur = slot(fi, h, 2 * h + 2);
-        const T* nxt = slot(fi, h, 2 * h + 1);
-        T* dst = slot(fi, h + 1, 2 * h + 2);
-        bool loaded = false;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (gzp[e] < 0) continue;
-          const int idx = pidx + e;
-          T v = cur[idx];
-          if (upd[h] & (1 << e)) {
-            CCoef<T, FB> qe = q[h];
-            if (loaded)  // a second cell of the colour (an odd seam)
-              load_ccoef<T, FB>(qe, rhs, inv, aco, gx * plane + off[e],
-                                fcells, true);
-            loaded = true;
-            T lp = lphi_tile<T, RZ>(s, k, prv, cur, nxt, idx,
-                                    sides[e] | xs, v, alpha, qe.aco);
-            v = v + (qe.rhs[fi] - lp) * qe.inv;
-            dst[idx] = v;
-          } else if (!INPLACE) {
-            dst[idx] = v;
-          }
+      for (int e = 0; e < 2; ++e) {
+        if (gzp[e] < 0) continue;
+        const int idx = pidx + e;
+        T v = cur[idx];
+        if (upd[h] & (1 << e)) {
+          CCoef<T> qe = q[h];
+          if (loaded)  // a second cell of the colour (an odd seam)
+            load_ccoef<T>(qe, rhs, inv, aco, gx * plane + off[e], true);
+          loaded = true;
+          T lp = lphi_tile<T, RZ>(s, k, prv, cur, nxt, idx, sides[e] | xs, v,
+                                  alpha, qe.aco);
+          v = v + (qe.rhs - lp) * qe.inv;
+          dst[idx] = v;
+        } else if (!INPLACE) {
+          dst[idx] = v;
         }
       }
     }
     if (rcell) {
       const int gx = gxr, gy = y0 + ryy, gz = z0 + rzz;
       const int idx = (ryy + H) * RZ + rzz + H;
-      const int sd = side_bits(s, 0, gx) | side_bits(s, 1, gy) |
-                     side_bits(s, 2, gz);
-#pragma unroll
-      for (int fi = 0; fi < FB; ++fi) {
-        const T* cur = slot(fi, K, 2 * K + (RES ? 2 : 1));
-        const T v = cur[idx];
-        out[fi * fcells + rg] = v;
-        if (RES) {
-          const T* prv = slot(fi, K, 2 * K + 3);
-          const T* nxt = slot(fi, K, 2 * K + 1);
-          T r = qr.rhs[fi] - lphi_tile<T, RZ>(s, k, prv, cur, nxt, idx, sd,
-                                              v, alpha, qr.aco);
-          rb[(fi * 4 + (gx & 3)) * (TY * TZ) + tid] = r;
-          m = fmax(m, fabs(r));
-        }
+      const T* cur = slot(K, 2 * K + (RES ? 2 : 1));
+      const T v = cur[idx];
+      out[rg] = v;
+      if (RES) {
+        const int sd = side_bits(s, 0, gx) | side_bits(s, 1, gy) |
+                       side_bits(s, 2, gz);
+        T r = qr.rhs - lphi_tile<T, RZ>(s, k, slot(K, 2 * K + 3), cur,
+                                        slot(K, 2 * K + 1), idx, sd, v,
+                                        alpha, qr.aco);
+        rb[(gx & 3) * (TY * TZ) + tid] = r;
+        m = fmax(m, fabs(r));
       }
     }
     // the restriction of the pair whose odd plane's residual came a step ago
     const int gxc = gxr - 1;
     if (RES && lr - 1 >= 0 && gxc >= x0 && gxc < x1 && (gxc & 1)) {
       constexpr int cy = TY / 2, cz = TZ / 2;
-      for (int c = tid; c < FB * cy * cz; c += NT) {
-        const int fi = c / (cy * cz), cc = c % (cy * cz);
-        const int J = cc / cz, L = cc % cz;
+      const T* re = rb + ((gxc - 1) & 3) * (TY * TZ);  // even x plane
+      const T* ro = rb + (gxc & 3) * (TY * TZ);        // odd x plane
+      for (int c = tid; c < cy * cz; c += NT) {
+        const int J = c / cz, L = c % cz;
         const int gy = y0 / 2 + J, gz = z0 / 2 + L;
         if (gy >= nc1r || gz >= nc2r) continue;
-        const T* re = rb + (fi * 4 + ((gxc - 1) & 3)) * (TY * TZ);  // even x
-        const T* ro = rb + (fi * 4 + (gxc & 3)) * (TY * TZ);        // odd x
         const T* r0 = re + (2 * J) * TZ + 2 * L;
         const T* r1 = ro + (2 * J) * TZ + 2 * L;
         T ay[2];
@@ -526,8 +502,7 @@ __global__ void __launch_bounds__(NT)
           T ax1 = (T)0.5 * (r0[TZ + e] + r1[TZ + e]);
           ay[e] = (T)0.5 * (ax0 + ax1);
         }
-        crs[fi * fcrs + ((gxc / 2) * nc1r + gy) * nc2r + gz] =
-            (T)0.5 * (ay[0] + ay[1]);
+        crs[((gxc / 2) * nc1r + gy) * nc2r + gz] = (T)0.5 * (ay[0] + ay[1]);
       }
     }
     __syncthreads();
@@ -535,12 +510,11 @@ __global__ void __launch_bounds__(NT)
   if (RES) block_max_to<T>(rmax, m);
 }
 
-// The tile of a block of FB fields: float64 halves TY so that the rings
-// stay in shared memory, and a block of the whole batch (three fields)
-// halves it again.
-template <typename T, int FB>
+// The tile of a block: float64 halves TY so that the rings stay in shared
+// memory.
+template <typename T>
 struct ConstTile {
-  static constexpr int TY = (sizeof(T) == 4 ? 16 : 8) / (FB > 1 ? 2 : 1);
+  static constexpr int TY = sizeof(T) == 4 ? 16 : 8;
   static constexpr int TZ = 32;
   static constexpr int NT = 512;
 };
@@ -550,12 +524,12 @@ struct ConstTile {
 // one object across all the libraries that define it)
 namespace {
 
-template <typename T, int K, bool RES, int FB>
+template <typename T, int K, bool RES>
 int launch_const_fused(const CF& f0, const T* phi, const T* corr,
                        const T* rhs, const T* inv, const T* aco, T* out,
                        T* crs, T* rmax, cudaStream_t st) {
-  constexpr int TY = ConstTile<T, FB>::TY, TZ = ConstTile<T, FB>::TZ;
-  constexpr int NT = ConstTile<T, FB>::NT;
+  constexpr int TY = ConstTile<T>::TY, TZ = ConstTile<T>::TZ;
+  constexpr int NT = ConstTile<T>::NT;
   constexpr int H = K + (RES ? 1 : 0);
   constexpr int RY = TY + 2 * H, RZ = TZ + 2 * H;
   CF f = f0;
@@ -563,49 +537,35 @@ int launch_const_fused(const CF& f0, const T* phi, const T* corr,
   const int ty = (f.s.n[1] + TY - 1) / TY;
   f.tiles_z = (f.s.n[2] + TZ - 1) / TZ;
   const int tiles = ty * f.tiles_z;
-  const int groups = f.s.B / FB;
   // in place unless a periodic axis of odd extent puts two cells of one
   // colour side by side
   bool odd_seam = false;
   for (int d = 0; d < 3; ++d)
     odd_seam |= (f.s.ell[d][0] == BC_PER || f.s.ell[d][1] == BC_PER) &&
                 (f.s.n[d] & 1);
-  size_t bytes = ((size_t)FB * (odd_seam ? 4 * (K + 1) : 2 * K + 4) * RY *
-                      RZ +
-                  (size_t)FB * 4 * TY * TZ) * sizeof(T) +
-                 (RY + RZ) * sizeof(int);
-  auto kern = odd_seam
-                  ? const_fused_kernel<T, K, RES, FB, TY, TZ, NT, false>
-                  : const_fused_kernel<T, K, RES, FB, TY, TZ, NT, true>;
+  size_t bytes = ((size_t)(odd_seam ? 4 * (K + 1) : 2 * K + 4) * RY * RZ +
+                  4 * TY * TZ) * sizeof(T) + (RY + RZ) * sizeof(int);
+  auto kern = odd_seam ? const_fused_kernel<T, K, RES, TY, TZ, NT, false>
+                       : const_fused_kernel<T, K, RES, TY, TZ, NT, true>;
   static int cap[2][MAX_DEVICES] = {};  // [odd_seam]: one per kernel
   // a block takes its chunk, 2H warm-up planes and 2K+3 steps of fill
   const int chunks = pick_chunks(
-      n0, tiles * groups,
+      n0, tiles * f.s.B,
       resident_blocks_once(cap[odd_seam], kern, NT, bytes),
       2 * H + 2 * K + 3);
   f.chunk = (n0 + chunks - 1) / chunks;
   f.chunk += f.chunk & 1;
-  kern<<<dim3(tiles, chunks, groups), NT, bytes, st>>>(f, phi, corr, rhs, inv,
-                                                       aco, out, crs, rmax);
+  kern<<<dim3(tiles, chunks, f.s.B), NT, bytes, st>>>(f, phi, corr, rhs, inv,
+                                                      aco, out, crs, rmax);
   VT_CHECK();
   return 0;
-}
-
-template <typename T, bool RES, int FB>
-int launch_const_fused_ns(int ns, const CF& f, const T* phi, const T* corr,
-                          const T* rhs, const T* inv, const T* aco, T* out,
-                          T* crs, T* rmax, cudaStream_t st) {
-  return ns == 1 ? launch_const_fused<T, 2, RES, FB>(f, phi, corr, rhs, inv,
-                                                     aco, out, crs, rmax, st)
-                 : launch_const_fused<T, 4, RES, FB>(f, phi, corr, rhs, inv,
-                                                     aco, out, crs, rmax, st);
 }
 
 }  // namespace
 
 // ptrs: phi, rhs?, inv_diag?, aco?, out, tmp, corr?, crs, rmax
 // iv:   B n0 n1 n2 ell_bc[3][2] emit(0 sweep, 1 residual, 2 smooth,
-//       3 smooth_restrict) nsweeps(1|2) fac[3] whole_batch(0|1)
+//       3 smooth_restrict) nsweeps(1|2) fac[3]
 // dv:   coef[4] bvals[3][2]
 template <typename T>
 int gsrb_const_impl(void** ptrs, const long long* iv, const double* dv,
@@ -633,25 +593,16 @@ int gsrb_const_impl(void** ptrs, const long long* iv, const double* dv,
     const T* corr = (const T*)ptrs[6];
     T* crs = (T*)ptrs[7];
     T* rmax = (T*)ptrs[8];
-    const int ns = (int)iv[11];
-    // a block of the whole batch, where asked for; not at an odd periodic
-    // seam, whose rings of three fields would not fit in shared memory
-    bool odd_seam = false;
-    for (int d = 0; d < 3; ++d)
-      odd_seam |= (s.ell[d][0] == BC_PER || s.ell[d][1] == BC_PER) &&
-                  (s.n[d] & 1);
-    const bool whole = iv[15] != 0 && s.B == 3 && !odd_seam;
+    const bool one = iv[11] == 1;  // sweeps: 1, else 2
     if (emit == 2)
-      return whole ? launch_const_fused_ns<T, false, 3>(
-                         ns, f, phi, corr, rhs, inv, aco, out, crs, rmax, st)
-                   : launch_const_fused_ns<T, false, 1>(
-                         ns, f, phi, corr, rhs, inv, aco, out, crs, rmax, st);
-    return whole ? launch_const_fused_ns<T, true, 3>(ns, f, phi, corr, rhs,
-                                                     inv, aco, out, crs, rmax,
-                                                     st)
-                 : launch_const_fused_ns<T, true, 1>(ns, f, phi, corr, rhs,
-                                                     inv, aco, out, crs, rmax,
-                                                     st);
+      return one ? launch_const_fused<T, 2, false>(f, phi, corr, rhs, inv,
+                                                   aco, out, crs, rmax, st)
+                 : launch_const_fused<T, 4, false>(f, phi, corr, rhs, inv,
+                                                   aco, out, crs, rmax, st);
+    return one ? launch_const_fused<T, 2, true>(f, phi, corr, rhs, inv, aco,
+                                                out, crs, rmax, st)
+               : launch_const_fused<T, 4, true>(f, phi, corr, rhs, inv, aco,
+                                                out, crs, rmax, st);
   }
   // the wrapper bounds n0 and B by the grid's y and z limits (65535)
   dim3 grid(blocks_for((i64)s.n[1] * s.n[2], 256), s.n[0], s.B);

@@ -16,9 +16,8 @@
 // brick pass. Each block owns a brick of interior cells (8^3 in float32,
 // 4x8x8 in float64, two blocks an SM) and holds in dynamic shared memory
 // u on the brick with a 1-deep halo, the nine limited slopes there (formed
-// a component at a time from u with a 3-deep halo, staged where the hat
-// states go next), the hat states of the three components on each face
-// set, and the six
+// from u with a 3-deep halo, staged where the hat states go next), the hat
+// states of the three components on each face set, and the six
 // double-hat states, each tile exactly what the next stage reads; then it
 // forms the full MAC states of the faces it owns (its cells' lower faces,
 // and the domain's last face along each axis) and writes them. The force
@@ -46,8 +45,9 @@ struct VP {
 
 // The shared-memory plan of a brick of B0 x B1 x B2 cells, all of it known
 // at compile time:
-//   sbox       u of one component, what its slopes read: [-3, B+3) on
-//              every axis (held in the hat states' space, in turn)
+//   sbox       u, what the slopes read: [-3, B+3) on every axis (held in
+//              the space of the hat and double-hat states until the hat
+//              stage)
 //   cbox       u and the nine slopes: [-1, B+1) on every axis
 //   hbox(b)    hat states of the three components on b-faces: [0, B_b]
 //              along b, [-1, B] across
@@ -61,7 +61,7 @@ struct VP {
 // and every state the slopes and u on either side of its face.
 template <int B0, int B1, int B2, int MINB>
 struct VPlan {
-  static constexpr int NT = 256;
+  static constexpr int NT = 512;
   static constexpr int MINBLOCKS = MINB;
   __host__ __device__ static constexpr int B(int d) {
     return d == 0 ? B0 : (d == 1 ? B1 : B2);
@@ -186,50 +186,53 @@ __device__ __forceinline__ void tile_vel_lr(const VCtx<T>& x, const int* l,
   }
 }
 
-// u on the brick's cbox and the nine limited slopes there, a component at
-// a time: u of the component on the sbox ([-3, B+3), what its slopes read)
-// goes into the hat states' space, free until the hat stage, and its three
-// slopes are formed from there (slope.f90 via common.cuh's slope_at)
+// u on the brick's cbox and the nine limited slopes there: u on the sbox
+// ([-3, B+3), what the slopes read) goes into the space of the hat and
+// double-hat states, free until the hat stage, and the slopes are formed
+// from there (slope.f90 via common.cuh's slope_at)
 template <typename T, class G>
 __device__ __forceinline__ void load_stage(const VCtx<T>& x,
                                            const T* __restrict__ u) {
   constexpr Box cb = G::cbox(), sb = G::sbox();
   constexpr int ns = box_size(sb), nc = box_size(cb);
-  static_assert(box_size(sb) <= G::OD(0) - G::OH(0, 0),
-                "u on the sbox fits in the hat states' space");
+  static_assert(3 * ns <= G::ELEMS - G::OH(0, 0),
+                "u on the sbox fits in the hat and double-hat states' space");
   const VP& v = x.v;
   const Grid& g = v.g;
-  T* scr = x.sm + G::OH(0, 0);
+  T* scr = x.sm + G::OH(0, 0);  // [3][ns]
+  for (int i = threadIdx.x; i < ns; i += G::NT) {
+    int l[3];
+    bpoint(sb, i, l);
+    const i64 q = gat(g, x.o, l);
+    const bool in_c = l[0] >= -1 && l[0] <= G::B(0) && l[1] >= -1 &&
+                      l[1] <= G::B(1) && l[2] >= -1 && l[2] <= G::B(2);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const T* uc = u + c * g.N;
-    for (int i = threadIdx.x; i < ns; i += G::NT) {
-      int l[3];
-      bpoint(sb, i, l);
-      const T val = uc[gat(g, x.o, l)];
-      scr[i] = val;
-      if (l[0] >= -1 && l[0] <= G::B(0) && l[1] >= -1 && l[1] <= G::B(1) &&
-          l[2] >= -1 && l[2] <= G::B(2))
-        x.sm[G::OU(c) + bidx(cb, l)] = val;
+    for (int c = 0; c < 3; ++c) {
+      const T val = u[c * g.N + q];
+      scr[c * ns + i] = val;
+      if (in_c) x.sm[G::OU(c) + bidx(cb, l)] = val;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nc; i += G::NT) {
-      int l[3];
-      bpoint(cb, i, l);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nc; i += G::NT) {
+    int l[3];
+    bpoint(cb, i, l);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         auto S = [&](int mg) {
           int q[3] = {l[0], l[1], l[2]};
           q[a] = mg - g.ng - x.o[a];
-          return scr[bidx(sb, q)];
+          return scr[c * ns + bidx(sb, q)];
         };
         x.sm[G::OSL(a * 3 + c) + i] =
             slope_at<T>(S, g.ng + x.o[a] + l[a], g.ng, g.n[a],
                         v.bc.code[c][a][0], v.bc.code[c][a][1], v.order);
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 }
 
 // hat states of the three components on the Bx-faces
@@ -394,7 +397,9 @@ __global__ void __launch_bounds__(G::NT, G::MINBLOCKS)
 }
 
 // float32 bricks of 8^3 cells (98 KB of shared memory), float64 bricks
-// half as long in x (115 KB): two blocks an SM each
+// half as long in x (115 KB): two blocks of 512 threads an SM each, at most
+// 64 registers a thread (no spills; 256 threads a block took 1.2x as long
+// on an H100)
 typedef VPlan<8, 8, 8, 2> VPlanF32;
 typedef VPlan<4, 8, 8, 2> VPlanF64;
 

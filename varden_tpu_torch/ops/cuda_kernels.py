@@ -261,10 +261,6 @@ gsrb_var_sweep_3d.fused_launches = 0  # of them, the fused stages
 
 _CONST_EMITS = ("sweep", "residual", "smooth", "smooth_restrict")
 
-# kernel 5's fused stages take a block per field (False) or one block for
-# the three fields of a batch, sharing inv_diag and aco (True)
-CONST_WHOLE_BATCH = False
-
 
 def _colour_index(n, device):
     """The sum of the cell indices over a grid (red cells: even)."""
@@ -402,8 +398,8 @@ def _gsrb_const_launch(phi, rhs, inv_diag, coef, ell_bc, bvals, aco, emit,
                    iv + [_CONST_EMITS.index(emit)], dv, phi)
         gsrb_const_sweep_3d.launches += 2 if emit == "sweep" else 1
         return out
-    if shape[0] * n[0] * n[1] * n[2] >= 2 ** 31:
-        # the fused stages index a batch with 32-bit offsets
+    if n[0] * n[1] * n[2] >= 2 ** 31:
+        # the fused stages index a field with 32-bit offsets
         raise ValueError(f"gsrb_const_sweep_3d: {emit} takes fields of "
                          f"fewer than 2^31 cells, got {shape}")
     cfac = tuple(int(f) for f in cfac)
@@ -427,8 +423,8 @@ def _gsrb_const_launch(phi, rhs, inv_diag, coef, ell_bc, bvals, aco, emit,
         _cuda.call("gsrb_const", "gsrb_const3d",
                    [phi, rhs, inv_diag, aco, out, None, corr, crs, rmax],
                    iv + [_CONST_EMITS.index("smooth_restrict" if last
-                                            else "smooth"), k, *cfac,
-                         int(CONST_WHOLE_BATCH)], dv, phi)
+                                            else "smooth"), k, *cfac],
+                   dv, phi)
         gsrb_const_sweep_3d.launches += 1
         gsrb_const_sweep_3d.fused_launches += 1
         phi, corr = out, None

@@ -16,7 +16,10 @@ in x the sweeps take gsrb_sweep_3d on a ghost-padded phi instead, as
 varden_tpu's do on its accelerator), gsrb_const_sweep_3d where
 beta is one number per axis (the viscous and diffusive Helmholtz solves,
 whose right-hand side may carry a leading batch axis, and the explicit
-Laplacian). In 2-D the face-tensor operator runs through gsrb_sweep_2d
+Laplacian: a V-cycle's visit of a level of at most CONST_FUSED_MAX_CELLS
+cells is two of its fused passes, as for the face-tensor operator; larger
+levels, the Helmholtz fast path and the bottom keep its single passes). In
+2-D the face-tensor operator runs through gsrb_sweep_2d
 (sweeps and residuals; the restriction is the plain cell average), and the
 one-number-per-axis operator runs as plain tensor code, as it does in
 varden_tpu, which has no 2-D kernel for it: masked red-black sweeps inside
@@ -350,21 +353,23 @@ def _fused_route(level: CCLevel, phi) -> bool:
             and not _padded_route(level, phi))
 
 
-# The largest level, in cells, whose constant-coefficient smoothing runs
-# through kernel 5's fused stages. Measured on an H100 (PERF.md, PR 8): up
-# to 64^3 cells a level visit through the fused stages is 2.6-4x faster
-# than the single passes, which are launch-bound there; above, the fused
-# stages run at about the single passes' speed (0.8-1.3x) and the fast
-# path's sweeps slower, so the single passes stay. The rule reads the
-# level's extents only, never the device or the dtype, so on the CPU both
-# routes compute the same plain composition.
+# The largest level, in cells, whose V-cycle visits run through kernel 5's
+# fused stages. Measured on an H100 (PERF.md, PR 8): up to 64^3 cells a
+# level visit through the fused stages is 2.6-4x faster than the single
+# passes, which are launch-bound there; above, the fused stages run at
+# about the single passes' speed (0.8-1.3x), so the single passes stay.
+# mg.gsrb (the Helmholtz fast path, which smooths a solve's finest level,
+# 128^3 and more on the 3-D paths) keeps the single passes: a fused sweep
+# there is slower. The rule reads the level's extents only, never the
+# device or the dtype, so on the CPU both routes compute the same plain
+# composition.
 CONST_FUSED_MAX_CELLS = 64 ** 3
 
 
 def _const_fused_route(level: CCLevel) -> bool:
-    """Whether the level smooths through kernel 5's fused stages: a 3-D
-    scalar-beta level of at most CONST_FUSED_MAX_CELLS cells, with or
-    without a batch axis."""
+    """Whether a V-cycle's visit of the level runs through kernel 5's fused
+    stages: a 3-D scalar-beta level of at most CONST_FUSED_MAX_CELLS cells,
+    with or without a batch axis."""
     return (level.dm == 3 and _scalar_beta(level.beta)
             and math.prod(level.n) <= CONST_FUSED_MAX_CELLS)
 
@@ -408,9 +413,6 @@ def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
         for _ in range(nsweeps):
             phi = _var_sweep(level, phi, rhs, bvals, "sweep")
         return phi
-    if _const_fused_route(level):
-        return _const_sweep(level, phi, rhs, bvals, "smooth",
-                            nsweeps=nsweeps)
     if level.dm == 3:
         for _ in range(nsweeps):
             phi = _const_sweep(level, phi, rhs, bvals, "sweep")
