@@ -936,8 +936,9 @@ def const_cases(torch, dtype_name, n, B):
     density in [1, 10], Dirichlet on every face at the 256^3 base and a
     coarse level, the coarse-fine ghost code (3) on config 5's finer
     patches; each beside the single passes that a V-cycle's level visit
-    called instead (two-launch sweeps, the residual, the plain restriction
-    and max|r|; the plain prolongation and add, then the sweeps)."""
+    calls instead above mg.CONST_FUSED_MAX_CELLS (the sweeps, the residual,
+    the plain restriction and max|r|; the plain prolongation and add, then
+    the sweeps)."""
     from varden_tpu_torch.ops import cuda_kernels as ck
     from varden_tpu_torch.solvers import mg
     nsw = ck.FUSED_SWEEPS
@@ -1726,8 +1727,8 @@ def viscous_report(per_step):
     """How the viscous solve ran on a main path, per step: gamma, the
     V-cycles it took, its residual over its tolerance, and (3-D; in 2-D it
     runs on plain tensor code and the count is 0) the launches of the
-    constant-coefficient kernel (lap(u) 1, each residual 1, each sweep 2,
-    on every level)."""
+    constant-coefficient kernel (lap(u) 1, each residual 1, each sweep 1,
+    each fused stage 1, on every level)."""
     keys = ("gamma", "visc_cycles", "visc_ratio")
     out = {k: [rec[k] for rec in per_step] for k in keys}
     out["launches"] = [rec["launches"]["gsrb_const_sweep_3d"]
