@@ -1727,7 +1727,7 @@ def viscous_report(per_step):
     """How the viscous solve ran on a main path, per step: gamma, the
     V-cycles it took, its residual over its tolerance, and (3-D; in 2-D it
     runs on plain tensor code and the count is 0) the launches of the
-    constant-coefficient kernel (lap(u) 1, each residual 1, each sweep 1,
+    constant-coefficient kernel (lap(u) 1, each residual 1, each sweep 2,
     each fused stage 1, on every level)."""
     keys = ("gamma", "visc_cycles", "visc_ratio")
     out = {k: [rec[k] for rec in per_step] for k in keys}

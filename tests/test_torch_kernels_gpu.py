@@ -296,11 +296,7 @@ def test_gsrb_const_kernel(cuda, dtype, B, n, ell_bc):
         torch.cuda.synchronize()
         ref = k.gsrb_const_sweep_3d_plain(*args, aco=a, emit=emit)
         _close(out, ref, dtype, f"gsrb_const {emit} n={n} B={B}")
-    # a sweep is one launch, two (a colour each) at a periodic seam of odd
-    # extent; a residual one
-    odd_seam = any(0 in ell_bc[d] and n[d] % 2 for d in range(3))
-    sweep = 2 if odd_seam else 1
-    assert k.gsrb_const_sweep_3d.launches == before + sweep + 2
+    assert k.gsrb_const_sweep_3d.launches == before + 4
     with pytest.raises(ValueError, match="contiguous"):
         k.gsrb_const_sweep_3d(phi.transpose(2, 3), rhs, lev.inv_diag, coef,
                               ell_bc, bv, aco=aco)

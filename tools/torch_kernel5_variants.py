@@ -26,10 +26,10 @@ warm-up) of `smooth_restrict` and of `smooth` with a coarse correction
 (two sweeps each, as the V-cycles call them), of one fast-path sweep (a
 40-sweep `smooth`, divided by 40), each output's error against the plain
 version (relative to its largest value), and for `source` the single
-passes that the two stages replace (`old_visit_ms`: two sweeps, the
-residual, the plain restriction and max|r|, the plain prolongation and
-add, two sweeps), one sweep (`old_sweep_ms`, its error in `sweep_errs`)
-and one sweep as two colour passes (`colour_sweep_ms`).
+passes that the two stages replace (`old_visit_ms`: two two-launch
+sweeps, the residual, the plain restriction and max|r|, the plain
+prolongation and add, two sweeps) and one two-launch sweep
+(`old_sweep_ms`).
 """
 import argparse
 import ctypes
@@ -169,28 +169,10 @@ def main():
                         row["old_sweep_ms"] = cs.cuda_ms(
                             torch, lambda: ck.gsrb_const_sweep_3d(*g, **kw),
                             args.reps)
-                        row["colour_sweep_ms"] = cs.cuda_ms(
-                            torch, lambda: colour_sweep(g, kw), args.reps)
-                        row["sweep_errs"] = errs(
-                            ck.gsrb_const_sweep_3d(*g, **kw),
-                            ck.gsrb_const_sweep_3d_plain(*g, **kw))
                     print(json.dumps(row), flush=True)
                 del g, kw, corr, refs
                 torch.cuda.empty_cache()
     return 0
-
-
-def colour_sweep(g, kw):
-    """One sweep as two colour passes (the library takes them when given a
-    temporary for the red pass)."""
-    phi, rhs, inv, coef, ell, bv = g
-    out, tmp = torch.empty_like(phi), torch.empty_like(phi)
-    iv = [*phi.shape] + [int(ell[d][s]) for d in range(3) for s in range(2)]
-    dv = [float(c) for c in coef] + [float(bv[d][s]) for d in range(3)
-                                     for s in range(2)]
-    _cuda.call("gsrb_const", "gsrb_const3d",
-               [phi, rhs, inv, kw["aco"], out, tmp], iv + [0], dv, phi)
-    return out
 
 
 def old_visit(g, kw, corr):

@@ -510,105 +510,6 @@ __global__ void __launch_bounds__(NT)
   if (RES) block_max_to<T>(rmax, m);
 }
 
-// One exact red-black sweep in one launch: a block owns a BX x BY x BZ
-// tile of one field (blockIdx.x: tile, then field), loads phi on the tile
-// and a two-cell halo into shared memory, updates in place the red cells
-// of the tile and a one-cell halo (from the old black values), then the
-// black cells of the tile (from the new red ones), and writes the tile. A
-// thread takes a pair of z-neighbours at a time and updates the one of the
-// colour: the colour passes' arithmetic, with the red halo recomputed by
-// the neighbouring tiles instead of read back from device memory, so a
-// sweep reads and writes each field once. Not at a periodic seam of odd
-// extent (two cells of one colour meet there): the colour passes take
-// those levels.
-template <typename T, int BX, int BY, int BZ, int NT>
-__global__ void __launch_bounds__(NT)
-    sweep_tile_kernel(GC s, int ntz, int nty, int ntx,
-                      const T* __restrict__ phi, const T* __restrict__ rhs,
-                      const T* __restrict__ inv, const T* __restrict__ aco,
-                      T* __restrict__ out) {
-  constexpr int SX = BX + 4, SY = BY + 4, SZ = BZ + 4, SP = SY * SZ;
-  constexpr int SN = SX * SP;
-  static_assert(BZ % 2 == 0, "pairs of z-neighbours");
-  __shared__ T box[SN];
-  __shared__ int gt[SX + SY + SZ];  // global x, y, z of the box's rows
-  const int tid = threadIdx.x;
-  int b = blockIdx.x;
-  const int tz = b % ntz;
-  b /= ntz;
-  const int ty = b % nty;
-  b /= nty;
-  const int tx = b % ntx;
-  const i64 fld = b / ntx;
-  const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
-  const int plane = n1 * n2;
-  phi += fld * n0 * plane;
-  rhs += fld * n0 * plane;
-  out += fld * n0 * plane;
-  const int o[3] = {tx * BX - 2, ty * BY - 2, tz * BZ - 2};
-  for (int c = tid; c < SX + SY + SZ; c += NT) {
-    const int d = c < SX ? 0 : (c < SX + SY ? 1 : 2);
-    const int g = o[d] + c - (d == 0 ? 0 : (d == 1 ? SX : SX + SY));
-    const bool per = s.ell[d][0] == BC_PER || s.ell[d][1] == BC_PER;
-    gt[c] = per ? wrapi(g, s.n[d]) : (g >= 0 && g < s.n[d] ? g : -1);
-  }
-  __syncthreads();
-  const int* gxt = gt;
-  const int* gyt = gt + SX;
-  const int* gzt = gt + SX + SY;
-  for (int i = tid; i < SN; i += NT) {
-    const int a = i / SP, r = i % SP;
-    const int gx = gxt[a], gy = gyt[r / SZ], gz = gzt[r % SZ];
-    box[i] = (gx | gy | gz) >= 0 ? phi[gx * plane + gy * n2 + gz] : (T)0;
-  }
-  __syncthreads();
-  CK<T> k;
-  for (int d = 0; d < 3; ++d) {
-    k.c[d] = (T)s.coef[d];
-    k.fv[d][0] = (T)((8.0 / 3.0) * s.bval[d][0]);
-    k.fv[d][1] = (T)((8.0 / 3.0) * s.bval[d][1]);
-  }
-  k.c[3] = (T)s.coef[3];
-  const bool alpha = aco != nullptr;
-  // colour c's cells among the pairs of the region [lo, lo + e) (box
-  // coordinates; e[2] even), updated in place
-  auto half = [&](int colour, int lo, int ex, int ey, int ez) {
-    const int pairs = ex * ey * (ez / 2);
-    for (int p = tid; p < pairs; p += NT) {
-      const int a = lo + p / (ey * (ez / 2));
-      const int q = p % (ey * (ez / 2));
-      const int by = lo + q / (ez / 2), bz0 = lo + 2 * (q % (ez / 2));
-      const int gx = gxt[a], gy = gyt[by];
-      if ((gx | gy) < 0) continue;
-      const int gz0 = gzt[bz0];
-      const int e = (((gx + gy + (gz0 < 0 ? gzt[bz0 + 1] + 1 : gz0)) & 1) ==
-                     colour) ? 0 : 1;
-      const int bz = bz0 + e, gz = gzt[bz];
-      if (gz < 0) continue;
-      const int idx = by * SZ + bz;
-      T* cur = box + a * SP;
-      const T v = cur[idx];
-      const int g = gx * plane + gy * n2 + gz;
-      const T lp = lphi_tile<T, SZ>(
-          s, k, cur - SP, cur, cur + SP, idx,
-          side_bits(s, 0, gx) | side_bits(s, 1, gy) | side_bits(s, 2, gz), v,
-          alpha, alpha ? aco[g] : (T)0);
-      cur[idx] = v + (rhs[g] - lp) * inv[g];
-    }
-  };
-  half(0, 1, BX + 2, BY + 2, BZ + 2);
-  __syncthreads();
-  half(1, 2, BX, BY, BZ);
-  __syncthreads();
-  for (int i = tid; i < BX * BY * BZ; i += NT) {
-    const int a = 2 + i / (BY * BZ), r = i % (BY * BZ);
-    const int by = 2 + r / BZ, bz = 2 + r % BZ;
-    const int gx = o[0] + a, gy = o[1] + by, gz = o[2] + bz;
-    if (gx >= n0 || gy >= n1 || gz >= n2) continue;
-    out[gx * plane + gy * n2 + gz] = box[a * SP + by * SZ + bz];
-  }
-}
-
 // The tile of a block: float64 halves TY so that the rings stay in shared
 // memory.
 template <typename T>
@@ -705,17 +606,7 @@ int gsrb_const_impl(void** ptrs, const long long* iv, const double* dv,
   }
   // the wrapper bounds n0 and B by the grid's y and z limits (65535)
   dim3 grid(blocks_for((i64)s.n[1] * s.n[2], 256), s.n[0], s.B);
-  if (emit == 0 && ptrs[5] == nullptr) {
-    // one launch, tiles of 4 x 8 x 32 cells (the wrapper passes no tmp
-    // where no periodic seam of odd extent is)
-    constexpr int BX = 4, BY = 8, BZ = 32;
-    const int ntx = (s.n[0] + BX - 1) / BX, nty = (s.n[1] + BY - 1) / BY,
-              ntz = (s.n[2] + BZ - 1) / BZ;
-    const unsigned blocks = (unsigned)((i64)ntx * nty * ntz * s.B);
-    sweep_tile_kernel<T, BX, BY, BZ, 256><<<blocks, 256, 0, st>>>(
-        s, ntz, nty, ntx, phi, rhs, inv, aco, out);
-    VT_CHECK();
-  } else if (emit == 0) {
+  if (emit == 0) {
     T* tmp = (T*)ptrs[5];
     gsrb_const_colour_kernel<T><<<grid, 256, 0, st>>>(s, phi, rhs, inv, aco,
                                                       tmp, 0);

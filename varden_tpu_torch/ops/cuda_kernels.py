@@ -345,9 +345,8 @@ def gsrb_const_sweep_3d(phi, rhs, inv_diag, coef, ell_bc, bvals, aco=None,
     n2), shared over the batch; coef: [beta/dx0^2, beta/dx1^2, beta/dx2^2,
     alpha] as host numbers. aco None drops the alpha term. rhs None means
     zero (residual only); inv_diag is read by the sweeps only. On the card
-    "sweep" and "residual" are one launch each ("sweep" two, one a colour,
-    where a periodic axis has an odd extent), and a fused emit one launch
-    for every FUSED_SWEEPS sweeps."""
+    "sweep" is two launches (one a colour), "residual" one, and a fused
+    emit one launch for every FUSED_SWEEPS sweeps."""
     if emit not in _CONST_EMITS:
         raise ValueError(f"bad emit {emit!r}")
     _check_nsweeps(emit, nsweeps)
@@ -392,17 +391,12 @@ def _gsrb_const_launch(phi, rhs, inv_diag, coef, ell_bc, bvals, aco, emit,
     dv = [float(c) for c in coef]
     dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
     if not fused:
-        # a sweep is one launch (a tile and its halo a block), or, where a
-        # periodic axis of odd extent puts two cells of one colour side by
-        # side, two (a colour each, through tmp)
-        odd_seam = any(_BC_PER in ell_bc[d] and n[d] % 2 for d in range(3))
-        two = emit == "sweep" and odd_seam
-        tmp = torch.empty(shape, **kw) if two else None
+        tmp = torch.empty(shape, **kw) if emit == "sweep" else None
         out = torch.empty(shape, **kw)
         _cuda.call("gsrb_const", "gsrb_const3d",
                    [phi, rhs, inv_diag, aco, out, tmp],
                    iv + [_CONST_EMITS.index(emit)], dv, phi)
-        gsrb_const_sweep_3d.launches += 2 if two else 1
+        gsrb_const_sweep_3d.launches += 2 if emit == "sweep" else 1
         return out
     if n[0] * n[1] * n[2] >= 2 ** 31:
         # the fused stages index a field with 32-bit offsets
