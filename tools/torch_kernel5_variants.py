@@ -25,11 +25,11 @@ dtype, size and B: device ms (CUDA events, mean of --reps launches after a
 warm-up) of `smooth_restrict` and of `smooth` with a coarse correction
 (two sweeps each, as the V-cycles call them), of one fast-path sweep (a
 40-sweep `smooth`, divided by 40), each output's error against the plain
-version (relative to its largest value), and for `source` the single
-passes that the two stages replace (`old_visit_ms`: two two-launch
-sweeps, the residual, the plain restriction and max|r|, the plain
-prolongation and add, two sweeps) and one two-launch sweep
-(`old_sweep_ms`).
+version (relative to its largest value), the single passes that the two
+stages replace (`old_visit_ms`: two two-launch sweeps, the residual, the
+plain restriction and max|r|, the plain prolongation and add, two
+sweeps) and one two-launch sweep (`old_sweep_ms`, its error against the
+plain version in `sweep_errs`).
 """
 import argparse
 import ctypes
@@ -163,12 +163,14 @@ def main():
                         torch, lambda: ck.gsrb_const_sweep_3d(
                             *g, emit="smooth", nsweeps=40, **kw),
                         max(1, args.reps // 4)) / 40
-                    if name == "source":
-                        row["old_visit_ms"] = cs.cuda_ms(
-                            torch, lambda: old_visit(g, kw, corr), args.reps)
-                        row["old_sweep_ms"] = cs.cuda_ms(
-                            torch, lambda: ck.gsrb_const_sweep_3d(*g, **kw),
-                            args.reps)
+                    row["old_visit_ms"] = cs.cuda_ms(
+                        torch, lambda: old_visit(g, kw, corr), args.reps)
+                    row["old_sweep_ms"] = cs.cuda_ms(
+                        torch, lambda: ck.gsrb_const_sweep_3d(*g, **kw),
+                        args.reps)
+                    row["sweep_errs"] = errs(
+                        ck.gsrb_const_sweep_3d(*g, **kw),
+                        ck.gsrb_const_sweep_3d_plain(*g, **kw))
                     print(json.dumps(row), flush=True)
                 del g, kw, corr, refs
                 torch.cuda.empty_cache()
