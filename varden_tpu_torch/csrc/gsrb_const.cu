@@ -34,11 +34,12 @@
 // planes, so blocks never exchange data and periodic axes simply wrap. A
 // thread issues all of a plane step's global loads before its work. The
 // plane steps' latency and instruction issue, not the bytes, bound them: on
-// an H100 a fused level visit is 2.6-4x faster than the single passes up
-// to 64^3 cells, where those are launch-bound, and runs at about their
-// speed above (0.8-1.3x), so mg.py routes only the small levels through
-// them. One block for the three fields of a batch, sharing inv_diag and
-// aco, measured 1.1-2x slower than a block per field and was dropped.
+// an H100 a fused level visit is 2.3-5.3x faster than the single passes up
+// to 64^3 cells, where those are launch-bound, and from 240^3 on slower
+// (the single passes take 0.56-0.96 of its time), so mg.py routes only the
+// small levels through them. One block for the three fields of a batch,
+// sharing inv_diag and aco, measured 1.3-1.8x slower than a block per
+// field and was dropped.
 #include "common.cuh"
 
 namespace vt {

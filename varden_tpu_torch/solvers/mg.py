@@ -354,10 +354,12 @@ def _fused_route(level: CCLevel, phi) -> bool:
 
 
 # The largest level, in cells, whose V-cycle visits run through kernel 5's
-# fused stages. Measured on an H100 (PERF.md, PR 8): up to 64^3 cells a
-# level visit through the fused stages is 2.6-4x faster than the single
-# passes, which are launch-bound there; above, the fused stages run at
-# about the single passes' speed (0.8-1.3x), so the single passes stay.
+# fused stages. Measured on an H100 (PERF.md, kernel table): up to 64^3
+# cells a level visit through the fused stages is 2.3-5.3x faster than the
+# single passes, which are launch-bound there, in both dtypes and batches;
+# above, it is faster in some cases and slower in others, and from 240^3
+# on slower (the single passes take 0.56-0.96 of its time), so the
+# single passes stay.
 # mg.gsrb (the Helmholtz fast path, which smooths a solve's finest level,
 # 128^3 and more on the 3-D paths) keeps the single passes: a fused sweep
 # there is slower. The rule reads the level's extents only, never the
