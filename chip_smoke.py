@@ -15,9 +15,10 @@ Phases, each of which asserts and any failure of which exits non-zero:
      128^3 and 256^3 with config 4's boundaries for the padded sweep,
      beside kernel 3's sweep and the ghost pad at the same shapes, the
      fused V-cycle stages of kernels 3 and 4 at 256^3 and config 5's
-     240^3 and 384^3 and kernel 5's at CONST_FUSED_SHAPES, beside the
-     old single emits they replace, and kernel 1 at config 5's three
-     level shapes), in float32 and again in float64: max abs error of
+     240^3 and 384^3 and kernel 5's at CONST_FUSED_SHAPES, kernel 8's at
+     4096^2, 512^2 and 64^2 (GSRB2D_FUSED_SHAPES), each beside the old
+     single emits they replace, and kernel 1 at config 5's three level
+     shapes), in float32 and again in float64: max abs error of
      each output against the stated tolerance times its own largest
      value, the kernel's time (CUDA events), the plain version's time and
      the bound (bytes or operations, the operations counted by hand from
@@ -42,8 +43,9 @@ Phases, each of which asserts and any failure of which exits non-zero:
      geometry (walls on four sides, cflfac 0.9) at 4096^2 with nu dt / dx^2
      held at that configuration's 0.59 (see VISC_2D), float32, initial
      projection, one pressure iteration and STEPS steps, the gates of
-     phase 4, the three 2-D kernels launched and the 3-D ones not; then the
-     same path in float64 for STEPS_SHORT steps with float32 held to it;
+     phase 4, the three 2-D kernels launched (kernel 8 through its fused
+     stages too) and the 3-D ones not; then the same path in float64 for
+     STEPS_SHORT steps with float32 held to it;
   9. the published 2-D configurations as they are, STEPS steps each with
      the same gates: the inviscid bubble at 64^2 and the viscous one
      (visc_coef 1e-3) at 128^2, the sizes they are published with, and the
@@ -72,7 +74,8 @@ Phases, each of which asserts and any failure of which exits non-zero:
  12. regrids in the loop: inputs/inputs_3d-regt (64^3, 3 levels, regrid
      every 2 steps) for 4 steps, float32, and BASELINE config 3 (2-D 64^2,
      2 levels, regrid every 4) for 6 steps, each with at least one regrid
-     and the gates of phase 11;
+     and the gates of phase 11 (config 3: the 2-D kernels, kernel 8
+     through its fused stages too);
  13. BASELINE config 4's geometry (3-D Rayleigh-Taylor, periodic in x and
      y, no-slip walls in z) at 32^3 in float64: Varden.run for STEPS_SHORT
      steps on the card against the plain path on the CPU, every field;
@@ -421,6 +424,17 @@ def gsrb2d_ops(emit, use_alpha):
     subtract and the 1/dx^2 scale (6), one add and the sign (14); the alpha
     term 3; rhs - L 1; the sweep adds * inv_diag and + phi."""
     return 15 + (3 if use_alpha else 0) + (2 if emit == "sweep" else 0)
+
+
+def gsrb2d_fused_ops(case, nsweeps):
+    """Kernel 8's fused stages per fine cell: the sweeps, then the residual
+    with |r| and max and the restriction (3 adds and 3 halvings per coarse
+    cell) (smooth_restrict); or the prolongation's add, then the sweeps
+    (smooth+corr)."""
+    sweeps = nsweeps * gsrb2d_ops("sweep", False)
+    if case == "smooth_restrict":
+        return sweeps + gsrb2d_ops("residual", False) + 2 + 6 / 4
+    return 1 + sweeps
 
 
 def update_ops(cons, force):
@@ -991,6 +1005,81 @@ def const_cases(torch, dtype_name, n, B):
     ]
 
 
+def gsrb2d_fused_cases(torch, dtype_name, n, ell):
+    """Kernel 8's fused stages (ck.FUSED_SWEEPS sweeps, as the V-cycles call
+    them) at n^2: the MAC operator of a seeded density in [1, 2] with the
+    BC codes ``ell`` (Dirichlet values where the code is 2), each beside
+    the single passes that a V-cycle's level visit called before (two
+    two-launch sweeps, the residual, the plain restriction and max|r|; the
+    plain prolongation and add, two sweeps)."""
+    from varden_tpu_torch.ops import cuda_kernels as ck
+    from varden_tpu_torch.solvers import mg
+    nsw = ck.FUSED_SWEEPS
+    dev, dt_ = torch.device("cuda"), getattr(torch, dtype_name)
+    N = (n, n)
+    dx = (1.0 / n,) * 2
+    rho = 1.5 + 0.5 * smooth(torch, N, 80, 1.0, dev, dt_, dm=2)
+    beta = []
+    for d in range(2):
+        lo = [slice(None)] * 2
+        hi = [slice(None)] * 2
+        lo[d], hi[d] = slice(0, 1), slice(n - 1, n)
+        q = torch.cat([rho[tuple(lo)], rho, rho[tuple(hi)]], dim=d)
+        beta.append((2.0 / (q.narrow(d, 0, n + 1)
+                            + q.narrow(d, 1, n + 1))).contiguous())
+    del rho
+    lev = mg.make_level(N, dx, ell, torch.zeros(N, dtype=dt_, device=dev),
+                        tuple(beta), 0.0)
+    bv = [[0.3 if c == 2 else 0.0 for c in side] for side in ell]
+    phi = smooth(torch, N, 81, 0.5, dev, dt_, dm=2)
+    rhs = smooth(torch, N, 82, 50.0, dev, dt_, dm=2)
+    corr = smooth(torch, (n // 2,) * 2, 83, 0.1, dev, dt_, dm=2)
+    g = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell, bv)
+    fb = 4 * nbytes([phi]) + nbytes(beta)  # phi, rhs, inv_diag in, phi out
+    cells = n * n
+    tag = f"{n}^2"
+
+    def sweeps(p):
+        for _ in range(nsw):
+            p = ck.gsrb_sweep_2d(p, *g[1:])
+        return p
+
+    def old_restrict():
+        p = sweeps(phi)
+        r = ck.gsrb_sweep_2d(p, *g[1:], emit="residual")
+        return p, mg._cell_avg_down(r, 2), r.abs().max()
+
+    return [
+        ("gsrb_sweep_2d", f"smooth_restrict {tag}",
+         (lambda: ck.gsrb_sweep_2d(*g, emit="smooth_restrict", nsweeps=nsw)),
+         (lambda: ck.gsrb_sweep_2d_plain(*g, emit="smooth_restrict",
+                                         nsweeps=nsw)),
+         fb + nbytes([phi]) // 4, gsrb2d_fused_ops("smooth_restrict", nsw)
+         * cells, old_restrict),
+        ("gsrb_sweep_2d", f"smooth+corr {tag}",
+         (lambda: ck.gsrb_sweep_2d(*g, emit="smooth", nsweeps=nsw,
+                                   corr=corr)),
+         (lambda: ck.gsrb_sweep_2d_plain(*g, emit="smooth", nsweeps=nsw,
+                                         corr=corr)),
+         fb + nbytes([corr]), gsrb2d_fused_ops("smooth+corr", nsw) * cells,
+         (lambda: sweeps(phi + ck.cell_prolong(corr, (2, 2))))),
+    ]
+
+
+# kernel 8's fused stages in phase 2: the 2-D main path's finest level with
+# its Neumann walls, a level of its hierarchy periodic in x with Dirichlet
+# values in y, and a coarse-fine (ghost) level of config 3's size
+GSRB2D_FUSED_SHAPES = ((N_2D, [(1, 1), (1, 1)]), (512, [(0, 0), (2, 2)]),
+                       (64, [(3, 3), (3, 3)]))
+
+
+def kernel_cases_gsrb2d_fused(torch, dtype_name):
+    cases = []
+    for n, ell in GSRB2D_FUSED_SHAPES:
+        cases += gsrb2d_fused_cases(torch, dtype_name, n, ell)
+    return cases
+
+
 # kernel 5's fused stages in phase 2: (n, B) at the base, config 5's finer
 # patches and a coarse level of the viscous hierarchies
 CONST_FUSED_SHAPES = ((256, 3), (256, 1), (240, 3), (384, 3), (64, 3))
@@ -1301,14 +1390,16 @@ def counters():
             "gsrb_sweep_3d": ck.gsrb_sweep_3d}
 
 
-# kernels 3, 4 and 5 count the launches of their fused V-cycle stages
+# kernels 3, 4, 5 and 8 count the launches of their fused V-cycle stages
 # apart (key "<name>:fused"): a 3-D path's V-cycles smooth through them,
 # except on config 4's MAC levels, which are periodic in x and take the
 # padded sweep (kernel 7), with kernel 3's single restrict emit. Kernel 5's
 # fused stages take the viscous solves' levels of at most
 # mg.CONST_FUSED_MAX_CELLS cells, and every V-cycle of a 3-D path's viscous
-# solve visits such levels (its hierarchy coarsens to 8^3)
-FUSED = ("gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
+# solve visits such levels (its hierarchy coarsens to 8^3). A 2-D path's
+# MAC V-cycles smooth through kernel 8's
+FUSED_3D = ("gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
+FUSED = FUSED_3D + ("gsrb_sweep_2d",)
 FUSED_RT = ("nodal_sweep_3d", "gsrb_const_sweep_3d")
 
 
@@ -1834,7 +1925,7 @@ def main(argv=None) -> int:
     rows32, rows64 = [], []
     for cases_fn in (kernel_cases, kernel_cases_2d, kernel_cases_amr,
                      kernel_cases_rt, kernel_cases_smoothers,
-                     kernel_cases_velpred):
+                     kernel_cases_velpred, kernel_cases_gsrb2d_fused):
         rows32 += phase_kernels(torch, "float32", REPS, cases_fn)
         rows64 += phase_kernels(torch, "float64", max(2, REPS // 4), cases_fn)
         torch.cuda.empty_cache()
@@ -1999,7 +2090,8 @@ def main(argv=None) -> int:
                  "mkflux_update_3d_fused": "velocity",
                  "gsrb_var_sweep_3d": "smooth_restrict 256^3",
                  "nodal_sweep_3d": "smooth_restrict 256^3",
-                 "gsrb_const_sweep_3d": "sweep B3", "gsrb_sweep_2d": "sweep",
+                 "gsrb_const_sweep_3d": "sweep B3",
+                 "gsrb_sweep_2d": f"smooth_restrict {N_2D}^2",
                  "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
                  "update_3d": "nc2 [T,F] 384x384x384",
                  "mkflux_3d_fused": "scalars 384x384x384",
@@ -2083,9 +2175,23 @@ def main(argv=None) -> int:
               "(of them the fused stages) "
               + ", ".join(f"{k} {[r['launches'][k] for r in steady]} "
                           f"({[r['launches'][k + ':fused'] for r in steady]})"
-                          for k in FUSED)
+                          for k in FUSED_3D)
               + "; kernel 1 velpred_3d_fused "
               f"{[r['launches']['velpred_3d_fused'] for r in steady]}",
+              flush=True)
+    runs_2d = [("2-D main path (phase 8)", per_step2)]
+    runs_2d += [(f"published 2-D {key} (phase 9)", r["steps"])
+                for key, r in small.items()]
+    runs_2d.append(("AMR config 3 (phase 12)",
+                    regrid_runs["config 3"]["steps"]))
+    for tag, ps in runs_2d:
+        steady = ps[1:] or ps
+        print(f"summary {tag}: kernels 8, 9 and 10, launches per steady step"
+              " gsrb_sweep_2d "
+              f"{[r['launches']['gsrb_sweep_2d'] for r in steady]} (fused "
+              f"{[r['launches']['gsrb_sweep_2d:fused'] for r in steady]}), "
+              + ", ".join(f"{k} {[r['launches'][k] for r in steady]}"
+                          for k in ("velpred_2d_fused", "mkflux_2d_fused")),
               flush=True)
     print(f"summary config 4 main path (phase 14): peak device memory "
           f"{peak_rt} bytes; density min/max by step "

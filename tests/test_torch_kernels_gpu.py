@@ -526,12 +526,45 @@ def test_mkflux_2d_kernel(cuda, bc, n, is_vel, use_minion, sources, dtype):
     before = cuda_godunov.mkflux_2d_fused.launches
     out = cuda_godunov.mkflux_2d_fused(*args)
     torch.cuda.synchronize()
-    assert cuda_godunov.mkflux_2d_fused.launches == before + 4
+    # the tie epsilon and one tile pass
+    assert cuda_godunov.mkflux_2d_fused.launches == before + 2
     ref = cuda_godunov.mkflux_2d_plain(*args)
     for i, nm in enumerate(("sedgex", "sedgey", "fluxx", "fluxy")):
         assert out[i].shape == ref[i].shape
         _close(out[i], ref[i], sim.dtype,
                f"mkflux_2d bc={bc} n={n} vel={is_vel} {nm}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("order", [0, 2])
+@pytest.mark.parametrize("nc,cons", [(1, [True]), (3, [True, False, True]),
+                                     (4, [False, True, True, False])])
+@pytest.mark.parametrize("bc", BCS_2D)
+def test_mkflux_2d_kernel_components_and_orders(cuda, bc, nc, cons, order,
+                                                dtype):
+    """Kernel 10's tile pass with 1, 3 and 4 components (any conservative
+    mask, MAXC = 4) and slope orders 2 and 0, with both sources, at an odd
+    extent that spans several tiles."""
+    n = (37, 70)
+    sim = _sim_2d(bc, n, dtype, cuda)
+    ng = sim.ng
+    umac = (sim.tensor(_smooth2((n[0] + 1, n[1]), 12)),
+            sim.tensor(_smooth2((n[0], n[1] + 1), 13)))
+    mac_pads = advance.embed_faces(sim, umac, ng)
+    s_pad = sim.fill_extrap(sim.tensor(1.5 + _smooth2((nc,) + n, 14, 0.05)),
+                            ng)
+    adv = [sim.adv_bc[sim.scal_comp(0)]] * nc
+    force = sim.fill_extrap(sim.tensor(_smooth2((nc,) + n, 15, 0.2)), ng)
+    rhs = sim.fill_extrap(sim.tensor(_smooth2(n, 16, 0.2)), ng)
+    for use_minion in (False, True):
+        args = (s_pad, mac_pads[0], mac_pads[1], force, rhs, 2e-3, sim.dx,
+                sim.phys_bc, adv, ng, n, False, cons, order, use_minion)
+        out = cuda_godunov.mkflux_2d_fused(*args)
+        ref = cuda_godunov.mkflux_2d_plain(*args)
+        for i, nm in enumerate(("sedgex", "sedgey", "fluxx", "fluxy")):
+            assert out[i].shape == ref[i].shape
+            _close(out[i], ref[i], sim.dtype,
+                   f"mkflux_2d bc={bc} nc={nc} order={order} {nm}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -568,6 +601,76 @@ def test_gsrb_2d_kernel(cuda, dtype, alpha, n, ell_bc):
     if n[0] > 1:
         with pytest.raises(ValueError, match="contiguous"):
             k.gsrb_sweep_2d(phi.t().contiguous().t(), *args[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("alpha", [0.0, 0.7])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((32, 48), [(1, 1), (1, 1)]),
+    ((16, 8), [(1, 2), (2, 1)]),
+    ((15, 9), [(0, 0), (2, 2)]),
+    ((40, 130), [(3, 3), (0, 0)]),
+    ((70, 33), [(2, 3), (0, 0)]),
+    ((2, 2), [(2, 2), (1, 1)]),
+    ((1, 5), [(1, 1), (2, 2)]),
+    ((96, 256), [(0, 0), (2, 1)]),
+])
+def test_gsrb_2d_fused_kernel(cuda, dtype, alpha, n, ell_bc):
+    """Kernel 8's fused stages: one launch for up to two sweeps, the
+    correction in the first and the restriction in the last; equal bit for
+    bit to the single passes a V-cycle called before, and to the plain
+    composition within the tolerance."""
+    rng = np.random.RandomState(6)
+    kw = dict(dtype=dtype, device=cuda)
+    dx = (0.1, 0.13)
+    beta = (torch.as_tensor(0.5 + rng.rand(n[0] + 1, n[1]), **kw),
+            torch.as_tensor(0.5 + rng.rand(n[0], n[1] + 1), **kw))
+    aco = torch.as_tensor(1.0 + rng.rand(*n), **kw)
+    lev = mg.make_level(n, dx, ell_bc, aco, beta, alpha)
+    phi = torch.as_tensor(rng.rand(*n) - 0.5, **kw)
+    rhs = torch.as_tensor(rng.rand(*n) - 0.5, **kw)
+    bv = [[0.2, -0.3], [0.15, 0.4]]
+    args = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
+    opt = dict(aco=aco, alpha=alpha)
+    k = cuda_kernels
+
+    def single(p, ns, corr, fac, restrict):
+        if corr is not None:
+            p = p + k.cell_prolong(corr, fac)
+        for _ in range(ns):
+            p = k.gsrb_sweep_2d(p, *args[1:], **opt)
+        if not restrict:
+            return (p,)
+        r = k.gsrb_sweep_2d(p, *args[1:], **opt, emit="residual")
+        return p, mg._cell_avg_down(r, 2), r.abs().max()
+
+    runs = [("smooth", ns, None, (2, 2)) for ns in (1, 2, 3)]
+    for fac in ((2, 2), (1, 2), (2, 1)):
+        if all(s % f == 0 for s, f in zip(n, fac)):
+            c = torch.as_tensor(rng.rand(*[s // f for s, f in zip(n, fac)])
+                                - 0.5, **kw)
+            runs.append(("smooth", 2, c, fac))
+    if all(s % 2 == 0 for s in n):
+        runs += [("smooth_restrict", ns, None, (2, 2)) for ns in (1, 2)]
+    for emit, ns, corr, fac in runs:
+        before = (k.gsrb_sweep_2d.launches, k.gsrb_sweep_2d.fused_launches)
+        out = k.gsrb_sweep_2d(*args, **opt, emit=emit, nsweeps=ns, corr=corr,
+                              cfac=fac)
+        torch.cuda.synchronize()
+        assert (k.gsrb_sweep_2d.launches, k.gsrb_sweep_2d.fused_launches) \
+            == (before[0] + (ns + 1) // 2, before[1] + (ns + 1) // 2)
+        outs = out if isinstance(out, tuple) else (out,)
+        olds = single(phi, ns, corr, fac, emit == "smooth_restrict")
+        ref = k.gsrb_sweep_2d_plain(*args, **opt, emit=emit, nsweeps=ns,
+                                    corr=corr, cfac=fac)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for o, old, r in zip(outs, olds, refs):
+            what = f"gsrb_2d {emit} n={n} ns={ns} fac={fac}"
+            assert torch.equal(o, old), what
+            _close(o, r, dtype, what)
+    if n[0] % 2:
+        with pytest.raises(ValueError, match="even extents"):
+            k.gsrb_sweep_2d(*args, **opt, emit="smooth_restrict", nsweeps=2)
 
 
 @pytest.mark.parametrize("extra", [

@@ -3,7 +3,8 @@
 this is run from, so that two checkouts can be compared on one card in one
 call.
 
-    cd CHECKOUT && python3 /path/to/tools/torch_step_compare.py TAG
+    cd CHECKOUT && python3 /path/to/tools/torch_step_compare.py TAG \
+        [--cells headline,cfg5,rt,2d,pub1024,cfg3]
 
 It imports chip_smoke.py and varden_tpu_torch from the current directory
 (the checkout under test, which may be an older commit unpacked with `git
@@ -11,9 +12,11 @@ archive`) and drives that checkout's own phase functions, with the same
 gates as chip_smoke.py: the headline configuration (the viscous 256^3
 bubble, float32, STEPS steps), BASELINE config 5 (256^3 + 2 levels,
 float32, STEPS_AMR steps), config 4 (3-D Rayleigh-Taylor 128^3, float32,
-STEPS steps) and the 2-D main cell (the viscous 2-D bubble's geometry at
-N_2D^2, float32, STEPS steps), each followed by one more step under
-torch.profiler. It prints one line "RESULT TAG {json}" with, per
+STEPS steps), the 2-D main cell (the viscous 2-D bubble's geometry at
+N_2D^2, float32, STEPS steps), the published viscous 2-D bubble at
+N_2D_PUBLISHED^2 (float32, STEPS steps) and BASELINE config 3 (2-D 64^2,
+2 levels, float32, 6 steps across a regrid), each (or those --cells
+names) followed by one more step under torch.profiler. It prints one line "RESULT TAG {json}" with, per
 configuration, each step's seconds and the steady mean, the kernel
 launches of each step, the peak device memory, the V-cycles of the
 single-level and composite solves (mg.v_cycle and nodal.v_cycle entered at
@@ -86,7 +89,12 @@ def main():
     if not torch.cuda.is_available():
         print("torch_step_compare: no CUDA device", file=sys.stderr)
         return 1
-    tag = sys.argv[1]
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("tag")
+    ap.add_argument("--cells", default="headline,cfg5,rt,2d,pub1024,cfg3")
+    args = ap.parse_args()
+    tag = args.tag
     print(f"card: {cs.smi_name_power()}", flush=True)
     _cuda.build_all()
     count_cycles(mg, "mg", 4)
@@ -94,7 +102,7 @@ def main():
     # config 4's MAC levels take no fused stage of kernel 3
     rt_kw = {"fused": cs.FUSED_RT} if hasattr(cs, "FUSED_RT") else {}
     out = {}
-    for key in ("headline", "cfg5", "rt", "2d"):
+    for key in args.cells.split(","):
         CYCLES.clear()
         if key == "headline":
             v, state, _, steps, peak = cs.phase_main(
@@ -108,12 +116,20 @@ def main():
             v, state, _, steps, peak = cs.phase_main(
                 torch, cs.rt_kw(cs.N_RT, "float32"), cs.STEPS,
                 cs.KERNELS_RT, bubble=False, **rt_kw)
-        else:
+        elif key == "2d":
             # the 2-D main cell: the viscous 2-D bubble's geometry at N_2D^2
             v, state, _, steps, peak = cs.phase_main(
                 torch, cs.bubble2d_kw(cs.N_2D, "float32",
                                       visc_coef=cs.VISC_2D),
                 cs.STEPS, cs.KERNELS_2D)
+        elif key == "pub1024":
+            v, state, _, steps, peak = cs.phase_main(
+                torch, cs.bubble2d_kw(cs.N_2D_PUBLISHED, "float32"),
+                cs.STEPS, cs.KERNELS_2D)
+        else:
+            v, state, _, steps, peak, _ = cs.phase_main_ml(
+                torch, VardenConfig(**cs.cfg3_kw("float32")), 6,
+                cs.KERNELS_2D, "config 3")
         rec = {"steps_s": [r["seconds"] for r in steps],
                "steady_s": cs.mean_steady(steps),
                "launches": [r["launches"] for r in steps],

@@ -61,64 +61,6 @@ __device__ __forceinline__ void bpoint(Box b, int i, int* l) {
   l[0] = i / b.e[1] + b.lo[0];
 }
 
-// the mkflux.f90 boundary overrides of a hat or double-hat l/r pair of
-// component c on a boundary a-face (side 0 lo, 1 hi); s_m, s_p: s on either
-// side of the face (godunov3d.mkflux_3d face_bc)
-template <typename T>
-__device__ __forceinline__ void lr_overrides(const MK& m, int a, int c,
-                                             int side, T s_m, T s_p, T& l,
-                                             T& r) {
-  int pb = m.pbc[a][side];
-  bool normal_vel = m.is_vel && c == a;
-  bool copy = false;
-  switch (pb) {
-    case INLET:
-      l = r = side == 0 ? s_m : s_p;
-      break;
-    case SLIP_WALL:
-    case SYMMETRY:
-      if (normal_vel) l = r = (T)0;
-      else copy = true;
-      break;
-    case NO_SLIP_WALL:
-      if (m.is_vel) l = r = (T)0;
-      else copy = true;
-      break;
-    case OUTLET:
-      if (normal_vel) {
-        T w = side == 0 ? fmin(r, (T)0) : fmax(l, (T)0);
-        l = r = w;
-      } else {
-        copy = true;
-      }
-      break;
-    default:
-      break;
-  }
-  if (copy) {
-    if (side == 0) l = r;
-    else r = l;
-  }
-}
-
-// the mkflux.f90 overrides of the final edge state ed of component c on a
-// boundary a-face, from its corrected l/r pair
-template <typename T>
-__device__ __forceinline__ T edge_override(const MK& m, int a, int c,
-                                           int side, T s_m, T s_p, T el,
-                                           T er, T ed) {
-  int pb = m.pbc[a][side];
-  T inner = side == 0 ? er : el;
-  bool normal_vel = m.is_vel && c == a;
-  if (pb == INLET) return side == 0 ? s_m : s_p;
-  if (pb == SLIP_WALL || pb == NO_SLIP_WALL || pb == SYMMETRY)
-    return ((m.is_vel && pb == NO_SLIP_WALL) || normal_vel) ? (T)0 : inner;
-  if (pb == OUTLET)
-    return normal_vel ? (side == 0 ? fmin(inner, (T)0) : fmax(inner, (T)0))
-                      : inner;
-  return ed;
-}
-
 // hat-stage l/r states of component c on axis-a faces at padded point x,
 // with the mkflux.f90 face overrides (godunov3d.mkflux_3d face_bc)
 template <typename T>

@@ -139,11 +139,6 @@ struct Ctx {
   T eps;
 };
 
-// the side of the domain an a-face at interior face index f lies on
-__device__ __forceinline__ int face_side(const Grid& g, int a, int f) {
-  return f == 0 ? 0 : (f == g.n[a] ? 1 : -1);
-}
-
 // hat-stage l/r states of the component on the axis-A face at brick point
 // l (mk_lr of mkflux3d.cuh on the tiles)
 template <typename T, class G, int A>

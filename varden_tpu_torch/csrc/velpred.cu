@@ -133,7 +133,7 @@ __device__ __forceinline__ int vface_side(const Grid& g, int a, int fi) {
 // Hat-stage left/right states of component C on A-faces at brick point l
 // (face between l-e_A and l), with the physical-face overrides of
 // velpred.f90:1074-1105 (godunov3d.velpred_3d apply_face_bc). They differ
-// from mkflux3d.cuh's lr_overrides at a SYMMETRY face, where velpred keeps
+// from common.cuh's lr_overrides at a SYMMETRY face, where velpred keeps
 // a tangential component's two states, so they are not shared.
 template <typename T, class G, int A, int C>
 __device__ __forceinline__ void tile_vel_lr(const VCtx<T>& x, const int* l,

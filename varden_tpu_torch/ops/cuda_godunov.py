@@ -13,9 +13,9 @@ varden_tpu.ops.pallas_godunov).
 Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
-CUDA launches the wrapper made (every stage counts: velpred_3d_fused and
-mkflux_update_3d_fused make two each, the tie epsilon and one
-shared-memory pass).
+CUDA launches the wrapper made (every stage counts: velpred_3d_fused,
+mkflux_update_3d_fused and mkflux_2d_fused make two each, the tie epsilon
+and one shared-memory pass).
 """
 from __future__ import annotations
 
@@ -272,11 +272,20 @@ def mkflux_2d_fused(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
     """Godunov edge states and fluxes of nc components, 2-D: returns
     (sedgex, sedgey, fluxx, fluxy) exactly as godunov.mkflux_2d, at any size
     and in both dtypes. ``force`` and ``mac_rhs`` may each be None, meaning
-    statically zero: never read and never allocated."""
+    statically zero: never read and never allocated. On the card: two
+    launches, the tie epsilon and one shared-memory tile pass."""
     if s.device.type == "cpu":
         return mkflux_2d_plain(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
                                phys_bc, adv_bc, ng, n_cell, is_vel,
                                is_conservative, slope_order, use_minion)
+    return _mkflux2d_launch(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
+                            phys_bc, adv_bc, ng, n_cell, is_vel,
+                            is_conservative, slope_order, use_minion)
+
+
+def _mkflux2d_launch(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
+                     adv_bc, ng, n_cell, is_vel, is_conservative, slope_order,
+                     use_minion):
     nc = s.shape[0]
     nx, ny = n_cell
     P = _padded(n_cell, ng)
@@ -292,15 +301,14 @@ def mkflux_2d_fused(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
         _cuda.check(mac_rhs, "mac_rhs", P, **kw)
     outs = [torch.empty(shape, **kw)
             for shape in ((nc, nx + 1, ny), (nc, nx, ny + 1)) * 2]
-    work = torch.empty((4 * nc,) + P, **kw)
     umax = torch.zeros(1, **kw)
     cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
     iv = [nx, ny, ng, slope_order, int(bool(use_minion)), nc,
           int(bool(is_vel)), cons_mask] + _flat_bc(phys_bc, adv_bc, 2)
     _cuda.call("mkflux2d", "mkflux2d",
-               [s, umac_pad, vmac_pad, force, mac_rhs, *outs, work, umax],
+               [s, umac_pad, vmac_pad, force, mac_rhs, *outs, umax],
                iv, [float(dt), *map(float, dx)], s)
-    mkflux_2d_fused.launches += 4
+    mkflux_2d_fused.launches += 2
     return tuple(outs)
 
 

@@ -16,7 +16,9 @@ varden_tpu.ops.pallas_kernels).
                                        the fused V-cycle stages (smooth,
                                        smooth_restrict)
   gsrb_sweep_2d      csrc/gsrb2d.cu    the 2-D variable-beta operator: exact
-                                       red-black sweep, residual
+                                       red-black sweep, residual, and the
+                                       fused V-cycle stages (smooth,
+                                       smooth_restrict)
   gsrb_sweep_3d      csrc/gsrb_padded.cu  variable-beta red-black sweep on a
                                        ghost-padded phi, the ring held for
                                        both colours
@@ -24,8 +26,8 @@ varden_tpu.ops.pallas_kernels).
 Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
 runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
 launches the kernel or raises. ``<wrapper>.launches`` counts CUDA launches;
-kernels 3, 4 and 5 also count the launches of their fused multigrid stages
-apart (``.fused_launches``).
+kernels 3, 4, 5 and 8 also count the launches of their fused multigrid
+stages apart (``.fused_launches``).
 """
 from __future__ import annotations
 
@@ -90,13 +92,13 @@ def _lphi(phi, beta, dxi2, ell_bc, bvals, aco, alpha):
     return out
 
 
-def _avg_down(f):
-    """2x2x2 cell average over the trailing three axes, x then y then z
+def _avg_down(f, dm=3):
+    """2^dm cell average over the trailing dm axes, x then y (then z)
     (mg._cell_avg_down order)."""
-    for d in range(3):
+    for d in range(dm):
         ev = [slice(None)] * f.ndim
         od = [slice(None)] * f.ndim
-        ax = f.ndim - 3 + d
+        ax = f.ndim - dm + d
         ev[ax], od[ax] = slice(0, None, 2), slice(1, None, 2)
         f = 0.5 * (f[tuple(ev)] + f[tuple(od)])
     return f
@@ -114,11 +116,11 @@ def cell_prolong(corr, fac):
 def gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
                             aco=None, alpha=0.0, *, emit="sweep", nsweeps=1,
                             corr=None, cfac=(2, 2, 2)):
-    """The plain PyTorch version of gsrb_var_sweep_3d (and, without the
-    restrict emits, of gsrb_sweep_2d: the arithmetic is written on phi's own
-    number of axes). The fused emits are the compositions of the single
-    ones: phi + prolong(corr), then nsweeps sweeps (smooth); nsweeps sweeps,
-    then the restrict emit (smooth_restrict)."""
+    """The plain PyTorch version of gsrb_var_sweep_3d (and of gsrb_sweep_2d:
+    the arithmetic is written on phi's own number of axes). The fused emits
+    are the compositions of the single ones: phi + prolong(corr), then
+    nsweeps sweeps (smooth); nsweeps sweeps, then the restrict emit
+    (smooth_restrict)."""
     dxi2 = tuple(1.0 / (float(h) * float(h)) for h in dx)
 
     def L(p):
@@ -133,7 +135,7 @@ def gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
 
     def restrict(p):
         r = rhs - L(p)
-        return _avg_down(r), r.abs().max()
+        return _avg_down(r, r.ndim), r.abs().max()
 
     if emit == "residual":
         return rhs - L(phi)
@@ -690,33 +692,63 @@ nodal_sweep_3d.fused_launches = 0  # of them, the fused stages
 # 2-D variable-beta operator
 # ---------------------------------------------------------------------------
 
-_EMITS_2D = ("sweep", "residual")
+_EMITS_2D = ("sweep", "residual", "smooth", "smooth_restrict")
 
 
 def gsrb_sweep_2d_plain(phi, rhs, inv_diag, beta, dx, ell_bc, bvals,
-                        aco=None, alpha=0.0, *, emit="sweep"):
+                        aco=None, alpha=0.0, *, emit="sweep", nsweeps=1,
+                        corr=None, cfac=(2, 2)):
     """The plain PyTorch version of gsrb_sweep_2d."""
     return gsrb_var_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
-                                   bvals, aco, alpha, emit=emit)
+                                   bvals, aco, alpha, emit=emit,
+                                   nsweeps=nsweeps, corr=corr, cfac=cfac)
 
 
 def gsrb_sweep_2d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco=None,
-                  alpha=0.0, *, emit="sweep"):
-    """One exact red-black sweep (emit="sweep") or the residual rhs - L(phi)
-    (emit="residual") of L = alpha*aco*phi - div(beta grad phi) in 2-D.
+                  alpha=0.0, *, emit="sweep", nsweeps=1, corr=None,
+                  cfac=(2, 2)):
+    """One exact red-black sweep (emit="sweep"), the residual rhs - L(phi)
+    (emit="residual"), or a fused multigrid stage of L = alpha*aco*phi -
+    div(beta grad phi) in 2-D:
+
+      "smooth"           phi + prolong(corr) (piecewise constant along the
+                         axes whose cfac is 2; corr None adds nothing),
+                         then nsweeps sweeps;
+      "smooth_restrict"  nsweeps sweeps, then the residual, its 2x2 average
+                         (x then y) and max|r|: returns (phi, coarse
+                         residual, max|r| as a 0-d tensor); even extents
+                         only.
 
     phi/rhs/inv_diag/aco: (n0, n1), phi without ghosts: the boundary ghosts
     come from ell_bc and bvals, afresh for each colour; beta: the (n0+1, n1)
-    and (n0, n1+1) face tensors. inv_diag is read by the sweep only, aco
-    only when alpha != 0. Returns a tensor of phi's shape."""
+    and (n0, n1+1) face tensors. inv_diag is read by the sweeps only, aco
+    only when alpha != 0. "sweep", "residual" and "smooth" return a tensor
+    of phi's shape. On the card "sweep" is two launches (one a colour),
+    "residual" one, and a fused emit one launch for every FUSED_SWEEPS
+    sweeps."""
     if emit not in _EMITS_2D:
         raise ValueError(f"bad emit {emit!r}")
+    _check_nsweeps(emit, nsweeps)
     n = tuple(phi.shape)
     if len(n) != 2:
         raise ValueError(f"gsrb_sweep_2d: phi must be 2-D, got {n}")
+    if emit == "smooth_restrict" and any(s % 2 for s in n):
+        raise ValueError(f"{emit} needs even extents, got {n}")
+    cfac = tuple(int(f) for f in cfac)
+    if corr is not None and any(f not in (1, 2) or s % f
+                                for f, s in zip(cfac, n)):
+        raise ValueError(f"cfac {cfac} does not divide {n}")
     if phi.device.type == "cpu":
         return gsrb_sweep_2d_plain(phi, rhs, inv_diag, beta, dx, ell_bc,
-                                   bvals, aco, alpha, emit=emit)
+                                   bvals, aco, alpha, emit=emit,
+                                   nsweeps=nsweeps, corr=corr, cfac=cfac)
+    return _gsrb2d_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco,
+                          alpha, emit, nsweeps, corr, cfac)
+
+
+def _gsrb2d_launch(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco, alpha,
+                   emit, nsweeps, corr, cfac):
+    n = tuple(phi.shape)
     _cuda.check(phi, "phi")
     kw = dict(dtype=phi.dtype, device=phi.device)
     _cuda.check(rhs, "rhs", n, **kw)
@@ -726,26 +758,54 @@ def gsrb_sweep_2d(phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco=None,
         _cuda.check(aco, "aco", n, **kw)
     else:
         aco = None
-    tmp = None
-    if emit == "sweep":
-        _cuda.check(inv_diag, "inv_diag", n, **kw)
-        tmp = torch.empty(n, **kw)
-    else:
+    if emit == "residual":
         inv_diag = None
-    out = torch.empty(n, **kw)
+    else:
+        _cuda.check(inv_diag, "inv_diag", n, **kw)
     iv = [*n] + [int(ell_bc[d][s]) for d in range(2) for s in range(2)]
-    iv.append(_EMITS_2D.index(emit))
     dv = [1.0 / (float(h) * float(h)) for h in dx]
     dv += [float(bvals[d][s]) for d in range(2) for s in range(2)]
     dv.append(float(alpha))
-    _cuda.call("gsrb2d", "gsrb2d",
-               [phi, rhs, inv_diag, aco, beta[0], beta[1], out, tmp], iv, dv,
-               phi)
-    gsrb_sweep_2d.launches += 2 if emit == "sweep" else 1
-    return out
+    if emit in ("sweep", "residual"):
+        tmp = torch.empty(n, **kw) if emit == "sweep" else None
+        out = torch.empty(n, **kw)
+        _cuda.call("gsrb2d", "gsrb2d",
+                   [phi, rhs, inv_diag, aco, beta[0], beta[1], out, tmp],
+                   iv + [_EMITS_2D.index(emit)], dv, phi)
+        gsrb_sweep_2d.launches += 2 if emit == "sweep" else 1
+        return out
+    if n[0] * n[1] >= 2 ** 31:
+        # the fused stages' launch grid is one block a tile
+        raise ValueError(f"gsrb_sweep_2d: {emit} takes fields of fewer "
+                         f"than 2^31 cells, got {n}")
+    if corr is not None:
+        _cuda.check(corr, "corr", tuple(s // f for s, f in zip(n, cfac)),
+                    **kw)
+    # FUSED_SWEEPS sweeps a launch, the correction in the first, the
+    # restriction in the last
+    left = nsweeps
+    crs = rmax = None
+    while left > 0:
+        k = min(left, FUSED_SWEEPS)
+        left -= k
+        last = left == 0 and emit == "smooth_restrict"
+        out = torch.empty(n, **kw)
+        if last:
+            crs = torch.empty(tuple(s // 2 for s in n), **kw)
+            rmax = torch.zeros(1, **kw)
+        _cuda.call("gsrb2d", "gsrb2d",
+                   [phi, rhs, inv_diag, aco, beta[0], beta[1], out, None,
+                    rmax, corr, crs],
+                   iv + [_EMITS_2D.index("smooth_restrict" if last
+                                         else "smooth"), k, *cfac], dv, phi)
+        gsrb_sweep_2d.launches += 1
+        gsrb_sweep_2d.fused_launches += 1
+        phi, corr = out, None
+    return (phi, crs, rmax[0]) if emit == "smooth_restrict" else phi
 
 
 gsrb_sweep_2d.launches = 0
+gsrb_sweep_2d.fused_launches = 0  # of them, the fused stages
 
 
 # ---------------------------------------------------------------------------

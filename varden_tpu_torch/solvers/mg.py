@@ -19,11 +19,12 @@ whose right-hand side may carry a leading batch axis, and the explicit
 Laplacian: a V-cycle's visit of a level of at most CONST_FUSED_MAX_CELLS
 cells is two of its fused passes, as for the face-tensor operator; larger
 levels, the Helmholtz fast path and the bottom keep its single passes). In
-2-D the face-tensor operator runs through gsrb_sweep_2d
-(sweeps and residuals; the restriction is the plain cell average), and the
-one-number-per-axis operator runs as plain tensor code, as it does in
-varden_tpu, which has no 2-D kernel for it: masked red-black sweeps inside
-V-cycles, Jacobi sweeps on the Helmholtz fast path. The loops that the JAX
+2-D the face-tensor operator runs through gsrb_sweep_2d (sweeps and
+residuals, and a V-cycle's level visit as two of its fused passes, as for
+the 3-D face-tensor operator), and the one-number-per-axis operator runs
+as plain tensor code, as it does in varden_tpu, which has no 2-D kernel
+for it: masked red-black sweeps inside V-cycles, Jacobi sweeps on the
+Helmholtz fast path. The loops that the JAX
 package runs as lax.while_loop are Python loops here, reading the residual
 norms on the host once per V-cycle.
 """
@@ -346,9 +347,10 @@ def _var_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
 
 
 def _fused_route(level: CCLevel, phi) -> bool:
-    """Whether the level smooths through kernel 3's fused stages: a 3-D
-    face-tensor level without a batch axis that is not on _padded_route."""
-    return (level.dm == 3 and phi.ndim == 3
+    """Whether the level smooths through the fused stages of its
+    face-tensor kernel (3 in 3-D, 8 in 2-D): a face-tensor level without a
+    batch axis that is not on _padded_route."""
+    return (phi.ndim == level.dm
             and not any(_is_scalar_coef(b) for b in level.beta)
             and not _padded_route(level, phi))
 
@@ -576,7 +578,7 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
     full = fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)
     if fused and full:
         # nu1 sweeps, the residual, its 2^dm restriction and max|r|: one
-        # pass of kernel 3
+        # pass of kernel 3 or 8
         phi, crs, rmax = _var_sweep(level, phi, rhs, bv, "smooth_restrict",
                                     nsweeps=nu1)
     elif cfused and full:
@@ -596,7 +598,7 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
                    nu2, singular, bottom=bottom)
     if fused or cfused:
         # phi + the piecewise-constant prolongation of corr, then nu2 sweeps:
-        # one pass of kernel 3 or 5
+        # one pass of kernel 3, 5 or 8
         sweep = _var_sweep if fused else _const_sweep
         phi = sweep(level, phi, rhs, bv, "smooth", nsweeps=nu2, corr=corr,
                     cfac=fac)
