@@ -12,8 +12,10 @@ Phases, each of which asserts and any failure of which exits non-zero:
      the main paths' shapes (256^3 for the five 3-D kernels, 4096^2 for the
      three 2-D ones, BASELINE config 5's patches for kernels 6 and 11 and
      for kernel 2's flux option (the AMR scalar advance's call), and
-     128^3 and 256^3 with config 4's boundaries for the padded sweep,
-     beside kernel 3's sweep and the ghost pad at the same shapes, the
+     128^3 and 256^3 with config 4's boundaries for kernel 7's single
+     sweep and its fused V-cycle stages (each beside the ghost pad, padded
+     sweeps and restriction they replace), beside kernel 3's sweep and the
+     ghost pad at the same shapes, the
      fused V-cycle stages of kernels 3 and 4 at 256^3 and config 5's
      240^3 and 384^3 and kernel 5's at CONST_FUSED_SHAPES, kernel 8's at
      4096^2, 512^2 and 64^2 (GSRB2D_FUSED_SHAPES), each beside the old
@@ -43,8 +45,9 @@ Phases, each of which asserts and any failure of which exits non-zero:
      geometry (walls on four sides, cflfac 0.9) at 4096^2 with nu dt / dx^2
      held at that configuration's 0.59 (see VISC_2D), float32, initial
      projection, one pressure iteration and STEPS steps, the gates of
-     phase 4, the three 2-D kernels launched (kernel 8 through its fused
-     stages too) and the 3-D ones not; then the same path in float64 for
+     phase 4, the three 2-D kernels launched (kernel 9 two launches a
+     call, kernel 8 through its fused stages too) and the 3-D ones not;
+     then the same path in float64 for
      STEPS_SHORT steps with float32 held to it;
   9. the published 2-D configurations as they are, STEPS steps each with
      the same gates: the inviscid bubble at 64^2 and the viscous one
@@ -82,17 +85,17 @@ Phases, each of which asserts and any failure of which exits non-zero:
  14. the config 4 main path, as bench.py:303-307 sets it (128^3, float32,
      visc_coef 1e-3, cflfac 0.9, four pressure iterations): initialization
      and STEPS steps with the launch counters zeroed before and read
-     after; kernels 1-5 and the padded sweep (kernel 7) must have
-     launched (kernels 4 and 5 through their fused stages too), the
-     others not; the gates of phase 4 except the density
-     range, which varden_tpu itself leaves on this problem: the density
+     after; kernels 1-5 and kernel 7 must have launched (kernels 4, 5
+     and 7 through their fused stages), the others not; the gates of
+     phase 4 except the density range, which varden_tpu itself leaves on
+     this problem: the density
      extrema of every step are printed, and the float32 run's extrema and
      max|u| are held to the same path in float64 (STEPS_SHORT steps);
  15. I/O on the card: inputs/inputs_RayleighTaylor_3d as published
      (float64, 32^3 base, 2 levels, regrid every step) to step 20 with a
      checkpoint every 10 steps, its plotfiles and checkpoints read back,
-     the padded sweep launched on this AMR path, and a restart from step
-     10 equal to the uninterrupted run bitwise (every field of every
+     kernel 7's fused stages launched on this AMR path, and a restart
+     from step 10 equal to the uninterrupted run bitwise (every field of every
      patch, and the step-20 plotfile's files byte for byte); then config 4
      at 128^3 in float32 checkpointed at step 2 and restarted, its step-4
      state equal bitwise. The seconds to write and read each kind of file
@@ -199,12 +202,12 @@ KERNELS_2D = ("gsrb_sweep_2d", "velpred_2d_fused", "mkflux_2d_fused")
 # takes the 2-D kernels
 KERNELS_AMR = KERNELS_3D
 OFF_PATH = ("update_3d", "mkflux_3d_fused")
-# config 4 (periodic in x): its MAC levels smooth with the padded sweep,
-# whose residuals and restrictions stay on kernel 3; the RT inputs' AMR run
-# adds the AMR kernels
+# config 4 (periodic in x): its MAC levels take kernel 7's fused stages (the
+# sweeps' ghost rings held at their start); kernel 3 still computes the
+# solves' residuals; the RT inputs' AMR run adds the AMR kernels
 KERNELS_RT = KERNELS_3D + ("gsrb_sweep_3d",)
 KERNELS_RT_AMR = KERNELS_AMR + ("gsrb_sweep_3d",)
-# config 4's extent, the padded sweep's shapes in phase 2, and the base of
+# config 4's extent, kernel 7's shapes in phase 2, and the base of
 # its card-vs-CPU run; the RT inputs' I/O run ends at step RT_IO_STEPS with
 # a checkpoint every RT_IO_CHK steps (cuts of depth: the file runs 150
 # steps with a checkpoint every 100)
@@ -1142,12 +1145,17 @@ def rt_level(torch, n, dtype_name):
 
 
 def kernel_cases_rt(torch, dtype_name):
-    """The padded sweep (kernel 7) at config 4's finest MAC level, 128^3,
-    and at 256^3: phi padded by mg._pad_ghost with config 4's boundaries;
-    beside it kernel 3's sweep of the same operator (the exact sweep that
-    the padded one replaces on these levels)."""
+    """Kernel 7 at config 4's finest MAC level, 128^3, and at 256^3, with
+    config 4's boundaries: the single sweep of a phi padded by
+    mg._pad_ghost, and the fused stages of a V-cycle's level visit
+    (ck.FUSED_SWEEPS sweeps, as the V-cycles call them), each beside the
+    composition it replaces (the ghost pad and the padded sweep twice,
+    then kernel 3's restrict emit; the prolongation, its add, and the pad
+    and sweep twice); beside them kernel 3's sweep of the same operator
+    (the exact sweep that the padded one replaces on these levels)."""
     from varden_tpu_torch.ops import cuda_kernels as ck
     from varden_tpu_torch.solvers import mg
+    nsw = ck.FUSED_SWEEPS
     cases = []
     for n in N_RT_PADDED:
         lev, ell_bc, phi, rhs = rt_level(torch, n, dtype_name)
@@ -1160,6 +1168,38 @@ def kernel_cases_rt(torch, dtype_name):
                       (lambda a=a: ck.gsrb_sweep_3d_plain(*a)),
                       nbytes([pad, rhs, lev.inv_diag, *lev.beta])
                       + nbytes([rhs]), GSRB_OPS["sweep"] * cells))
+        corr = smooth(torch, (n // 2,) * 3, 52, 0.1, phi.device, phi.dtype)
+        f = (phi, rhs, lev.inv_diag, lev.beta, lev.dx)
+        fkw = dict(ell_bc=ell_bc, bvals=bv, nsweeps=nsw)
+        fb = 4 * nbytes([phi]) + nbytes(lev.beta)  # phi, rhs, inv in, phi out
+
+        def sweeps(p, f=f, ell_bc=ell_bc, bv=bv):
+            for _ in range(nsw):
+                p = ck.gsrb_sweep_3d(mg._pad_ghost(p, ell_bc, bv, 3), *f[1:])
+            return p
+
+        def old_restrict(f=f, ell_bc=ell_bc, bv=bv, sweeps=sweeps):
+            p = sweeps(f[0])
+            return (p, *ck.gsrb_var_sweep_3d(p, *f[1:], ell_bc, bv,
+                                             emit="restrict"))
+
+        cases.append(("gsrb_sweep_3d", f"smooth_restrict {n}^3",
+                      (lambda f=f, k=fkw: ck.gsrb_sweep_3d(
+                          *f, emit="smooth_restrict", **k)),
+                      (lambda f=f, k=fkw: ck.gsrb_sweep_3d_plain(
+                          *f, emit="smooth_restrict", **k)),
+                      fb + nbytes([phi]) // 8,
+                      gsrb_fused_ops("smooth_restrict", nsw) * cells,
+                      old_restrict))
+        cases.append(("gsrb_sweep_3d", f"smooth+corr {n}^3",
+                      (lambda f=f, k=fkw, c=corr: ck.gsrb_sweep_3d(
+                          *f, emit="smooth", corr=c, **k)),
+                      (lambda f=f, k=fkw, c=corr: ck.gsrb_sweep_3d_plain(
+                          *f, emit="smooth", corr=c, **k)),
+                      fb + nbytes([corr]),
+                      gsrb_fused_ops("smooth+corr", nsw) * cells,
+                      (lambda f=f, c=corr, sweeps=sweeps: sweeps(
+                          f[0] + ck.cell_prolong(c, (2, 2, 2))))))
         g = (phi, rhs, lev.inv_diag, lev.beta, lev.dx, ell_bc, bv)
         cases.append(("gsrb_var_sweep_3d", f"sweep per-xy {n}^3",
                       (lambda g=g: ck.gsrb_var_sweep_3d(*g)),
@@ -1171,7 +1211,8 @@ def kernel_cases_rt(torch, dtype_name):
 
 def pad_ghost_report(torch, dtype_name, reps):
     """Device ms of mg._pad_ghost (plain torch: three concatenations) at
-    the padded sweep's shapes: the padded route pays it once per sweep."""
+    kernel 7's shapes: the single padded sweeps paid it once per sweep,
+    which the fused stages no longer do."""
     from varden_tpu_torch.solvers import mg
     out = {}
     for n in N_RT_PADDED:
@@ -1390,17 +1431,18 @@ def counters():
             "gsrb_sweep_3d": ck.gsrb_sweep_3d}
 
 
-# kernels 3, 4, 5 and 8 count the launches of their fused V-cycle stages
-# apart (key "<name>:fused"): a 3-D path's V-cycles smooth through them,
-# except on config 4's MAC levels, which are periodic in x and take the
-# padded sweep (kernel 7), with kernel 3's single restrict emit. Kernel 5's
+# kernels 3, 4, 5, 7 and 8 count the launches of their fused V-cycle stages
+# apart (key "<name>:fused"): a 3-D path's V-cycles smooth through them;
+# config 4's MAC levels, which are periodic in x, through kernel 7's (the
+# sweeps' ghost rings held at their start), whose last sweep of a
+# pre-smooth takes the residual and the restriction too. Kernel 5's
 # fused stages take the viscous solves' levels of at most
 # mg.CONST_FUSED_MAX_CELLS cells, and every V-cycle of a 3-D path's viscous
 # solve visits such levels (its hierarchy coarsens to 8^3). A 2-D path's
 # MAC V-cycles smooth through kernel 8's
 FUSED_3D = ("gsrb_var_sweep_3d", "nodal_sweep_3d", "gsrb_const_sweep_3d")
-FUSED = FUSED_3D + ("gsrb_sweep_2d",)
-FUSED_RT = ("nodal_sweep_3d", "gsrb_const_sweep_3d")
+FUSED = FUSED_3D + ("gsrb_sweep_2d", "gsrb_sweep_3d")
+FUSED_RT = ("nodal_sweep_3d", "gsrb_const_sweep_3d", "gsrb_sweep_3d")
 
 
 def zero_counts(fns):
@@ -1426,6 +1468,17 @@ def check_launches(launches, expect, fused):
             need(c > 0, f"{k} was not launched on this path")
         else:
             need(c == 0, f"{k} is not on this path but launched {c}x")
+
+
+def check_velpred2d_calls(per_step):
+    """Kernel 9 is two launches a call (the tie epsilon, one tile pass), and
+    a step calls it once a level."""
+    for rec in per_step:
+        calls = len(rec.get("levels", [None]))
+        need(rec["launches"]["velpred_2d_fused"] == 2 * calls,
+             f"step {rec['step']}: velpred_2d_fused launched "
+             f"{rec['launches']['velpred_2d_fused']}x for {calls} call(s), "
+             "not 2 a call")
 
 
 def phase_main(torch, kw, steps, expect, bubble=True, fused=None):
@@ -1489,6 +1542,8 @@ def phase_main(torch, kw, steps, expect, bubble=True, fused=None):
           f"{peak} bytes", flush=True)
 
     check_launches(launches, expect, fused)
+    if "velpred_2d_fused" in expect:
+        check_velpred2d_calls(per_step)
     for key in ("u", "s", "gp", "p"):
         need(bool(torch.isfinite(getattr(state, key)).all()),
              f"main path field {key} is not finite")
@@ -1582,6 +1637,8 @@ def phase_main_ml(torch, cfg, steps, expect, label, fused=None):
     print(f"  {label} launches {launches}; peak device memory {peak} bytes",
           flush=True)
     check_launches(launches, expect, fused)
+    if "velpred_2d_fused" in expect:
+        check_velpred2d_calls(per_step)
     for lev, st in enumerate(states):
         for key in ("u", "s", "gp", "p"):
             need(bool(torch.isfinite(getattr(st, key)).all()),
@@ -1695,7 +1752,7 @@ def phase_io(torch):
                   f"{[s.n for s in v.geom.specs]}, {v.regrids} regrids; "
                   f"launches { {k: c for k, c in launches.items() if c} }",
                   flush=True)
-            for k in KERNELS_RT_AMR:
+            for k in KERNELS_RT_AMR + ("gsrb_sweep_3d:fused",):
                 need(launches[k] > 0, f"RT inputs: kernel {k} was not "
                                       "launched on this AMR path")
             plot_read = []
@@ -2083,8 +2140,8 @@ def main(argv=None) -> int:
 
     # the JSON line: for each kernel its main case (velocity update, the
     # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
-    # finest patch; the
-    # padded sweep at config 4's finest MAC level); max_abs_err the largest
+    # finest patch; kernel
+    # 7's at config 4's finest MAC level); max_abs_err the largest
     # over its cases
     main_case = {"velpred_3d_fused": "velocity",
                  "mkflux_update_3d_fused": "velocity",
@@ -2095,7 +2152,7 @@ def main(argv=None) -> int:
                  "velpred_2d_fused": "walls", "mkflux_2d_fused": "velocity",
                  "update_3d": "nc2 [T,F] 384x384x384",
                  "mkflux_3d_fused": "scalars 384x384x384",
-                 "gsrb_sweep_3d": f"sweep {N_RT}^3"}
+                 "gsrb_sweep_3d": f"smooth_restrict {N_RT}^3"}
     launches_3d = dict(launches)
     launches.update({k: launches2[k] for k in KERNELS_2D})
     launches.update({k: launches_amr[k] for k in OFF_PATH})
@@ -2171,11 +2228,11 @@ def main(argv=None) -> int:
                     ("AMR main path (phase 11)", per_step_amr),
                     ("config 4 main path (phase 14)", per_step_rt)):
         steady = ps[1:] or ps
-        print(f"summary {tag}: kernels 3, 4 and 5, launches per steady step "
-              "(of them the fused stages) "
+        print(f"summary {tag}: kernels 3, 4, 5 and 7, launches per steady "
+              "step (of them the fused stages) "
               + ", ".join(f"{k} {[r['launches'][k] for r in steady]} "
                           f"({[r['launches'][k + ':fused'] for r in steady]})"
-                          for k in FUSED_3D)
+                          for k in FUSED_3D + ("gsrb_sweep_3d",))
               + "; kernel 1 velpred_3d_fused "
               f"{[r['launches']['velpred_3d_fused'] for r in steady]}",
               flush=True)

@@ -5,8 +5,9 @@ size: both run the same arithmetic and the same V-cycle counts, and the
 projections converge to rel_eps 1e-10 (MAC) and 1e-12 (nodal).
 
 The viscous and diffusive steps (16^3; visc_coef, diff_coef, Crank-Nicolson
-and backward Euler) are held to the same 1e-9: their Helmholtz solves stop
-at rel_eps 1e-12, where varden_tpu on the CPU smooths with Jacobi and the
+and backward Euler; viscous_step_matches, which test_torch_advance_visc.py,
+_diff.py and _viscdiff.py run) are held to the same 1e-9: their Helmholtz
+solves stop at rel_eps 1e-12, where varden_tpu on the CPU smooths with Jacobi and the
 port with red-black sweeps, so the two differ by at most 2e-12/min(rho)
 there (tests/test_torch_visc.py), which the later phases carry through."""
 import jax
@@ -69,11 +70,16 @@ def test_advance_timestep_matches(warm):
     assert float(tdiag["mac_ratio"]) <= 1.0 and float(tdiag["hg_ratio"]) <= 1.0
 
 
-@pytest.mark.parametrize("diffusion_type", [1, 2])
-@pytest.mark.parametrize("coefs", [dict(visc_coef=0.05),
-                                   dict(diff_coef=0.05),
-                                   dict(visc_coef=0.05, diff_coef=0.02)])
-def test_advance_timestep_viscous_matches(coefs, diffusion_type):
+# the viscous and diffusive steps, one test file each so that
+# --dist loadfile spreads them: test_torch_advance_visc.py (VISC_COEFS[0]),
+# _diff.py ([1]) and _viscdiff.py ([2]), Crank-Nicolson and backward Euler
+VISC_COEFS = [dict(visc_coef=0.05), dict(diff_coef=0.05),
+              dict(visc_coef=0.05, diff_coef=0.02)]
+
+
+def viscous_step_matches(coefs, diffusion_type):
+    """One viscous or diffusive 16^3 step of the port against varden_tpu's
+    (the body of test_advance_timestep_viscous_matches)."""
     n = (16, 16, 16)
     kw = dict(KW, n_celly=16, prob_hi_y=1.0, diffusion_type=diffusion_type,
               **coefs)

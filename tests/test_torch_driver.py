@@ -1,7 +1,8 @@
 """The port's driver and CLI: Varden.run of the 3-D bubble at 16^3, inviscid
-and viscous (visc_coef 1e-3, the headline configuration), against
-varden_tpu's (float64, CPU; initial projection, one pressure iteration,
-three steps), and the CLI on an inputs file. Tolerance 1e-9 relative to
+(here) and viscous (viscous_run_matches, which test_torch_driver_viscous.py
+and _krylov.py run), against varden_tpu's (float64, CPU; initial
+projection, one pressure iteration, three steps), and the CLI on an inputs
+file. Tolerance 1e-9 relative to
 each field's size: both packages take the same dt sequence and V-cycle
 counts, and the solvers converge to rel_eps 1e-10 / 1e-12; the viscous
 Helmholtz solve (rel_eps 1e-12, Jacobi sweeps in varden_tpu on the CPU,
@@ -51,12 +52,17 @@ def test_run_matches_three_steps(capsys):
 
 
 # the headline configuration's viscosity (Crank-Nicolson, dense bottoms),
-# and backward Euler with tracer diffusion and the Krylov bottom solvers
-@pytest.mark.parametrize("extra", [
-    dict(visc_coef=1e-3),
-    dict(visc_coef=1e-2, diff_coef=1e-2, diffusion_type=2,
-         mg_bottom_solver=2, hg_bottom_solver=1)], ids=["headline", "be-krylov"])
-def test_viscous_run_matches_three_steps(extra):
+# and backward Euler with tracer diffusion and the Krylov bottom solvers:
+# one test file each (test_torch_driver_viscous.py, _krylov.py), so that
+# --dist loadfile spreads them
+VISCOUS_RUNS = {
+    "headline": dict(visc_coef=1e-3),
+    "be-krylov": dict(visc_coef=1e-2, diff_coef=1e-2, diffusion_type=2,
+                      mg_bottom_solver=2, hg_bottom_solver=1)}
+
+
+def viscous_run_matches(extra):
+    """The body of test_viscous_run_matches_three_steps."""
     js, ts = _run_both(dict(KW, **extra))
     inviscid = TVarden(TCfg(**KW), device="cpu").run()
     assert float((ts.u - inviscid.u).abs().max()) > 1e-7

@@ -269,6 +269,74 @@ def test_gsrb_padded_kernel(cuda, dtype, alpha, n, ell_bc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("alpha", [0.0, 0.7])
+@pytest.mark.parametrize("n,ell_bc", [
+    ((8, 8, 8), [(0, 0), (2, 2), (1, 1)]),
+    ((16, 8, 24), [(0, 0), (2, 1), (1, 2)]),
+    ((64, 16, 16), [(0, 0), (0, 0), (1, 1)]),
+    ((32, 32, 32), [(0, 0), (0, 0), (0, 0)]),
+    ((40, 36, 70), [(0, 0), (3, 2), (0, 0)]),
+    ((15, 9, 7), [(0, 0), (3, 3), (2, 3)]),
+])
+def test_gsrb_padded_fused_kernel(cuda, dtype, alpha, n, ell_bc):
+    """Kernel 7's fused stages: one launch for up to two sweeps (one a
+    sweep where a periodic extent is odd), the ring formed in the kernel,
+    the correction in the first and the restriction in the last;
+    equal bit for bit to the composition a V-cycle called before (the ghost
+    pad, the padded sweep, kernel 3's restrict emit), and to the plain
+    composition within the tolerance."""
+    lev, phi, rhs = _mg_level(n, ell_bc, dtype, cuda)
+    aco = 1.0 + phi.abs()
+    bv = [[0.0, 0.0], [0.3, -0.2], [0.5, 0.25]]
+    args = (phi, rhs, lev.inv_diag, lev.beta, lev.dx)
+    opt = dict(aco=aco, alpha=alpha, ell_bc=ell_bc, bvals=bv)
+    k = cuda_kernels
+    rng = np.random.RandomState(8)
+
+    def single(p, ns, corr, fac, restrict):
+        if corr is not None:
+            p = p + k.cell_prolong(corr, fac)
+        for _ in range(ns):
+            p = k.gsrb_sweep_3d(mg._pad_ghost(p, ell_bc, bv, 3), *args[1:],
+                                aco=aco, alpha=alpha)
+        if not restrict:
+            return (p,)
+        return (p, *k.gsrb_var_sweep_3d(p, *args[1:], ell_bc, bv, aco=aco,
+                                        alpha=alpha, emit="restrict"))
+
+    runs = [("smooth", ns, None, (2, 2, 2)) for ns in (1, 2, 3)]
+    for fac in ((2, 2, 2), (2, 1, 2)):
+        if all(s % f == 0 for s, f in zip(n, fac)):
+            c = torch.as_tensor(rng.rand(*[s // f for s, f in zip(n, fac)])
+                                - 0.5, dtype=dtype, device=cuda)
+            runs.append(("smooth", 2, c, fac))
+    if all(s % 2 == 0 for s in n):
+        runs += [("smooth_restrict", ns, None, (2, 2, 2)) for ns in (1, 2)]
+    # two sweeps a launch, one where a periodic extent is odd
+    odd = any(0 in ell_bc[d] and n[d] % 2 for d in range(3))
+    for emit, ns, corr, fac in runs:
+        before = (k.gsrb_sweep_3d.launches, k.gsrb_sweep_3d.fused_launches)
+        out = k.gsrb_sweep_3d(*args, **opt, emit=emit, nsweeps=ns, corr=corr,
+                              cfac=fac)
+        torch.cuda.synchronize()
+        nl = ns if odd else (ns + 1) // 2
+        assert (k.gsrb_sweep_3d.launches, k.gsrb_sweep_3d.fused_launches) \
+            == (before[0] + nl, before[1] + nl)
+        outs = out if isinstance(out, tuple) else (out,)
+        olds = single(phi, ns, corr, fac, emit == "smooth_restrict")
+        ref = k.gsrb_sweep_3d_plain(*args, **opt, emit=emit, nsweeps=ns,
+                                    corr=corr, cfac=fac)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for o, old, r in zip(outs, olds, refs):
+            what = f"gsrb_padded {emit} n={n} ns={ns} fac={fac}"
+            assert torch.equal(o, old), what
+            _close(o, r, dtype, what)
+    if n[0] % 2:
+        with pytest.raises(ValueError, match="even extents"):
+            k.gsrb_sweep_3d(*args, **opt, emit="smooth_restrict", nsweeps=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("n,ell_bc", [
     ((16, 8, 32), [(2, 2), (2, 2), (2, 2)]),
@@ -487,7 +555,7 @@ def test_velpred_2d_kernel(cuda, bc, n, use_minion, order, dtype):
     before = cuda_godunov.velpred_2d_fused.launches
     out = cuda_godunov.velpred_2d_fused(*args)
     torch.cuda.synchronize()
-    assert cuda_godunov.velpred_2d_fused.launches == before + 4
+    assert cuda_godunov.velpred_2d_fused.launches == before + 2
     ref = cuda_godunov.velpred_2d_plain(*args)
     for d in range(2):
         assert out[d].shape == ref[d].shape

@@ -4,7 +4,7 @@ this is run from, so that two checkouts can be compared on one card in one
 call.
 
     cd CHECKOUT && python3 /path/to/tools/torch_step_compare.py TAG \
-        [--cells headline,cfg5,rt,2d,pub1024,cfg3]
+        [--cells headline,cfg5,rt,rtio,2d,pub1024,cfg3]
 
 It imports chip_smoke.py and varden_tpu_torch from the current directory
 (the checkout under test, which may be an older commit unpacked with `git
@@ -12,7 +12,10 @@ archive`) and drives that checkout's own phase functions, with the same
 gates as chip_smoke.py: the headline configuration (the viscous 256^3
 bubble, float32, STEPS steps), BASELINE config 5 (256^3 + 2 levels,
 float32, STEPS_AMR steps), config 4 (3-D Rayleigh-Taylor 128^3, float32,
-STEPS steps), the 2-D main cell (the viscous 2-D bubble's geometry at
+STEPS steps), the RT inputs as published (inputs/inputs_RayleighTaylor_3d:
+float64, 32^3 base, 2 levels, regrid every step; RTIO_STEPS steps, no
+output files, and no density gate: the problem leaves the bubble's
+range), the 2-D main cell (the viscous 2-D bubble's geometry at
 N_2D^2, float32, STEPS steps), the published viscous 2-D bubble at
 N_2D_PUBLISHED^2 (float32, STEPS steps) and BASELINE config 3 (2-D 64^2,
 2 levels, float32, 6 steps across a regrid), each (or those --cells
@@ -43,6 +46,7 @@ from varden_tpu_torch.ops import _cuda  # noqa: E402
 from varden_tpu_torch.solvers import mg, nodal  # noqa: E402
 
 CYCLES = collections.Counter()
+RTIO_STEPS = 6
 
 
 def count_cycles(module, key, lev_pos):
@@ -56,6 +60,37 @@ def count_cycles(module, key, lev_pos):
         return fn(*a, **k)
 
     module.v_cycle = wrapped
+
+
+def rt_inputs(nsteps):
+    """The RT inputs as published, initialization and nsteps steps on the
+    card: (Varden, states, per-step records, peak device bytes)."""
+    from varden_tpu_torch.config import load_config
+    from varden_tpu_torch.driver import Varden
+    cfg = load_config(os.path.join("inputs", "inputs_RayleighTaylor_3d"),
+                      plot_int=-1, chk_int=-1, max_step=nsteps)
+    fns = cs.counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    v = Varden(cfg)
+    states = v.initialize_ml()
+    steps = []
+    while v.istep < nsteps:
+        before = cs.read_counts(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = v.step_ml(states)
+        torch.cuda.synchronize()
+        d = v.last_diag
+        rec = {"seconds": time.perf_counter() - t0,
+               "launches": {k: c - before[k]
+                            for k, c in cs.read_counts(fns).items()}}
+        for k in ("mac_outer", "hg_outer", "mac_ratio", "hg_ratio",
+                  "visc_ratio"):
+            rec[k] = float(d[k]) if "ratio" in k else int(d[k])
+        rec["visc_outer"] = [int(k) for k in d.get("visc_outer", [])]
+        steps.append(rec)
+    return v, states, steps, torch.cuda.max_memory_allocated()
 
 
 def profiled(v, state):
@@ -92,7 +127,8 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tag")
-    ap.add_argument("--cells", default="headline,cfg5,rt,2d,pub1024,cfg3")
+    ap.add_argument("--cells",
+                    default="headline,cfg5,rt,rtio,2d,pub1024,cfg3")
     args = ap.parse_args()
     tag = args.tag
     print(f"card: {cs.smi_name_power()}", flush=True)
@@ -116,6 +152,8 @@ def main():
             v, state, _, steps, peak = cs.phase_main(
                 torch, cs.rt_kw(cs.N_RT, "float32"), cs.STEPS,
                 cs.KERNELS_RT, bubble=False, **rt_kw)
+        elif key == "rtio":
+            v, state, steps, peak = rt_inputs(RTIO_STEPS)
         elif key == "2d":
             # the 2-D main cell: the viscous 2-D bubble's geometry at N_2D^2
             v, state, _, steps, peak = cs.phase_main(

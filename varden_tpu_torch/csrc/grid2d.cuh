@@ -1,5 +1,6 @@
-// 2-D counterparts of the padded-grid helpers of common.cuh, shared by the
-// 2-D Godunov kernels (velpred2d.cu, mkflux2d.cu).
+// 2-D counterparts of the padded-grid helpers of common.cuh, and the tile
+// boxes of their shared-memory passes, shared by the 2-D Godunov kernels
+// (velpred2d.cu, mkflux2d.cu).
 #pragma once
 #include "common.cuh"
 
@@ -25,31 +26,6 @@ __host__ inline Grid2 make_grid2(const long long* n, int ng) {
   return g;
 }
 
-// Flat index of padded point c, clamped into the array (see at() in
-// common.cuh: clamped reads feed only faces the interior crop never reads).
-__device__ __forceinline__ i64 at2(const Grid2& g, int c0, int c1) {
-  c0 = clampi(c0, 0, g.P[0] - 1);
-  c1 = clampi(c1, 0, g.P[1] - 1);
-  return (i64)c0 * g.P[1] + c1;
-}
-
-// c shifted by off along axis
-__device__ __forceinline__ i64 at2_off(const Grid2& g, const int* c, int axis,
-                                       int off) {
-  return axis == 0 ? at2(g, c[0] + off, c[1]) : at2(g, c[0], c[1] + off);
-}
-
-__device__ __forceinline__ void unflat2(const Grid2& g, i64 p, int* c) {
-  c[1] = (int)(p % g.P[1]);
-  c[0] = (int)(p / g.P[1]);
-}
-
-// 0 / 1 where padded point x lies on the lo / hi domain face of axis a
-// (cell-aligned faces: face i at padded index i), else -1
-__device__ __forceinline__ int face_side2(const Grid2& g, const int* x, int a) {
-  return x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-}
-
 // adv_bc codes of up to MAXC components: code[c][axis][side]
 struct AdvBC2 {
   int code[MAXC][2][2];
@@ -62,28 +38,6 @@ __host__ inline AdvBC2 read_adv_bc2(const long long* iv, int nc) {
       for (int s = 0; s < 2; ++s)
         b.code[c][a][s] = c < nc ? (int)iv[(c * 2 + a) * 2 + s] : 0;
   return b;
-}
-
-// Limited slopes of nc padded components along each axis, one thread per
-// padded point: out[(a*nc + c)*N + p].
-template <typename T>
-__global__ void slopes2d_kernel(const T* __restrict__ s, T* __restrict__ out,
-                                Grid2 g, int nc, int order, AdvBC2 bc) {
-  i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.N) return;
-  int c[2];
-  unflat2(g, p, c);
-  for (int comp = 0; comp < nc; ++comp) {
-    const T* sc = s + comp * g.N;
-    for (int a = 0; a < 2; ++a) {
-      auto S = [&](int m) {
-        return sc[a == 0 ? at2(g, m, c[1]) : at2(g, c[0], m)];
-      };
-      out[(a * nc + comp) * g.N + p] =
-          slope_at<T>(S, c[a], g.ng, g.n[a], bc.code[comp][a][0],
-                      bc.code[comp][a][1], order);
-    }
-  }
 }
 
 // One box of absmax_boxes (common.cuh) over a window of a padded 2-D
@@ -99,6 +53,33 @@ __host__ inline void set_box2(Boxes<T>& bx, int b, const T* f, const Grid2& g,
   bx.st[b][0] = 0;
   bx.st[b][1] = g.P[1];
   bx.st[b][2] = 1;
+}
+
+// a box of tile-local points [lo, lo + e) per axis, axis 1 fastest
+struct Box2 {
+  int lo[2];
+  int e[2];
+};
+
+__host__ __device__ constexpr int box2_size(Box2 b) { return b.e[0] * b.e[1]; }
+
+__device__ __forceinline__ int bidx2(Box2 b, int l0, int l1) {
+  return (l0 - b.lo[0]) * b.e[1] + (l1 - b.lo[1]);
+}
+
+// copy a box of a padded field into a tile, coordinates clamped into the
+// array (see at() in common.cuh: clamped reads feed only faces the
+// interior crop never reads)
+template <typename T, class G>
+__device__ __forceinline__ void load_box2(const Grid2& g, Box2 b, const int* o,
+                                          const T* __restrict__ src, T* dst) {
+  const int n = box2_size(b);
+  for (int i = threadIdx.x; i < n; i += G::NT) {
+    const int l0 = i / b.e[1] + b.lo[0], l1 = i % b.e[1] + b.lo[1];
+    const int x0 = clampi(g.ng + o[0] + l0, 0, g.P[0] - 1);
+    const int x1 = clampi(g.ng + o[1] + l1, 0, g.P[1] - 1);
+    dst[i] = src[(i64)x0 * g.P[1] + x1];
+  }
 }
 
 }  // namespace vt

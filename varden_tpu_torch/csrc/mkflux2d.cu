@@ -25,7 +25,7 @@
 // the neighbouring tiles; its re-reads hit L2. Every stage keeps the order
 // of operations of the staged kernel it replaced (built with -fmad=false),
 // so the result equals the plain version to roundoff. Reads outside the
-// padded array clamp to its edge (at2 in grid2d.cuh): such points feed
+// padded array clamp to its edge (load_box2 in grid2d.cuh): such points feed
 // only faces the interior crop never reads.
 #include <type_traits>
 
@@ -50,18 +50,6 @@ struct MK2Ptrs {
   const void* force;  // may be null
   const void* rhs;    // may be null
 };
-
-// a box of tile-local points [lo, lo + e) per axis, axis 1 fastest
-struct Box2 {
-  int lo[2];
-  int e[2];
-};
-
-__host__ __device__ constexpr int box2_size(Box2 b) { return b.e[0] * b.e[1]; }
-
-__device__ __forceinline__ int bidx2(Box2 b, int l0, int l1) {
-  return (l0 - b.lo[0]) * b.e[1] + (l1 - b.lo[1]);
-}
 
 // The shared-memory plan of a tile of B0 x B1 cells, all of it known at
 // compile time:
@@ -141,20 +129,6 @@ __device__ __forceinline__ void tile_lr2(const Ctx2<T>& x, int l0, int l1,
   }
   const int side = face_side(m.g, A, x.o[A] + (A == 0 ? l0 : l1));
   if (side >= 0) lr_overrides(m, A, x.c, side, s_m, s_p, lv, rv);
-}
-
-// copy a box of a padded field into a tile (coordinates clamped into the
-// array, as at2 does)
-template <typename T, class G>
-__device__ __forceinline__ void load_box2(const Grid2& g, Box2 b, const int* o,
-                                          const T* __restrict__ src, T* dst) {
-  const int n = box2_size(b);
-  for (int i = threadIdx.x; i < n; i += G::NT) {
-    const int l0 = i / b.e[1] + b.lo[0], l1 = i % b.e[1] + b.lo[1];
-    const int x0 = clampi(g.ng + o[0] + l0, 0, g.P[0] - 1);
-    const int x1 = clampi(g.ng + o[1] + l1, 0, g.P[1] - 1);
-    dst[i] = src[(i64)x0 * g.P[1] + x1];
-  }
 }
 
 // limited slopes along A on cbox

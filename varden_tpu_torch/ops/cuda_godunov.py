@@ -14,8 +14,8 @@ Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
 CUDA launches the wrapper made (every stage counts: velpred_3d_fused,
-mkflux_update_3d_fused and mkflux_2d_fused make two each, the tie epsilon
-and one shared-memory pass).
+mkflux_update_3d_fused, velpred_2d_fused and mkflux_2d_fused make two
+each, the tie epsilon and one shared-memory pass).
 """
 from __future__ import annotations
 
@@ -233,10 +233,17 @@ def velpred_2d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
                      slope_order, use_minion):
     """BCG MAC predictor, 2-D. u, force: (2, nx+2ng, ny+2ng). Returns
     interior (umac (nx+1, ny), vmac (nx, ny+1)) exactly as
-    godunov.velpred_2d, at any size and in both dtypes."""
+    godunov.velpred_2d, at any size and in both dtypes. On the card: two
+    launches, the tie epsilon and one shared-memory tile pass."""
     if u.device.type == "cpu":
         return velpred_2d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
                                 n_cell, slope_order, use_minion)
+    return _velpred2d_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
+                             n_cell, slope_order, use_minion)
+
+
+def _velpred2d_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
+                      slope_order, use_minion):
     nx, ny = n_cell
     P = _padded(n_cell, ng)
     _cuda.check(u, "u", (2,) + P)
@@ -244,13 +251,12 @@ def velpred_2d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
     opts = dict(dtype=u.dtype, device=u.device)
     umac = torch.empty((nx + 1, ny), **opts)
     vmac = torch.empty((nx, ny + 1), **opts)
-    work = torch.empty((8,) + P, **opts)
     umax = torch.zeros(1, **opts)
     iv = [nx, ny, ng, slope_order, int(bool(use_minion))]
     iv += _flat_bc(phys_bc, adv_bc_vel, 2)
-    _cuda.call("velpred2d", "velpred2d", [u, force, umac, vmac, work, umax],
+    _cuda.call("velpred2d", "velpred2d", [u, force, umac, vmac, umax],
                iv, [float(dt), *map(float, dx)], u)
-    velpred_2d_fused.launches += 4
+    velpred_2d_fused.launches += 2
     return umac, vmac
 
 

@@ -19,14 +19,17 @@ varden_tpu.ops.pallas_kernels).
                                        red-black sweep, residual, and the
                                        fused V-cycle stages (smooth,
                                        smooth_restrict)
-  gsrb_sweep_3d      csrc/gsrb_padded.cu  variable-beta red-black sweep on a
-                                       ghost-padded phi, the ring held for
-                                       both colours
+  gsrb_sweep_3d      csrc/gsrb_padded.cu  variable-beta red-black sweep, its
+                                       ghost ring held at the sweep's start:
+                                       one sweep of a ghost-padded phi, and
+                                       the fused V-cycle stages (smooth,
+                                       smooth_restrict) that form the ring
+                                       in the kernel
 
 Each wrapper takes the arguments of its TPU counterpart. On a CPU tensor it
 runs its plain PyTorch version (``*_plain`` below); on a CUDA tensor it
 launches the kernel or raises. ``<wrapper>.launches`` counts CUDA launches;
-kernels 3, 4, 5 and 8 also count the launches of their fused multigrid
+kernels 3, 4, 5, 7 and 8 also count the launches of their fused multigrid
 stages apart (``.fused_launches``).
 """
 from __future__ import annotations
@@ -830,10 +833,37 @@ def _lphi_padded(p, beta, dxi2, aco, alpha):
     return out
 
 
-def gsrb_sweep_3d_plain(phi_pad, rhs, inv_diag, beta, dx, aco=None,
-                        alpha=0.0):
-    """The plain PyTorch version of gsrb_sweep_3d."""
+def _pad_ring(phi, ell_bc, bvals):
+    """phi with one ghost layer a side, realised as mg._pad_ghost does (x,
+    then y, then z; the same formulas in the same order)."""
+    for d in range(3):
+        lo, hi = _ghost_planes(phi, d, ell_bc[d][0], ell_bc[d][1],
+                               bvals[d][0], bvals[d][1])
+        phi = torch.cat([lo, phi, hi], dim=d)
+    return phi
+
+
+def gsrb_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, aco=None, alpha=0.0,
+                        *, emit="sweep", ell_bc=None, bvals=None, nsweeps=1,
+                        corr=None, cfac=(2, 2, 2)):
+    """The plain PyTorch version of gsrb_sweep_3d. The fused emits are the
+    composition that mg.v_cycle ran on a padded-route level before them:
+    phi + prolong(corr), then nsweeps times the ghost pad and the sweep
+    (smooth); then, for smooth_restrict, kernel 3's restrict emit (the
+    residual with a fresh ring, its 2x2x2 average, max|r|)."""
     dxi2 = tuple(1.0 / (float(h) * float(h)) for h in dx)
+    if emit != "sweep":
+        if corr is not None:
+            phi = phi + cell_prolong(corr, cfac)
+        for _ in range(nsweeps):
+            phi = gsrb_sweep_3d_plain(_pad_ring(phi, ell_bc, bvals), rhs,
+                                      inv_diag, beta, dx, aco, alpha)
+        if emit == "smooth":
+            return phi
+        return (phi, *gsrb_var_sweep_3d_plain(
+            phi, rhs, inv_diag, beta, dx, ell_bc, bvals, aco, alpha,
+            emit="restrict"))
+    phi_pad = phi
     red = (_colour_index(rhs.shape, rhs.device) % 2 == 0).to(rhs.dtype)
     r = rhs - _lphi_padded(phi_pad, beta, dxi2, aco, alpha)
     new_int = phi_pad[1:-1, 1:-1, 1:-1] + red * r * inv_diag
@@ -843,24 +873,65 @@ def gsrb_sweep_3d_plain(phi_pad, rhs, inv_diag, beta, dx, aco=None,
     return new_int + (1.0 - red) * r * inv_diag
 
 
-def gsrb_sweep_3d(phi_pad, rhs, inv_diag, beta, dx, aco=None, alpha=0.0):
-    """One red-black sweep of L = alpha*aco*phi - div(beta grad phi) on a
-    ghost-padded phi: red cells (index sum even) update, then black cells
-    from the updated red values; both colours read the ghost ring as the
-    caller padded it (it is not refreshed in between).
+_PADDED_EMITS = ("sweep", "smooth", "smooth_restrict")
 
-    phi_pad: (n0+2, n1+2, n2+2) with its ghosts realised; rhs/inv_diag/aco:
-    (n0, n1, n2); beta: the (n0+1, n1, n2), (n0, n1+1, n2) and
-    (n0, n1, n2+1) face tensors. aco is read only when alpha != 0. Returns
-    the updated interior, (n0, n1, n2)."""
-    if phi_pad.device.type == "cpu":
-        return gsrb_sweep_3d_plain(phi_pad, rhs, inv_diag, beta, dx, aco,
-                                   alpha)
+
+def gsrb_sweep_3d(phi, rhs, inv_diag, beta, dx, aco=None, alpha=0.0, *,
+                  emit="sweep", ell_bc=None, bvals=None, nsweeps=1,
+                  corr=None, cfac=(2, 2, 2)):
+    """Red-black sweeps of L = alpha*aco*phi - div(beta grad phi) whose
+    ghost ring is held at the sweep's start: red cells (index sum even)
+    update, then black cells from the updated red values, both colours
+    reading the ring as it was before the red ones.
+
+      "sweep"            one sweep of a phi its caller padded:
+                         phi (n0+2, n1+2, n2+2) with its ghosts realised;
+                         returns the updated interior (n0, n1, n2);
+      "smooth"           phi (n0, n1, n2) + prolong(corr) (piecewise
+                         constant along the axes whose cfac is 2; corr None
+                         adds nothing), then nsweeps sweeps, each with the
+                         ring that ell_bc and bvals give phi at its start
+                         (mg._pad_ghost's);
+      "smooth_restrict"  nsweeps such sweeps, then the residual with a
+                         fresh ring, its 2x2x2 average and max|r|: returns
+                         (phi, coarse residual, max|r| as a 0-d tensor);
+                         even extents only.
+
+    rhs/inv_diag/aco: (n0, n1, n2); beta: the (n0+1, n1, n2), (n0, n1+1,
+    n2) and (n0, n1, n2+1) face tensors. aco is read only when alpha != 0.
+    On the card "sweep" is two launches (one a colour) and a fused emit one
+    launch for every FUSED_SWEEPS sweeps, or one a sweep where a periodic
+    extent is odd."""
+    if emit not in _PADDED_EMITS:
+        raise ValueError(f"bad emit {emit!r}")
     n = tuple(rhs.shape)
     if len(n) != 3:
         raise ValueError(f"gsrb_sweep_3d: rhs must be 3-D, got {n}")
-    kw = dict(dtype=phi_pad.dtype, device=phi_pad.device)
-    _cuda.check(phi_pad, "phi_pad", tuple(s + 2 for s in n))
+    if emit != "sweep":
+        _check_nsweeps(emit, nsweeps)
+        if tuple(phi.shape) != n or min(n) < 2:
+            raise ValueError(f"{emit}: phi must be rhs's shape, every "
+                             f"extent >= 2, got {tuple(phi.shape)}")
+        if emit == "smooth_restrict" and any(s % 2 for s in n):
+            raise ValueError(f"{emit} needs even extents, got {n}")
+        cfac = tuple(int(f) for f in cfac)
+        if corr is not None and any(f not in (1, 2) or s % f
+                                    for f, s in zip(cfac, n)):
+            raise ValueError(f"cfac {cfac} does not divide {n}")
+    if phi.device.type == "cpu":
+        return gsrb_sweep_3d_plain(phi, rhs, inv_diag, beta, dx, aco, alpha,
+                                   emit=emit, ell_bc=ell_bc, bvals=bvals,
+                                   nsweeps=nsweeps, corr=corr, cfac=cfac)
+    return _gsrb_padded_launch(phi, rhs, inv_diag, beta, dx, aco, alpha, emit,
+                               ell_bc, bvals, nsweeps, corr, cfac)
+
+
+def _gsrb_padded_launch(phi, rhs, inv_diag, beta, dx, aco, alpha, emit,
+                        ell_bc, bvals, nsweeps, corr, cfac):
+    n = tuple(rhs.shape)
+    kw = dict(dtype=phi.dtype, device=phi.device)
+    _cuda.check(phi, "phi", n if emit != "sweep" else
+                tuple(s + 2 for s in n))
     _cuda.check(rhs, "rhs", n, **kw)
     _cuda.check(inv_diag, "inv_diag", n, **kw)
     for d in range(3):
@@ -870,14 +941,45 @@ def gsrb_sweep_3d(phi_pad, rhs, inv_diag, beta, dx, aco=None, alpha=0.0):
         _cuda.check(aco, "aco", n, **kw)
     else:
         aco = None
-    out = torch.empty(n, **kw)
-    tmp = torch.empty(n, **kw)
     dv = [1.0 / (float(h) * float(h)) for h in dx] + [float(alpha)]
-    _cuda.call("gsrb_padded", "gsrb_padded3d",
-               [phi_pad, rhs, inv_diag, aco, beta[0], beta[1], beta[2], out,
-                tmp], list(n), dv, phi_pad)
-    gsrb_sweep_3d.launches += 2
-    return out
+    if emit == "sweep":
+        out = torch.empty(n, **kw)
+        tmp = torch.empty(n, **kw)
+        _cuda.call("gsrb_padded", "gsrb_padded3d",
+                   [phi, rhs, inv_diag, aco, beta[0], beta[1], beta[2], out,
+                    tmp], list(n) + [0] * 10, dv + [0.0] * 6, phi)
+        gsrb_sweep_3d.launches += 2
+        return out
+    if corr is not None:
+        _cuda.check(corr, "corr", tuple(s // f for s, f in zip(n, cfac)),
+                    **kw)
+    iv = [*n, 0] + [int(ell_bc[d][s]) for d in range(3) for s in range(2)]
+    iv += [*cfac, 0]
+    dv += [float(bvals[d][s]) for d in range(3) for s in range(2)]
+    # FUSED_SWEEPS sweeps a launch (one where a periodic extent is odd),
+    # the correction in the first, the restriction in the last
+    step = 1 if any(_BC_PER in ell_bc[d] and n[d] % 2
+                    for d in range(3)) else FUSED_SWEEPS
+    left = nsweeps
+    crs = rmax = None
+    while left > 0:
+        k = min(left, step)
+        left -= k
+        last = left == 0 and emit == "smooth_restrict"
+        out = torch.empty(n, **kw)
+        if last:
+            crs = torch.empty(tuple(s // 2 for s in n), **kw)
+            rmax = torch.zeros(1, **kw)
+        iv[3] = _PADDED_EMITS.index("smooth_restrict" if last else "smooth")
+        iv[13] = k
+        _cuda.call("gsrb_padded", "gsrb_padded3d",
+                   [phi, rhs, inv_diag, aco, beta[0], beta[1], beta[2], out,
+                    None, rmax, corr, crs], iv, dv, phi)
+        gsrb_sweep_3d.launches += 1
+        gsrb_sweep_3d.fused_launches += 1
+        phi, corr = out, None
+    return (phi, crs, rmax[0]) if emit == "smooth_restrict" else phi
 
 
 gsrb_sweep_3d.launches = 0
+gsrb_sweep_3d.fused_launches = 0  # of them, the fused stages

@@ -11,9 +11,10 @@ In 3-D the smoothing sweeps, the residuals and the restriction run through
 two kernels of ops/cuda_kernels.py: gsrb_var_sweep_3d where beta is a face
 tensor per axis (the MAC projection, alpha = 0: a V-cycle's level visit is
 two of its fused passes, the pre-smooth with the residual and the
-restriction, and the prolongation with the post-smooth; on a level periodic
-in x the sweeps take gsrb_sweep_3d on a ghost-padded phi instead, as
-varden_tpu's do on its accelerator), gsrb_const_sweep_3d where
+restriction, and the prolongation with the post-smooth; a level periodic in
+x takes gsrb_sweep_3d's fused passes instead, up to
+PADDED_FUSED_MAX_CELLS cells, see below),
+gsrb_const_sweep_3d where
 beta is one number per axis (the viscous and diffusive Helmholtz solves,
 whose right-hand side may carry a leading batch axis, and the explicit
 Laplacian: a V-cycle's visit of a level of at most CONST_FUSED_MAX_CELLS
@@ -27,6 +28,23 @@ for it: masked red-black sweeps inside V-cycles, Jacobi sweeps on the
 Helmholtz fast path. The loops that the JAX
 package runs as lax.while_loop are Python loops here, reading the residual
 norms on the host once per V-cycle.
+
+The rule for 3-D face-tensor levels periodic in x (_padded_route: every
+extent even and >= 8, no batch axis; the MAC levels of BASELINE config 4
+and of the vortex tube): their sweeps hold each sweep's ghost ring at the
+sweep's start, on every device, as varden_tpu's accelerator route does
+(varden_tpu/solvers/mg.py:391-405: gsrb_var_sweep_3d refuses a periodic x
+axis, and pallas_kernels.gsrb_sweep_3d sweeps a phi padded once a sweep).
+A V-cycle visits such a level through gsrb_sweep_3d's fused passes, which
+form that ring in the kernel (two sweeps a launch, the last one with the
+residual and the restriction), up to PADDED_FUSED_MAX_CELLS cells, and a
+larger one through the single passes: the ghost pad and the padded sweep,
+then kernel 3's restriction. On the CPU the two routes are one plain
+composition, bit for bit. Kernel 3's exact sweeps extended to a periodic x axis would
+take these levels to varden_tpu's CPU route instead, which agrees with the
+accelerator route only to the solver's tolerance: the port's numerics
+would move on config 4 and the vortex tube, and the tests that hold them
+to varden_tpu's accelerator route would have to loosen.
 """
 from __future__ import annotations
 
@@ -400,10 +418,41 @@ def _padded_route(level: CCLevel, phi) -> bool:
             and all(s >= 8 and s % 2 == 0 for s in level.n))
 
 
+# The largest periodic-x level (_padded_route), in cells, whose V-cycle
+# visits and sweeps run through kernel 7's fused stages. Measured on an
+# H100 (PERF.md, PR 10: tools/torch_padded_levels.py on config 4's MAC
+# operator): a level visit through them is 3.0-5.1x faster than the ghost
+# pad, the padded sweeps and kernel 3's restriction up to 64^3 cells in
+# both dtypes, 1.53x (float32) and 1.04x (float64) at 128^3, and at 256^3
+# 1.32x in float32 but 0.74x in float64, so larger levels keep the single
+# passes. The rule reads the level's extents only, never the device or the
+# dtype, so on the CPU both routes compute the same plain composition.
+PADDED_FUSED_MAX_CELLS = 128 ** 3
+
+
+def _padded_fused(level: CCLevel, phi) -> bool:
+    """Whether the level smooths through kernel 7's fused stages: a level
+    of _padded_route of at most PADDED_FUSED_MAX_CELLS cells."""
+    return (_padded_route(level, phi)
+            and math.prod(level.n) <= PADDED_FUSED_MAX_CELLS)
+
+
+def _padded_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
+    """A fused pass of gsrb_sweep_3d on a _padded_route level (``fused``:
+    nsweeps, corr and cfac): the sweeps' ghost rings formed in the kernel."""
+    return ck.gsrb_sweep_3d(phi, rhs, level.inv_diag, level.beta, level.dx,
+                            aco=level.aco, alpha=level.alpha, emit=emit,
+                            ell_bc=level.ell_bc, bvals=bvals, **fused)
+
+
 def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
     """nsweeps red-black Gauss-Seidel sweeps (red: index sum even): exact,
-    or, on a level of _padded_route, each on a phi padded once per sweep,
-    so the black cells see the ghosts of the sweep's start."""
+    or, on a level of _padded_route, each with the ghost ring of its start,
+    so the black cells see the ghosts of the sweep's start (kernel 7's fused
+    stages, or above PADDED_FUSED_MAX_CELLS a phi padded once a sweep)."""
+    if _padded_fused(level, phi):
+        return _padded_sweep(level, phi, rhs, bvals, "smooth",
+                             nsweeps=nsweeps)
     if _padded_route(level, phi):
         aco = level.aco if level.alpha != 0.0 else None
         for _ in range(nsweeps):
@@ -574,6 +623,7 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
         return (out, r.abs().max()) if return_resnorm else out
     fac = level.cfac if level.cfac is not None else (2,) * level.dm
     fused = _fused_route(level, phi)
+    padded = _padded_fused(level, phi)
     cfused = _const_fused_route(level)
     full = fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)
     if fused and full:
@@ -581,6 +631,10 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
         # pass of kernel 3 or 8
         phi, crs, rmax = _var_sweep(level, phi, rhs, bv, "smooth_restrict",
                                     nsweeps=nu1)
+    elif padded and full:
+        # the same with the frozen rings: nu1 passes of kernel 7
+        phi, crs, rmax = _padded_sweep(level, phi, rhs, bv,
+                                       "smooth_restrict", nsweeps=nu1)
     elif cfused and full:
         # the same through kernel 5, max|r| over the batch
         phi, crs, rmax = _const_sweep(level, phi, rhs, bv,
@@ -596,10 +650,11 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
             rmax = res.abs().max()
     corr = v_cycle(levels, torch.zeros_like(crs), crs, bvals, lev + 1, nu1,
                    nu2, singular, bottom=bottom)
-    if fused or cfused:
+    if fused or cfused or padded:
         # phi + the piecewise-constant prolongation of corr, then nu2 sweeps:
-        # one pass of kernel 3, 5 or 8
-        sweep = _var_sweep if fused else _const_sweep
+        # one pass of kernel 3, 5 or 8, or nu2 of kernel 7
+        sweep = (_var_sweep if fused else
+                 _padded_sweep if padded else _const_sweep)
         phi = sweep(level, phi, rhs, bv, "smooth", nsweeps=nu2, corr=corr,
                     cfac=fac)
         return (phi, rmax) if return_resnorm else phi
