@@ -17,9 +17,8 @@ Tolerance: 1e-12 of each output's largest value (the same arithmetic; the
 residual is summed in another order). mg.v_cycle and mg.solve on a
 periodic-x hierarchy, config 4's boundaries and a fully periodic (vortex
 tube) one, give through the fused stages what the ghost pad, the padded
-sweep and kernel 3's restriction gave before them (and still give above
-mg.PADDED_FUSED_MAX_CELLS), bit for bit, and call mg._pad_ghost no
-more."""
+sweep and kernel 3's restriction gave before them, bit for bit, and call
+mg._pad_ghost no more."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -83,6 +82,23 @@ def test_fused_stages_match_the_accelerator_route(case, stage):
     _close(rmax, jnp.max(jnp.abs(r)), "smooth_restrict max|r|")
 
 
+def _single_passes(level, phi, rhs, bvals, emit, nsweeps, corr=None,
+                   cfac=(2, 2, 2)):
+    """What a V-cycle ran on a padded-route level before the fused stages:
+    the ghost pad and the padded sweep nsweeps times, then kernel 3's
+    restrict emit."""
+    if corr is not None:
+        phi = phi + tck.cell_prolong(corr, cfac)
+    aco = level.aco if level.alpha != 0.0 else None
+    for _ in range(nsweeps):
+        pad = tmg._pad_ghost(phi, level.ell_bc, bvals, 3)
+        phi = tck.gsrb_sweep_3d(pad, rhs, level.inv_diag, level.beta,
+                                level.dx, aco=aco, alpha=level.alpha)
+    if emit == "smooth":
+        return phi
+    return (phi, *tmg._var_sweep(level, phi, rhs, bvals, "restrict"))
+
+
 @pytest.mark.parametrize("n,ell_bc", [
     ((32, 16, 16), [(0, 0), (0, 0), (2, 2)]),
     ((16, 16, 16), [(0, 0), (0, 0), (0, 0)]),
@@ -90,9 +106,8 @@ def test_fused_stages_match_the_accelerator_route(case, stage):
 def test_padded_route_is_the_single_pass_composition(n, ell_bc, monkeypatch):
     """config 4's boundaries (periodic x and y, here Dirichlet z with
     non-zero values) and the vortex tube's (fully periodic, singular):
-    the V-cycles and solves through kernel 7's fused stages, and with
-    mg.PADDED_FUSED_MAX_CELLS at 0 through the single passes (the ghost
-    pad, the padded sweep, kernel 3's restrict emit) they replace."""
+    the V-cycles and solves through kernel 7's fused stages, and through
+    the single passes they replace (_single_passes)."""
     rng = np.random.RandomState(4)
     beta = tuple(torch.as_tensor(0.5 + rng.rand(
         *[n[t] + (1 if t == d else 0) for t in range(3)])) for d in range(3))
@@ -112,7 +127,7 @@ def test_padded_route_is_the_single_pass_composition(n, ell_bc, monkeypatch):
     outs = []
     for fused in (True, False):
         if not fused:
-            monkeypatch.setattr(tmg, "PADDED_FUSED_MAX_CELLS", 0)
+            monkeypatch.setattr(tmg, "_padded_sweep", _single_passes)
         pads.clear()
         p, mon = tmg.v_cycle(levels, phi0, rhs, bv, singular=singular,
                              return_resnorm=True)

@@ -4,9 +4,10 @@ card.
 
     python3 tools/torch_kernel3_variants.py [--source FILE.cu] [VARIANT ...]
 
-Each variant is kernel 3's source (varden_tpu_torch/csrc/gsrb_var.cu, or
-FILE.cu, e.g. an earlier commit's: `git show
-REV:varden_tpu_torch/csrc/gsrb_var.cu > old.cu`) with one edit, built
+Each variant is kernel 3's source (varden_tpu_torch/csrc/gsrb_var.cu with
+the header csrc/gsrb3d.cuh it includes, or FILE.cu, e.g. an earlier
+commit's: `git show REV:varden_tpu_torch/csrc/gsrb_var.cu > old.cu`) with
+one edit, built
 with the package's nvcc flags into varden_tpu_torch/_build/variants/ and
 swapped in for the package's own library; the cases are chip_smoke.py's
 phase-2 fused stages (`smooth_restrict`, and `smooth` with a coarse
@@ -75,7 +76,13 @@ EXACT = ("source", "ty32")
 
 
 def sources(path):
+    """The variants' texts: the kernel's source with the fused-stage header
+    it includes (csrc/gsrb3d.cuh, where the edited text lives) inlined."""
     src = open(path).read()
+    inc = '#include "gsrb3d.cuh"'
+    if inc in src:
+        with open(os.path.join(_cuda.CSRC, "gsrb3d.cuh")) as f:
+            src = src.replace(inc, f.read().replace("#pragma once", ""))
     for old in (LOADS, TILE):
         if old not in src:
             raise SystemExit(f"{path} does not hold the text a variant "

@@ -470,7 +470,10 @@ template <typename T, int K, bool RES, bool FROZEN = false>
 int launch_fused(const GF& f0, const T* phi, const T* corr, const T* rhs,
                  const T* inv, const T* aco, Betas3 B, T* out, T* crs,
                  T* rmax, cudaStream_t st) {
-  constexpr int TY = FusedTile<T>::TY, TZ = FusedTile<T>::TZ;
+  // kernel 7 keeps float64 tiles 16 rows high: its planes, snapshot and
+  // residual rows then take 221 KB, and each plane step does twice the
+  // work of an 8-row tile for the same latency
+  constexpr int TY = FROZEN ? 16 : FusedTile<T>::TY, TZ = FusedTile<T>::TZ;
   constexpr int NT = FusedTile<T>::NT;
   constexpr int H = K + (RES ? 1 : 0);
   constexpr int RY = TY + 2 * H, RZ = TZ + 2 * H;

@@ -12,8 +12,7 @@ two kernels of ops/cuda_kernels.py: gsrb_var_sweep_3d where beta is a face
 tensor per axis (the MAC projection, alpha = 0: a V-cycle's level visit is
 two of its fused passes, the pre-smooth with the residual and the
 restriction, and the prolongation with the post-smooth; a level periodic in
-x takes gsrb_sweep_3d's fused passes instead, up to
-PADDED_FUSED_MAX_CELLS cells, see below),
+x takes gsrb_sweep_3d's fused passes instead, see below),
 gsrb_const_sweep_3d where
 beta is one number per axis (the viscous and diffusive Helmholtz solves,
 whose right-hand side may carry a leading batch axis, and the explicit
@@ -37,10 +36,11 @@ sweep's start, on every device, as varden_tpu's accelerator route does
 axis, and pallas_kernels.gsrb_sweep_3d sweeps a phi padded once a sweep).
 A V-cycle visits such a level through gsrb_sweep_3d's fused passes, which
 form that ring in the kernel (two sweeps a launch, the last one with the
-residual and the restriction), up to PADDED_FUSED_MAX_CELLS cells, and a
-larger one through the single passes: the ghost pad and the padded sweep,
-then kernel 3's restriction. On the CPU the two routes are one plain
-composition, bit for bit. Kernel 3's exact sweeps extended to a periodic x axis would
+residual and the restriction); on the CPU they are the composition they
+replaced, the ghost pad and the padded sweep, then kernel 3's
+restriction, bit for bit. No size rule: on an H100 a level visit through
+them is faster than that composition at every size from 16^3 to 256^3 in
+both dtypes (PERF.md, PR 10; tools/torch_padded_levels.py). Kernel 3's exact sweeps extended to a periodic x axis would
 take these levels to varden_tpu's CPU route instead, which agrees with the
 accelerator route only to the solver's tolerance: the port's numerics
 would move on config 4 and the vortex tube, and the tests that hold them
@@ -418,25 +418,6 @@ def _padded_route(level: CCLevel, phi) -> bool:
             and all(s >= 8 and s % 2 == 0 for s in level.n))
 
 
-# The largest periodic-x level (_padded_route), in cells, whose V-cycle
-# visits and sweeps run through kernel 7's fused stages. Measured on an
-# H100 (PERF.md, PR 10: tools/torch_padded_levels.py on config 4's MAC
-# operator): a level visit through them is 3.0-5.1x faster than the ghost
-# pad, the padded sweeps and kernel 3's restriction up to 64^3 cells in
-# both dtypes, 1.53x (float32) and 1.04x (float64) at 128^3, and at 256^3
-# 1.32x in float32 but 0.74x in float64, so larger levels keep the single
-# passes. The rule reads the level's extents only, never the device or the
-# dtype, so on the CPU both routes compute the same plain composition.
-PADDED_FUSED_MAX_CELLS = 128 ** 3
-
-
-def _padded_fused(level: CCLevel, phi) -> bool:
-    """Whether the level smooths through kernel 7's fused stages: a level
-    of _padded_route of at most PADDED_FUSED_MAX_CELLS cells."""
-    return (_padded_route(level, phi)
-            and math.prod(level.n) <= PADDED_FUSED_MAX_CELLS)
-
-
 def _padded_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
     """A fused pass of gsrb_sweep_3d on a _padded_route level (``fused``:
     nsweeps, corr and cfac): the sweeps' ghost rings formed in the kernel."""
@@ -448,18 +429,10 @@ def _padded_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
 def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
     """nsweeps red-black Gauss-Seidel sweeps (red: index sum even): exact,
     or, on a level of _padded_route, each with the ghost ring of its start,
-    so the black cells see the ghosts of the sweep's start (kernel 7's fused
-    stages, or above PADDED_FUSED_MAX_CELLS a phi padded once a sweep)."""
-    if _padded_fused(level, phi):
+    so the black cells see the ghosts of the sweep's start."""
+    if _padded_route(level, phi):
         return _padded_sweep(level, phi, rhs, bvals, "smooth",
                              nsweeps=nsweeps)
-    if _padded_route(level, phi):
-        aco = level.aco if level.alpha != 0.0 else None
-        for _ in range(nsweeps):
-            pad = _pad_ghost(phi, level.ell_bc, bvals, 3)
-            phi = ck.gsrb_sweep_3d(pad, rhs, level.inv_diag, level.beta,
-                                   level.dx, aco=aco, alpha=level.alpha)
-        return phi
     if _fused_route(level, phi):
         return _var_sweep(level, phi, rhs, bvals, "smooth", nsweeps=nsweeps)
     if not _scalar_beta(level.beta):
@@ -623,7 +596,7 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
         return (out, r.abs().max()) if return_resnorm else out
     fac = level.cfac if level.cfac is not None else (2,) * level.dm
     fused = _fused_route(level, phi)
-    padded = _padded_fused(level, phi)
+    padded = _padded_route(level, phi)
     cfused = _const_fused_route(level)
     full = fac == (2,) * level.dm and all(s % 2 == 0 for s in level.n)
     if fused and full:
