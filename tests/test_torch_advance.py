@@ -7,9 +7,10 @@ projections converge to rel_eps 1e-10 (MAC) and 1e-12 (nodal).
 The viscous and diffusive steps (16^3; visc_coef, diff_coef, Crank-Nicolson
 and backward Euler; viscous_step_matches, which test_torch_advance_visc.py,
 _diff.py and _viscdiff.py run) are held to the same 1e-9: their Helmholtz
-solves stop at rel_eps 1e-12, where varden_tpu on the CPU smooths with Jacobi and the
-port with red-black sweeps, so the two differ by at most 2e-12/min(rho)
-there (tests/test_torch_visc.py), which the later phases carry through."""
+solves stop at rel_eps 1e-12, where varden_tpu on the CPU smooths with
+Jacobi and the port with red-black sweeps, so the two differ by at most
+2e-12/min(rho) there (tests/test_torch_visc.py), which the later phases
+carry through."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -40,8 +40,9 @@ residual and the restriction); on the CPU they are the composition they
 replaced, the ghost pad and the padded sweep, then kernel 3's
 restriction, bit for bit. No size rule: on an H100 a level visit through
 them is faster than that composition at every size from 16^3 to 256^3 in
-both dtypes (PERF.md, PR 10; tools/torch_padded_levels.py). Kernel 3's exact sweeps extended to a periodic x axis would
-take these levels to varden_tpu's CPU route instead, which agrees with the
+both dtypes (PERF.md, kernel table; tools/torch_padded_levels.py).
+Kernel 3's exact sweeps extended to a periodic x axis would take these
+levels to varden_tpu's CPU route instead, which agrees with the
 accelerator route only to the solver's tolerance: the port's numerics
 would move on config 4 and the vortex tube, and the tests that hold them
 to varden_tpu's accelerator route would have to loosen.
