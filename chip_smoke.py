@@ -99,7 +99,24 @@ Phases, each of which asserts and any failure of which exits non-zero:
      patch, and the step-20 plotfile's files byte for byte); then config 4
      at 128^3 in float32 checkpointed at step 2 and restarted, its step-4
      state equal bitwise. The seconds to write and read each kind of file
-     are printed.
+     are printed;
+ 16. the decomposed single-level path (varden_tpu_torch.parallel): gloo
+     ranks sharing the card, started by parallel.launch, each holding its
+     block of every field, its kernels on the card and the halos through
+     pinned host buffers. The viscous 3-D bubble at N_DECOMP_CHECK^3 in
+     float64 on 2 and 4 ranks against the one-rank card run
+     (TOL_DECOMP_F64 of each field's size, the same V-cycles a step); the
+     headline (phase 4's run) on 4 ranks within TOL_DECOMP_F32 of the
+     one-rank run, and config 2's geometry at N_2D_PUBLISHED^2 (phase 9's
+     run) on 4 within TOL_DECOMP_F32, or within twice the one-rank
+     float32 run's distance from float64 where that is larger (its
+     pressure gradient: float32's own roundoff); the gates of phase 4 and
+     the path's kernels
+     launched on every rank. It prints, per rank and step, the launches,
+     the halo exchanges and their bytes, and the step seconds beside the
+     one-rank step: the cost of the decomposition on one card, not a
+     scaling. Which gloo operations take CUDA tensors as they are is
+     probed and printed first.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
@@ -1508,11 +1525,13 @@ def phase_main(torch, kw, steps, expect, bubble=True, fused=None):
     per_step = []
     while v.istep < steps:
         before = read_counts(fns)
+        cyc0 = dict(CYCLES)
         t0 = time.perf_counter()
         state = v.step(state)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         d = v.last_diag
+        cycles = {k: CYCLES[k] - cyc0[k] for k in CYCLES}
         gamma = visc_gamma(v, state) if cfg.visc_coef > 0.0 else None
         rec = dict(step=v.istep, dt=v.dt, seconds=sec, cells=list(cfg.n_cell),
                    cells_per_s=math.prod(cfg.n_cell) / sec,
@@ -1524,6 +1543,7 @@ def phase_main(torch, kw, steps, expect, bubble=True, fused=None):
                    umax=float(d["umax"]),
                    gamma=gamma, visc_cycles=int(d.get("visc_cycles", 0)),
                    visc_ratio=float(d.get("visc_ratio", 0.0)),
+                   cycles=cycles,
                    launches={k: c - before[k]
                              for k, c in read_counts(fns).items()})
         per_step.append(rec)
@@ -1944,6 +1964,257 @@ def profile_step(torch, v, state, path):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 16: the decomposed single-level path, gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the V-cycles mg and nodal enter at their finest level, by solver
+CYCLES = {"mg": 0, "nodal": 0}
+N_DECOMP_CHECK = 32
+TOL_DECOMP_F64 = 1e-10
+TOL_DECOMP_F32 = 1e-4
+DECOMP_TIMEOUT = 420.0
+
+
+def count_cycles():
+    """Count into CYCLES the V-cycles that mg and nodal enter at their
+    finest level (the recursion calls the modules' globals)."""
+    from varden_tpu_torch.solvers import mg, nodal
+    for module, key, lev_pos in ((mg, "mg", 4), (nodal, "nodal", 3)):
+        fn = module.v_cycle
+        if getattr(fn, "counted", False):
+            continue
+
+        def wrapped(*a, _fn=fn, _key=key, _pos=lev_pos, **k):
+            if k.get("lev", a[_pos] if len(a) > _pos else 0) == 0:
+                CYCLES[_key] += 1
+            return _fn(*a, **k)
+
+        wrapped.counted = True
+        module.v_cycle = wrapped
+
+
+def decomp_run(kw, steps, expect, out_path=None):
+    """Varden on ``kw`` for ``steps`` steps on the card, decomposed over the
+    ranks of the process group where there is one (mesh = its size), with
+    the launch, exchange and V-cycle counters of every step. Rank 0 writes
+    the gathered final state to ``out_path``. Returns this rank's
+    records."""
+    import torch
+    import torch.distributed as dist
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.driver import Varden
+    from varden_tpu_torch.parallel import halo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if ranks > 1:
+        torch.cuda.set_device(0)
+    count_cycles()
+    fns = counters()
+    zero_counts(fns)
+    halo.exchanges.reset()
+    halo.reductions.reset()
+    cfg = VardenConfig(**kw, max_step=steps, mesh=ranks if ranks > 1 else 0)
+    v = Varden(cfg)  # the card: no device named
+
+    def sync():
+        torch.cuda.synchronize()
+        if ranks > 1:
+            dist.barrier()
+
+    state = v.initialize()
+    sync()
+    per_step = []
+    while v.istep < steps:
+        before = read_counts(fns)
+        ex0, red0 = halo.exchanges.as_dict(), halo.reductions.as_dict()
+        cyc0 = dict(CYCLES)
+        t0 = time.perf_counter()
+        state = v.step(state)
+        sync()
+        sec = time.perf_counter() - t0
+        d = v.last_diag
+        ex, red = halo.exchanges.as_dict(), halo.reductions.as_dict()
+        per_step.append(dict(
+            step=v.istep, seconds=sec, dt=v.dt,
+            mac_ratio=float(d["mac_ratio"]), hg_ratio=float(d["hg_ratio"]),
+            visc_ratio=float(d.get("visc_ratio", 0.0)),
+            visc_cycles=int(d.get("visc_cycles", 0)),
+            div_before=float(d["div_before"]), div_after=float(d["div_after"]),
+            rho_min=float(d["smin"]), rho_max=float(d["smax"]),
+            cycles={k: CYCLES[k] - cyc0[k] for k in CYCLES},
+            launches={k: c - before[k] for k, c in read_counts(fns).items()},
+            exchanges={k: ex[k] - ex0[k] for k in ex},
+            reductions={k: red[k] - red0[k] for k in red}))
+    launches = read_counts(fns)
+    g = v.gather(state)
+    for key in ("u", "s", "gp", "p"):
+        need(bool(torch.isfinite(getattr(g, key)).all()),
+             f"field {key} is not finite")
+    if out_path is not None and (ranks == 1 or dist.get_rank() == 0):
+        torch.save({k: getattr(g, k).cpu() for k in ("u", "s", "gp", "p")},
+                   out_path)
+    block = list(v.sim.dec.n) if v.sim.dec is not None else list(cfg.n_cell)
+    return {"rank": dist.get_rank() if ranks > 1 else 0, "block": block,
+            "per_step": per_step, "launches": launches,
+            "exchanges": halo.exchanges.as_dict()}
+
+
+def gloo_cuda_probe(group):
+    """Which gloo operations take CUDA tensors as they are: each op of
+    ``group`` on tensors of cuda:0, its result checked. Returns {op:
+    "ok" | "wrong result" | "refused: <message>"}."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            out[name] = "ok" if fn() else "wrong result"
+        except (RuntimeError, ValueError) as e:
+            out[name] = "refused: " + str(e).splitlines()[0][:160]
+
+    def all_reduce():
+        t = torch.full((4,), float(r + 1), device="cuda")
+        dist.all_reduce(t)
+        return bool((t.cpu() == n * (n + 1) / 2).all())
+
+    def all_gather():
+        parts = [torch.empty(3, device="cuda") for _ in range(n)]
+        dist.all_gather(parts, torch.full((3,), float(r), device="cuda"))
+        return all(bool((p.cpu() == i).all()) for i, p in enumerate(parts))
+
+    def p2p():
+        send = torch.full((5,), float(r), device="cuda")
+        recv = torch.empty(5, device="cuda")
+        peer = (r + 1) % n
+        ops = [dist.P2POp(dist.isend, send, peer),
+               dist.P2POp(dist.irecv, recv, (r - 1) % n)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        torch.cuda.synchronize()
+        return bool((recv.cpu() == (r - 1) % n).all())
+
+    for name, fn in {"collectives": (("all_reduce", all_reduce),
+                                     ("all_gather", all_gather)),
+                     "p2p": (("batch_isend_irecv", p2p),)}[group]:
+        attempt(name, fn)
+    return out
+
+
+def field_errs(got, ref, what):
+    """{field: max|got - ref| / max(1, max|ref|)}."""
+    out = {}
+    for k in ("u", "s", "gp", "p"):
+        a, b = got[k].double(), ref[k].double().cpu()
+        need(a.shape == b.shape, f"{what}: {k} shape {tuple(a.shape)} is "
+             f"not {tuple(b.shape)}")
+        out[k] = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    return out
+
+
+def float32_roundoff(torch, kw, steps, expect, fields32):
+    """How far the one-rank float32 run ``fields32`` of ``kw`` lies from the
+    same run in float64, by field (float32's own roundoff on that path)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        decomp_run(dict(kw, dtype="float64"), steps, expect, path)
+        return field_errs(fields32, torch.load(path), "float64 run")
+
+
+def steady_of(rec):
+    """A rank's steady steps (all of them if there is only one)."""
+    return rec["per_step"][1:] or rec["per_step"]
+
+
+def phase_decomp(torch, kw, steps, nranks, expect, ref_fields, ref_steps,
+                 tol, label, same_cycles, bubble=True, roundoff=None):
+    """Phase 16's run of ``kw`` on ``nranks`` gloo ranks sharing the card,
+    against the one-rank run (``ref_fields``, ``ref_steps``): the gathered
+    fields within ``tol`` of their size, or (``roundoff``: the one-rank
+    float32 run's distance from float64, by field) within twice that where
+    it is larger; the gates of phase 4 on every step, every kernel of
+    ``expect`` launched on every rank and no other, and (with
+    ``same_cycles``) the same V-cycles and viscous cycles a step."""
+    import tempfile
+    from varden_tpu_torch.parallel import launch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        t0 = time.perf_counter()
+        recs = launch.spawn(decomp_run, nranks, kw, steps, expect, path,
+                            timeout=DECOMP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        got = torch.load(path)
+    errs = field_errs(got, ref_fields, label)
+    err = max(errs.values())
+    tols = {k: max(tol, 2.0 * roundoff[k]) if roundoff else tol
+            for k in errs}
+    print(f"  {label}: {nranks} gloo ranks on one card, blocks "
+          f"{recs[0]['block']}, fields within {errs} of their size of the "
+          f"one-rank run (tolerances {tols}"
+          + (f"; the one-rank float32 run is {roundoff} from float64"
+             if roundoff else "") + f"), {wall:.1f} s with the ranks' "
+          "start", flush=True)
+    for s, ref in zip(recs[0]["per_step"], ref_steps):
+        print(f"    step {s['step']}: {s['seconds']:.4f} s on {nranks} ranks "
+              f"against {ref['seconds']:.4f} s on one (the cost of the "
+              f"decomposition on one card, not a scaling); V-cycles "
+              f"{s['cycles']} against {ref['cycles']}, viscous "
+              f"{s['visc_cycles']} against {ref['visc_cycles']}", flush=True)
+    for rec in recs:
+        for s in steady_of(rec):
+            print(f"    rank {rec['rank']} step {s['step']}: halo exchanges "
+                  f"{s['exchanges']['count']} ({s['exchanges']['bytes']} "
+                  f"bytes sent, {s['exchanges']['seconds']:.4f} s), "
+                  f"reductions {s['reductions']['count']} "
+                  f"({s['reductions']['seconds']:.4f} s); launches "
+                  f"{ {k: c for k, c in s['launches'].items() if c} }",
+                  flush=True)
+    need(all(errs[k] <= tols[k] for k in errs),
+         f"{label}: the fields differ from the one-rank run by {errs} of "
+         f"their size (tolerances {tols})")
+    rho_hi = 10.0 if len(got["u"].shape) == 4 else 2.0
+    tol_rho = TOL_RHO_VISCOUS if kw.get("visc_coef", 0.0) > 0.0 else TOL_RHO
+    for rec in recs:
+        for k, c in rec["launches"].items():
+            base = k.split(":")[0]
+            if base not in expect:
+                need(c == 0, f"{label}: {k} is not on this path but rank "
+                     f"{rec['rank']} launched it {c}x")
+            elif k == base:
+                need(c > 0, f"{label}: rank {rec['rank']} did not launch "
+                     f"{k}")
+        need(rec["exchanges"]["count"] > 0,
+             f"{label}: rank {rec['rank']} exchanged no halo")
+    for s, ref in zip(recs[0]["per_step"], ref_steps):
+        need(s["mac_ratio"] <= 1.0 and s["hg_ratio"] <= 1.0
+             and s["visc_ratio"] <= 1.0,
+             f"{label} step {s['step']}: a solve stopped above its "
+             f"tolerance ({s['mac_ratio']}, {s['hg_ratio']}, "
+             f"{s['visc_ratio']})")
+        need(s["div_after"] < s["div_before"],
+             f"{label} step {s['step']}: the MAC projection did not reduce "
+             "div")
+        need(not bubble or (1.0 - tol_rho <= s["rho_min"]
+                            and s["rho_max"] <= rho_hi + tol_rho),
+             f"{label} step {s['step']}: density left [1, {rho_hi}]")
+        if same_cycles:
+            need(s["cycles"] == ref["cycles"]
+                 and s["visc_cycles"] == ref["visc_cycles"],
+                 f"{label} step {s['step']}: V-cycles {s['cycles']} "
+                 f"(viscous {s['visc_cycles']}) against the one-rank run's "
+                 f"{ref['cycles']} ({ref['visc_cycles']})")
+    return {"label": label, "ranks": nranks, "max_rel_err": err,
+            "rel_errs": errs, "tolerances": tols,
+            "wall_s": wall, "records": recs,
+            "one_rank_steps": [{k: r[k] for k in ("step", "seconds", "cycles",
+                                                 "visc_cycles")}
+                               for r in ref_steps]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1965,6 +2236,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    count_cycles()
 
     smi = smi_name_power()
     print(f"card: {smi}", flush=True)
@@ -2001,6 +2273,8 @@ def main(argv=None) -> int:
     v, state, launches, per_step, peak = phase_main(
         torch, bubble_kw(256, "float32", visc_coef=1.0e-3), STEPS, KERNELS_3D)
     visc = viscous_report(per_step)
+    headline_fields = {k: getattr(state, k).cpu() for k in ("u", "s", "gp",
+                                                            "p")}
     prof3 = (profile_step(torch, v, state, args.profile) if args.profile
              else None)
     del v, state
@@ -2054,9 +2328,13 @@ def main(argv=None) -> int:
                     ("viscous-128", bubble2d_kw(128, "float32")),
                     (f"viscous-{N_2D_PUBLISHED}",
                      bubble2d_kw(N_2D_PUBLISHED, "float32"))):
-        _, _, ln, steps_small, _ = phase_main(torch, kw, STEPS, KERNELS_2D)
+        _, st, ln, steps_small, _ = phase_main(torch, kw, STEPS, KERNELS_2D)
         small[key] = {"launches": ln, "steps": steps_small,
                       "mean_step_s": mean_steady(steps_small)}
+        if key == f"viscous-{N_2D_PUBLISHED}":
+            fields_2d = {k: getattr(st, k).cpu() for k in ("u", "s", "gp",
+                                                           "p")}
+        del st
         if kw["visc_coef"] > 0.0:
             small[key]["viscous_solve"] = viscous_report(steps_small)
         torch.cuda.empty_cache()
@@ -2138,6 +2416,49 @@ def main(argv=None) -> int:
     io = phase_io(torch)
     torch.cuda.empty_cache()
 
+    print("phase 16: the decomposed single-level path, gloo ranks sharing "
+          f"the card: the viscous 3-D bubble at {N_DECOMP_CHECK}^3 float64 "
+          f"on 2 and 4 ranks against the one-rank run, the headline on 4, "
+          f"config 2's geometry at {N_2D_PUBLISHED}^2 on 4", flush=True)
+    from varden_tpu_torch.parallel import launch
+    gloo_cuda = {}
+    for group in ("collectives", "p2p"):
+        try:
+            gloo_cuda.update(launch.spawn(gloo_cuda_probe, 2, group,
+                                          timeout=120.0)[0])
+        except RuntimeError as e:
+            gloo_cuda[group] = "failed: " + str(e).splitlines()[0][:160]
+    print(f"  gloo with CUDA tensors as they are: {gloo_cuda} (the halo "
+          "exchange stages through pinned host buffers either way)",
+          flush=True)
+    import tempfile
+    kw_check = bubble_kw(N_DECOMP_CHECK, "float64", visc_coef=1.0e-3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        one = decomp_run(kw_check, STEPS_SHORT, KERNELS_3D, path)
+        fields_check = torch.load(path)
+    decomposed = [phase_decomp(
+        torch, kw_check, STEPS_SHORT, nr, KERNELS_3D, fields_check,
+        one["per_step"], TOL_DECOMP_F64,
+        f"viscous 3-D bubble {N_DECOMP_CHECK}^3 float64", True)
+        for nr in (2, 4)]
+    torch.cuda.empty_cache()
+    decomposed.append(phase_decomp(
+        torch, bubble_kw(256, "float32", visc_coef=1.0e-3), STEPS, 4,
+        KERNELS_3D, headline_fields, per_step, TOL_DECOMP_F32,
+        "headline 256^3 float32", False))
+    del headline_fields
+    torch.cuda.empty_cache()
+    kw_2d = bubble2d_kw(N_2D_PUBLISHED, "float32")
+    decomposed.append(phase_decomp(
+        torch, kw_2d, STEPS, 4, KERNELS_2D, fields_2d,
+        small[f"viscous-{N_2D_PUBLISHED}"]["steps"], TOL_DECOMP_F32,
+        f"config 2's geometry {N_2D_PUBLISHED}^2 float32", False,
+        roundoff=float32_roundoff(torch, kw_2d, STEPS, KERNELS_2D,
+                                  fields_2d)))
+    del fields_2d
+    torch.cuda.empty_cache()
+
     # the JSON line: for each kernel its main case (velocity update, the
     # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
     # finest patch; kernel
@@ -2188,7 +2509,9 @@ def main(argv=None) -> int:
               "pad_ghost_ms": pad_ms, "rt_card_vs_cpu": rt_check,
               "steps_rt": per_step_rt, "launches_rt": launches_rt,
               "peak_bytes_rt": peak_rt, "steps_rt_f64": per_step_rt64,
-              "profiled_step_rt": prof_rt, "io": io, "total_s": total_s}
+              "profiled_step_rt": prof_rt, "io": io,
+              "decomposed": decomposed, "gloo_cuda": gloo_cuda,
+              "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
     runs = [("3-D main path (phase 4)", per_step, launches_3d, prof3),
@@ -2258,6 +2581,21 @@ def main(argv=None) -> int:
           f"restart {io['restart_s']:.3f} s; seconds per call "
           + ", ".join(f"{k} {r['mean_s']:.4f}" for k, r in io["io_s"].items()),
           flush=True)
+    for r in decomposed:
+        steps_r = r["records"][0]["per_step"]
+        steady = steps_r[1:] or steps_r
+        one_steady = r["one_rank_steps"][1:] or r["one_rank_steps"]
+        print(f"summary decomposed {r['label']} on {r['ranks']} gloo ranks "
+              f"of one card (phase 16; the cost of the decomposition on one "
+              f"card, not a scaling): fields within {r['max_rel_err']:.3e} "
+              f"of the one-rank run; steady step "
+              f"{mean_steady(steady):.4f} s against "
+              f"{mean_steady(one_steady):.4f} s on one rank; per rank and "
+              "steady step halo exchanges "
+              + ", ".join(
+                  f"r{rec['rank']} "
+                  f"{[s['exchanges']['count'] for s in steady_of(rec)]}"
+                  for rec in r["records"]), flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -138,8 +138,17 @@ def test_varden_without_device_needs_a_card():
 
 @pytest.mark.parametrize("extra", [
     dict(mesh=2), dict(use_godunov_debug=True)])
-def test_unported_paths_raise(extra):
+def test_unported_paths_raise(extra, monkeypatch):
+    """The mesh case: an AMR run on a process group of two ranks (AMR under
+    a mesh is not ported; a single-level one is, and one rank warns and
+    runs unsharded: tests/test_torch_mesh.py)."""
+    import torch.distributed as dist
     from varden_tpu_torch.driver import Varden
+    if "mesh" in extra:
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+        monkeypatch.setattr(dist, "get_rank", lambda: 0)
+        extra = dict(extra, max_levs=2)
     with pytest.raises(NotImplementedError):
         Varden(tcfg.VardenConfig(**_kw(BC_SETS[0], **extra)), device="cpu")
 

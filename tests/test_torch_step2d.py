@@ -178,16 +178,21 @@ def test_initdata_2d_matches(prob_type):
     assert st2.p.shape == ts.node_shape() == js.node_shape()
 
 
-def test_dm2_is_supported_and_amr_still_raises():
+def test_dm2_is_supported_and_amr_still_raises(monkeypatch):
     """2-D runs are supported, multi-level ones too (the AMR slice); a
     multi-level run still raises for what stays unported (the device
-    mesh)."""
+    mesh: AMR on a process group of two ranks)."""
+    import torch.distributed as dist
     cfg = TCfg(**KW)
     tadv.check_supported(cfg)
     assert TVarden(cfg, device="cpu").sim.dm == 2
     assert TVarden(TCfg(**dict(KW, max_levs=2)), device="cpu").ml
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
     with pytest.raises(NotImplementedError):
         TVarden(TCfg(**dict(KW, max_levs=2, mesh=2)), device="cpu")
+    monkeypatch.undo()
     lev = tmg.make_level((8, 8), (0.1, 0.1), [(1, 1)] * 2, torch.zeros(8, 8),
                          (1.0, 1.0), 0.0)
     assert tmg.cc_apply(lev, torch.ones(8, 8)).abs().max() == 0.0

@@ -25,6 +25,7 @@ from torch.profiler import record_function
 from . import projection
 from .bc import grow_mac
 from .ops import basic, cuda_godunov
+from .parallel import halo
 from .solvers import mg
 from .state import Sim, State
 
@@ -46,7 +47,7 @@ def embed_faces(sim: Sim, umac, ng: int):
     the single-level analogue of create_umac_grown/fill_boundary
     (reference macproject.f90:107-120)."""
     dm, n = sim.dm, sim.n_cell
-    grown = grow_mac(umac, 1, sim.pmask)
+    grown = grow_mac(umac, 1, sim.pmask, dec=sim.dec)
     out = []
     for d in range(dm):
         arr = sim.zeros(tuple(s + 2 * ng for s in n))
@@ -63,7 +64,8 @@ def lap_velocity(sim: Sim, u: torch.Tensor) -> torch.Tensor:
     bcs = [projection.comp_bc(sim, d) for d in range(sim.dm)]
     if all(b == bcs[0] for b in bcs[1:]):
         ell_bc, bvals = bcs[0]
-        return mg.laplacian(u, sim.n_cell, sim.dx, ell_bc, bvals)
+        return mg.laplacian(u, sim.n_cell, sim.dx, ell_bc, bvals,
+                            dec=sim.dec)
     return torch.stack([projection.get_explicit_diffusive_term(sim, u[d], d)
                         for d in range(sim.dm)])
 
@@ -77,7 +79,7 @@ def lap_tracers(sim: Sim, s: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _warm(hints, cur_key, prev_key):
+def _warm(hints, cur_key, prev_key, dec=None):
     """Warm start: linear time-extrapolation once two consecutive past
     solutions exist (pressure-like fields evolve smoothly)."""
     if hints is None:
@@ -85,24 +87,42 @@ def _warm(hints, cur_key, prev_key):
     cur, prev = hints.get(cur_key), hints.get(prev_key)
     if cur is not None and prev is not None:
         delta = cur - prev
-        ok = delta.abs().max() < 0.5 * cur.abs().max()
+        ok = mg._gmax(delta, dec) < 0.5 * mg._gmax(cur, dec)
         return torch.where(ok, cur + delta, cur)
     return cur
 
 
+def _level_max(sim: Sim, x):
+    """max|x| over the whole level where the run is decomposed (the
+    Godunov kernels' tie epsilon is formed from it), else None: the
+    kernels form it from their own input."""
+    return None if sim.dec is None else mg._gmax(x, sim.dec)
+
+
+def _level_extremes(sim: Sim, x, dim=None):
+    """(min, max) of x over the whole level (per leading index with dim)."""
+    lo = x.min() if dim is None else x.min(dim=dim).values
+    hi = x.max() if dim is None else x.max(dim=dim).values
+    if sim.dec is None:
+        return lo, hi
+    return halo.all_min(lo), halo.all_max(hi)
+
+
 def _mkflux_update(sim: Sim, sold, s_pad, umac, mac_pads, force, fupd, dt,
-                   adv_bc, is_vel, is_cons):
+                   adv_bc, is_vel, is_cons, umax=None):
     """Godunov edge states and the conservative/convective update of the
     components of ``sold``: one fused kernel in 3-D; in 2-D the edge-state
-    kernel and then basic.update. mac_rhs is None (zero) in both."""
+    kernel and then basic.update. mac_rhs is None (zero) in both. ``umax``:
+    the level's max|umac| on a decomposed run."""
     cfg = sim.cfg
     tail = (dt, sim.dx, sim.phys_bc, adv_bc, sim.ng, sim.n_cell, is_vel,
             is_cons, cfg.slope_order, cfg.use_minion)
     if sim.dm == 3:
         return cuda_godunov.mkflux_update_3d_fused(s_pad, mac_pads, force,
-                                                   fupd, None, *tail)
+                                                   fupd, None, *tail,
+                                                   umax=umax)
     ex, ey, fx, fy = cuda_godunov.mkflux_2d_fused(
-        s_pad, mac_pads[0], mac_pads[1], force, None, *tail)
+        s_pad, mac_pads[0], mac_pads[1], force, None, *tail, umax=umax)
     return basic.update(sold, umac, (ex, ey), (fx, fy), fupd, dt, sim.dx,
                         is_cons)
 
@@ -135,14 +155,17 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
                else cuda_godunov.velpred_3d_fused)
     with record_function("step::velpred"):
         umac = velpred(u_pad, vf_pad, dt, dx, sim.phys_bc, adv_bc_vel, ng, n,
-                       cfg.slope_order, cfg.use_minion)
+                       cfg.slope_order, cfg.use_minion,
+                       umax=_level_max(sim, uold))
 
     # ---- MAC projection
     with record_function("step::macproject"):
         (umac, div_b, div_a, phi_mac, mac_rn,
          mac_ratio) = projection.macproject(
             sim, umac, sold[0], None,
-            phi0=_warm(hints, "phi_mac", "phi_mac_prev"))
+            phi0=_warm(hints, "phi_mac", "phi_mac_prev", sim.dec))
+    mac_max = (None if sim.dec is None else
+               _level_max(sim, torch.stack([f.abs().max() for f in umac])))
 
     # ---- scalar advance: with diff_coef=0 both scalar forces are zero
     # (mkscalforce), so force and fupd are None
@@ -158,7 +181,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     with record_function("step::scalar_advance"):
         snew = _mkflux_update(sim, sold, s_pad, umac, mac_pads, sf_pad,
                               scal_force_half, dt, adv_bc_scal, False,
-                              is_cons)
+                              is_cons, mac_max)
     del s_pad, sf_pad, scal_force_half
     if cfg.diff_coef > 0.0:
         visc_mu = (0.5 * dt * cfg.diff_coef if cfg.diffusion_type == 1
@@ -177,7 +200,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     with record_function("step::velocity_advance"):
         unew = _mkflux_update(sim, uold, u_pad, umac, mac_pads, vf_pad,
                               vel_force_half, dt, adv_bc_vel, True,
-                              [False] * dm)
+                              [False] * dm, mac_max)
     del u_pad, vf_pad, mac_pads
     if cfg.visc_coef > 0.0:
         # backward Euler drops the explicit viscous term, Crank-Nicolson
@@ -197,19 +220,20 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
         diag.update({"visc_resnorm": visc_rn, "visc_cycles": visc_cycles,
                      "visc_ratio": visc_ratio})
     if cfg.verbose >= 1:
-        diag["u_pre_min"] = unew.reshape(dm, -1).min(dim=1).values
-        diag["u_pre_max"] = unew.reshape(dm, -1).max(dim=1).values
+        diag["u_pre_min"], diag["u_pre_max"] = _level_extremes(
+            sim, unew.reshape(dm, -1), dim=1)
     with record_function("step::hgproject"):
         unew, p, gp, phi_hg, hg_rn, hg_ratio = projection.hgproject(
             sim, proj_type, unew, uold, rhohalf, p, gp, dt,
-            phi0=_warm(hints, "phi_hg", "phi_hg_prev"))
+            phi0=_warm(hints, "phi_hg", "phi_hg_prev", sim.dec))
     if cfg.verbose >= 1:
-        diag["u_post_min"] = unew.reshape(dm, -1).min(dim=1).values
-        diag["u_post_max"] = unew.reshape(dm, -1).max(dim=1).values
+        diag["u_post_min"], diag["u_post_max"] = _level_extremes(
+            sim, unew.reshape(dm, -1), dim=1)
 
+    smin, smax = _level_extremes(sim, snew[0])
     diag.update({"div_before": div_b, "div_after": div_a,
-                 "smin": snew[0].min(), "smax": snew[0].max(),
-                 "umax": unew.abs().max(),
+                 "smin": smin, "smax": smax,
+                 "umax": mg._gmax(unew, sim.dec),
                  "mac_resnorm": mac_rn, "hg_resnorm": hg_rn,
                  "mac_ratio": mac_ratio, "hg_ratio": hg_ratio,
                  "phi_mac": phi_mac, "phi_hg": phi_hg})
@@ -218,4 +242,5 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
 
 def estdt(sim: Sim, state: State, dtold: float) -> float:
     return basic.estdt(state.u, state.s[0], state.gp, sim.cfg.ext_force,
-                       sim.dx, dtold, sim.cfg.cflfac, sim.cfg.max_dt_growth)
+                       sim.dx, dtold, sim.cfg.cflfac, sim.cfg.max_dt_growth,
+                       level_max=None if sim.dec is None else halo.all_max)

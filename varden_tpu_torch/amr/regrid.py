@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import problems
+from ..parallel.mesh import mesh_shape
 from ..state import Sim, State
 from .fill import MLGeom
 from .hierarchy import LevelSpec, domain_spec, prolong_cells, prolong_nodes
@@ -158,11 +159,27 @@ def _child_boxes(sim: Sim, tags: np.ndarray, tag_spec: LevelSpec, buf: int):
     return out
 
 
+def _mesh_quanta(sim: Sim):
+    """Per-axis extent quanta of a mesh run (cfg.mesh > 0): lcm(2, ranks
+    along the axis), so that a patch's extent divides the mesh axis, as
+    varden_tpu's regridder snaps it (varden_tpu/amr/regrid.py:171-183).
+    None off-mesh."""
+    if sim.cfg.mesh <= 0:
+        return None
+    shape = mesh_shape(sim.cfg.mesh)
+    return [math.lcm(2, shape[d]) if d < len(shape) else 1
+            for d in range(sim.dm)]
+
+
 def _nest_into(sim: Sim, lo_f, hi_f, parent: LevelSpec, parent_depth: int):
     """Clip a fine-space box to nest NEST_BUFFER coarse cells inside its
     parent patch (flush sides at the domain boundary are exempt); returns a
-    LevelSpec, or None if the clip empties it."""
+    LevelSpec, or None if the clip empties it. On mesh runs the extents snap
+    to multiples of _mesh_quanta: grown toward hi, then lo, inside the
+    nesting window, else left as they are (shrinking could drop tagged
+    cells), as varden_tpu does."""
     dn_parent = [s * 2 ** parent_depth for s in sim.n_cell]
+    quanta = _mesh_quanta(sim)
     lo, hi = [], []
     for d in range(sim.dm):
         dn_f = 2 * dn_parent[d]
@@ -177,6 +194,13 @@ def _nest_into(sim: Sim, lo_f, hi_f, parent: LevelSpec, parent_depth: int):
             h = min(max(h, mid + QUANT), ph, dn_f)
         if h - l <= 0:
             return None
+        if quanta is not None and quanta[d] > 1 and (h - l) % quanta[d]:
+            q = quanta[d]
+            want = -((-(h - l)) // q) * q
+            h2 = min(l + want, ph, dn_f)
+            l2 = max(h2 - want, pl, 0)
+            if (h2 - l2) % q == 0 and h2 - l2 > 0:
+                l, h = l2, h2
         lo.append(l)
         hi.append(h)
     return LevelSpec(tuple(lo), tuple(h - l for l, h in zip(lo, hi)))

@@ -565,15 +565,20 @@ def composite_nodal_solve(geom: MLGeom, sigma_l, vel_l, inflow_pad_l=None,
         if not geom.children[l]:
             continue
         su, vu = sigma_l[l].clone(), vel_l[l].clone()
+        keep = torch.ones_like(su)
         for c in geom.children[l]:
             cov = covered_slice_rel(geom, c)
             su[cov] = 0.0
             vu[(slice(None),) + cov] = 0.0
+            keep[cov] = 0.0
         lev_uncov[l] = nodal.NodalLevel(lev_true[l].n, lev_true[l].dx,
                                         lev_true[l].pmask, su,
                                         lev_true[l].diag, None)
+        # an inlet face's ghost velocity beside a covered cell belongs to
+        # the child's rows, which take it through their own inflow pad
+        # (varden_tpu counts it in both: ROADMAP.md section 3)
         rhs_uncov[l] = nodal.divu_rhs(vu, geom.dx(l), pmask_l[l], dm,
-                                      inflow_pad=inflow_pad_l[l])
+                                      inflow_pad=inflow_pad_l[l], keep=keep)
         del vu
 
     if phi0_l is None:

@@ -156,15 +156,28 @@ def _hi_slab(f, axis, ng, code, val):
     return torch.flip(g, dims=(axis,))
 
 
+def _halo(f, dec, d, ng):
+    """The ghost slabs of a decomposed block's internal faces along axis d
+    (None on the others, and without a decomposition)."""
+    if dec is None:
+        return None, None
+    from .parallel import halo
+    return halo.exchange(f, dec, d, ng, ng)
+
+
 def fill_ghost(f: torch.Tensor, ng: int, bc: Sequence[Sequence[int]],
                vals: Sequence[Sequence[float]] = None,
-               pmask: Sequence[bool] = None, dm: int = None) -> torch.Tensor:
+               pmask: Sequence[bool] = None, dm: int = None,
+               dec=None) -> torch.Tensor:
     """Pad a cell-centered interior tensor with ``ng`` ghost cells per
     spatial axis and fill them (periodic wrap + physbc recipes).
 
     bc[d][side] are adv recipe codes; vals[d][side] the EXT_DIR values.
     Axes are processed in x,y,z order so later axes overwrite corner regions
-    (multifab_physbc.f90:77-90 + pass ordering).
+    (multifab_physbc.f90:77-90 + pass ordering). With ``dec`` (a rank's
+    block, parallel.mesh.Decomp) each internal face's ghosts come from the
+    neighbour's block, grown along the earlier axes: the result is the
+    whole level's fill sliced to the block.
     """
     dm = dm if dm is not None else len(bc)
     if vals is None:
@@ -174,20 +187,23 @@ def fill_ghost(f: torch.Tensor, ng: int, bc: Sequence[Sequence[int]],
                  for d in range(dm)]
     for d in range(dm):
         axis = f.ndim - dm + d
+        lo, hi = _halo(f, dec, d, ng)
         if pmask[d]:
             lo, hi = _take(f, axis, -ng), _take(f, axis, 0, ng)
-        else:
+        if lo is None:
             lo = _lo_slab(f, axis, ng, bc[d][0], vals[d][0])
+        if hi is None:
             hi = _hi_slab(f, axis, ng, bc[d][1], vals[d][1])
         f = torch.cat([lo, f, hi], dim=axis)
     return f
 
 
 def grow_mac(umac: Tuple[torch.Tensor, ...], ng: int,
-             pmask: Sequence[bool]) -> Tuple[torch.Tensor, ...]:
+             pmask: Sequence[bool], dec=None) -> Tuple[torch.Tensor, ...]:
     """Add ``ng`` tangential ghost faces to each MAC (face-centered)
     component: periodic wrap where periodic, copy-extrapolation elsewhere
-    (macproject.f90:115-120, velpred.f90:102-119)."""
+    (macproject.f90:115-120, velpred.f90:102-119); from the neighbour on a
+    decomposed block's internal faces (``dec``, as in fill_ghost)."""
     dm = len(umac)
     out = []
     for d, f in enumerate(umac):
@@ -195,10 +211,12 @@ def grow_mac(umac: Tuple[torch.Tensor, ...], ng: int,
             if t == d:
                 continue  # normal direction carries no ghosts
             axis = f.ndim - dm + t
+            lo, hi = _halo(f, dec, t, ng)
             if pmask[t]:
                 lo, hi = _take(f, axis, -ng), _take(f, axis, 0, ng)
-            else:
+            if lo is None:
                 lo = _lo_slab(f, axis, ng, FOEXTRAP, 0.0)
+            if hi is None:
                 hi = _hi_slab(f, axis, ng, FOEXTRAP, 0.0)
             f = torch.cat([lo, f, hi], dim=axis)
         out.append(f)

@@ -6,8 +6,16 @@ steps).
 
 2-D and 3-D runs write plotfiles and checkpoints at plot_int / chk_int
 (and at a final step off the cadence) and restart from a checkpoint
-(restart >= 0), bitwise; the device mesh (mesh > 0) raises
-NotImplementedError.
+(restart >= 0), bitwise.
+
+The device mesh (mesh > 0, varden_tpu/driver.py:68-94): with one rank in
+the process group the run warns and runs unsharded, as varden_tpu does with
+too few devices, the regridder keeping its mesh-quantised patch extents.
+With mesh ranks (torch.distributed, parallel.mesh.maybe_init_distributed)
+a single-level run is decomposed: each rank holds its block of every field
+(parallel.mesh.Decomp) and its Sim exchanges halos and reduces norms with
+the others; ``gather`` gives the whole State. AMR and plotfiles or
+checkpoints under a mesh raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,8 +29,10 @@ from .amr import advance_ml, regrid
 from .amr.fill import MLGeom
 from .config import VardenConfig, load_config
 from .io import output
+from .parallel import halo
+from .parallel import mesh as pmesh
 from .solvers import nodal
-from .state import Sim, State
+from .state import Sim, State, resolve_device
 
 # Hierarchies above this many cells keep only the last projection solutions
 # as warm starts, not the '_prev' pair of the linear extrapolation (their
@@ -30,24 +40,61 @@ from .state import Sim, State
 WARM_EXTRAP_MAX_CELLS = 5e7
 
 
-def _check_supported(cfg: VardenConfig) -> None:
-    if cfg.mesh > 0:
-        raise NotImplementedError("multi-device runs (mesh > 0) are not "
-                                  "ported yet")
-    advance.check_supported(cfg)
+def _decomposition(cfg: VardenConfig, device):
+    """The rank's block of a decomposed run, or None (no mesh, or one
+    rank)."""
+    if cfg.mesh <= 0:
+        return None
+    pmesh.maybe_init_distributed(resolve_device(device))
+    ranks = pmesh.world_size()
+    if ranks == 1:
+        warnings.warn(f"mesh={cfg.mesh} ranks requested but the process "
+                      "group has 1; running unsharded")
+        return None
+    if cfg.mesh != ranks:
+        raise ValueError(f"mesh={cfg.mesh} but the process group has "
+                         f"{ranks} ranks")
+    if cfg.max_levs > 1:
+        raise NotImplementedError("AMR under a mesh (max_levs > 1 on "
+                                  f"{ranks} ranks) is not ported yet")
+    if cfg.plot_int > 0 or cfg.chk_int > 0 or cfg.restart >= 0:
+        raise NotImplementedError("plotfiles, checkpoints and restarts of "
+                                  f"a run on {ranks} ranks are not ported "
+                                  "yet")
+    dec = pmesh.make_decomp(cfg.n_cell, cfg.pmask, ranks, pmesh.rank())
+    if not dec.keeps_blocks() or any(dec.n[d] < cfg.ng_cell
+                                     for d in range(cfg.dm) if dec.split(d)):
+        raise ValueError(f"{ranks} ranks cut {cfg.n_cell} cells into blocks "
+                         f"of {dec.n}: a split axis needs an even block of "
+                         f"at least {max(pmesh.MIN_BLOCK, cfg.ng_cell)}")
+    return dec
+
+
+def gather_state(sim: Sim, state: State) -> State:
+    """The whole level's State on every rank from each rank's block where
+    ``sim`` is decomposed (exact); ``state`` itself otherwise."""
+    dec = sim.dec
+    if dec is None:
+        return state
+    return State(u=halo.gather(state.u, dec), s=halo.gather(state.s, dec),
+                 gp=halo.gather(state.gp, dec),
+                 p=halo.gather(state.p, dec, nodal.node_extra(dec.local_pmask),
+                               nodal.node_extra(dec.pmask)))
 
 
 class Varden:
-    """A configured simulation on one device, single-level or (max_levs > 1)
-    multi-level.
+    """A configured simulation, single-level or (max_levs > 1) multi-level,
+    on one device or (mesh > 0 in a process group of mesh ranks,
+    single-level) decomposed over the group's ranks.
 
     ``device`` defaults to the card; with no card present the constructor
     raises unless ``device="cpu"`` is given (the plain PyTorch path)."""
 
     def __init__(self, cfg: VardenConfig, device=None):
-        _check_supported(cfg)
+        advance.check_supported(cfg)
         self.cfg = cfg
-        self.sim = Sim(cfg, device=device)
+        self.sim = Sim(cfg, device=device,
+                       decomp=_decomposition(cfg, device))
         self.time = 0.0
         self.dt = 1.0e20
         self.istep = 0
@@ -125,8 +172,16 @@ class Varden:
         self._report(diag)
         return state
 
+    def gather(self, state: State) -> State:
+        """The whole level's State on every rank from each rank's block of
+        a decomposed run (exact); ``state`` itself otherwise."""
+        return gather_state(self.sim, state)
+
     def _report(self, diag, levels=""):
-        """The step's diagnostics (verbose, mg_verbose) and banner."""
+        """The step's diagnostics (verbose, mg_verbose) and banner (rank 0
+        of a decomposed run)."""
+        if not pmesh.is_io_proc():
+            return
         cfg = self.cfg
         if cfg.verbose >= 1:
             print(f"... max of [div(umac)-RHS] before/after MAC projection "

@@ -113,15 +113,20 @@ def make_at_halftime(rho_old: torch.Tensor, rho_new: torch.Tensor) -> torch.Tens
 
 def estdt(u: torch.Tensor, rho: torch.Tensor, gp: torch.Tensor,
           ext_force: Sequence[float], dx: Sequence[float], dtold: float,
-          cflfac: float, max_dt_growth: float) -> float:
+          cflfac: float, max_dt_growth: float, level_max=None) -> float:
     """CFL + forcing dt estimate (reference estdt, src/estdt.f90:15-183).
-    Returns a host float: the step loop needs it on the host anyway."""
+    Returns a host float: the step loop needs it on the host anyway.
+    ``level_max`` (on a rank's block of a decomposed level) takes the
+    elementwise maxima of the block's per-axis maxima over the ranks: the
+    reference's parallel_reduce MPI_MAX (estdt.f90:69), exact."""
     dm = u.shape[0]
     eps = 1.0e-8
     big = 1.0e20
     umax = torch.stack([u[d].abs().max() for d in range(dm)])
     fmax = torch.stack([(gp[d] / rho - ext_force[d]).abs().max()
                         for d in range(dm)])
+    if level_max is not None:
+        umax, fmax = level_max(torch.stack([umax, fmax]))
     umax, fmax = umax.tolist(), fmax.tolist()
     dt = big
     for d in range(dm):

@@ -12,7 +12,12 @@ varden_tpu.ops.pallas_godunov).
 
 Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
-tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
+tensor it launches the kernel or raises. ``umax`` (velpred_3d_fused,
+mkflux_update_3d_fused, velpred_2d_fused, mkflux_2d_fused) gives the
+largest |velocity| of the whole level, from which the Riemann tie epsilon
+is formed, where the tensors are one rank's block of it; the kernels'
+first launch then takes the larger of it and the block's own, which it is.
+``<wrapper>.launches`` counts the
 CUDA launches the wrapper made (every stage counts: velpred_3d_fused,
 mkflux_update_3d_fused, velpred_2d_fused and mkflux_2d_fused make two
 each, the tie epsilon and one shared-memory pass).
@@ -40,35 +45,47 @@ def _padded(n_cell, ng):
 # velpred
 # ---------------------------------------------------------------------------
 
+def _eps(umax):
+    return None if umax is None else godunov._eps_from(umax)
+
+
+def _umax_buf(umax, opts):
+    """The kernels' running max|velocity|: zero, or the level's."""
+    if umax is None:
+        return torch.zeros(1, **opts)
+    return umax.reshape(1).to(**opts).clone()
+
+
 def velpred_3d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                     slope_order, use_minion):
+                     slope_order, use_minion, umax=None):
     """The plain PyTorch version of velpred_3d_fused."""
     return godunov3d.velpred_3d(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
-                                n_cell, slope_order, use_minion)
+                                n_cell, slope_order, use_minion,
+                                eps=_eps(umax))
 
 
 def velpred_3d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                     slope_order, use_minion):
+                     slope_order, use_minion, umax=None):
     """Corner-coupled BCG MAC predictor. u, force: (3, *padded) with ng
     ghosts. Returns interior (umac, vmac, wmac) exactly as
     godunov3d.velpred_3d, at any extent and in both dtypes. On the card:
     two launches, the tie epsilon and one shared-memory brick pass."""
     if u.device.type == "cpu":
         return velpred_3d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
-                                n_cell, slope_order, use_minion)
+                                n_cell, slope_order, use_minion, umax)
     return _velpred_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                           slope_order, use_minion)
+                           slope_order, use_minion, umax)
 
 
 def _velpred_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                    slope_order, use_minion):
+                    slope_order, use_minion, umax=None):
     P = _padded(n_cell, ng)
     _cuda.check(u, "u", (3,) + P)
     _cuda.check(force, "force", (3,) + P, u.dtype, u.device)
     opts = dict(dtype=u.dtype, device=u.device)
     outs = [torch.empty(tuple(n_cell[t] + (1 if t == d else 0)
                               for t in range(3)), **opts) for d in range(3)]
-    umax = torch.zeros(1, **opts)
+    umax = _umax_buf(umax, opts)
     iv = [*n_cell, ng, slope_order, int(bool(use_minion))]
     iv += _flat_bc(phys_bc, adv_bc_vel)
     _cuda.call("velpred", "velpred3d", [u, force, *outs, umax], iv,
@@ -93,11 +110,11 @@ def _mac_interior(macs, ng, n_cell):
 def mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt, dx,
                            phys_bc, adv_bc, ng, n_cell, is_vel,
                            is_conservative, slope_order, use_minion, *,
-                           flux_comps=()):
+                           flux_comps=(), umax=None):
     """The plain PyTorch version of mkflux_update_3d_fused."""
     sedge, sflux = godunov3d.mkflux_3d(
         s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc, ng, n_cell,
-        is_vel, is_conservative, slope_order, use_minion)
+        is_vel, is_conservative, slope_order, use_minion, eps=_eps(umax))
     umac = _mac_interior(mac_pads, ng, n_cell)
     sold = s[(slice(None),) + tuple(slice(ng, ng + n_cell[t])
                                     for t in range(3))]
@@ -111,7 +128,7 @@ def mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt, dx,
 def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
                            phys_bc, adv_bc, ng, n_cell, is_vel,
                            is_conservative, slope_order, use_minion, *,
-                           flux_comps=()):
+                           flux_comps=(), umax=None):
     """Fused mkflux + conservative/convective update. ``fupd`` is the
     interior (nc, *n) update-time force; returns snew (nc, *n_cell).
 
@@ -127,7 +144,8 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
         return mkflux_update_3d_plain(s, mac_pads, force, fupd, mac_rhs, dt,
                                       dx, phys_bc, adv_bc, ng, n_cell, is_vel,
                                       is_conservative, slope_order,
-                                      use_minion, flux_comps=flux_comps)
+                                      use_minion, flux_comps=flux_comps,
+                                      umax=umax)
     nc = s.shape[0]
     P = _padded(n_cell, ng)
     n = tuple(n_cell)
@@ -150,7 +168,7 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
     sflux = tuple(torch.empty((len(flux_comps),) + tuple(
         n[t] + (1 if t == d else 0) for t in range(3)), **kw)
         for d in range(3)) if flux_comps else (None,) * 3
-    umax = torch.zeros(1, **kw)
+    umax = _umax_buf(umax, kw)
     cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
     iv = [*n, ng, slope_order, int(bool(use_minion)), nc, int(bool(is_vel)),
           cons_mask] + _flat_bc(phys_bc, adv_bc)
@@ -223,27 +241,28 @@ mkflux_3d_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 def velpred_2d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                     slope_order, use_minion):
+                     slope_order, use_minion, umax=None):
     """The plain PyTorch version of velpred_2d_fused."""
     return godunov.velpred_2d(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
-                              n_cell, slope_order, use_minion)
+                              n_cell, slope_order, use_minion,
+                              eps=_eps(umax))
 
 
 def velpred_2d_fused(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                     slope_order, use_minion):
+                     slope_order, use_minion, umax=None):
     """BCG MAC predictor, 2-D. u, force: (2, nx+2ng, ny+2ng). Returns
     interior (umac (nx+1, ny), vmac (nx, ny+1)) exactly as
     godunov.velpred_2d, at any size and in both dtypes. On the card: two
     launches, the tie epsilon and one shared-memory tile pass."""
     if u.device.type == "cpu":
         return velpred_2d_plain(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
-                                n_cell, slope_order, use_minion)
+                                n_cell, slope_order, use_minion, umax)
     return _velpred2d_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng,
-                             n_cell, slope_order, use_minion)
+                             n_cell, slope_order, use_minion, umax)
 
 
 def _velpred2d_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
-                      slope_order, use_minion):
+                      slope_order, use_minion, umax=None):
     nx, ny = n_cell
     P = _padded(n_cell, ng)
     _cuda.check(u, "u", (2,) + P)
@@ -251,7 +270,7 @@ def _velpred2d_launch(u, force, dt, dx, phys_bc, adv_bc_vel, ng, n_cell,
     opts = dict(dtype=u.dtype, device=u.device)
     umac = torch.empty((nx + 1, ny), **opts)
     vmac = torch.empty((nx, ny + 1), **opts)
-    umax = torch.zeros(1, **opts)
+    umax = _umax_buf(umax, opts)
     iv = [nx, ny, ng, slope_order, int(bool(use_minion))]
     iv += _flat_bc(phys_bc, adv_bc_vel, 2)
     _cuda.call("velpred2d", "velpred2d", [u, force, umac, vmac, umax],
@@ -265,16 +284,17 @@ velpred_2d_fused.launches = 0
 
 def mkflux_2d_plain(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
                     adv_bc, ng, n_cell, is_vel, is_conservative, slope_order,
-                    use_minion):
+                    use_minion, umax=None):
     """The plain PyTorch version of mkflux_2d_fused."""
     return godunov.mkflux_2d(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
                              phys_bc, adv_bc, ng, n_cell, is_vel,
-                             is_conservative, slope_order, use_minion)
+                             is_conservative, slope_order, use_minion,
+                             eps=_eps(umax))
 
 
 def mkflux_2d_fused(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
                     adv_bc, ng, n_cell, is_vel, is_conservative, slope_order,
-                    use_minion):
+                    use_minion, umax=None):
     """Godunov edge states and fluxes of nc components, 2-D: returns
     (sedgex, sedgey, fluxx, fluxy) exactly as godunov.mkflux_2d, at any size
     and in both dtypes. ``force`` and ``mac_rhs`` may each be None, meaning
@@ -283,15 +303,15 @@ def mkflux_2d_fused(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
     if s.device.type == "cpu":
         return mkflux_2d_plain(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
                                phys_bc, adv_bc, ng, n_cell, is_vel,
-                               is_conservative, slope_order, use_minion)
+                               is_conservative, slope_order, use_minion, umax)
     return _mkflux2d_launch(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx,
                             phys_bc, adv_bc, ng, n_cell, is_vel,
-                            is_conservative, slope_order, use_minion)
+                            is_conservative, slope_order, use_minion, umax)
 
 
 def _mkflux2d_launch(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
                      adv_bc, ng, n_cell, is_vel, is_conservative, slope_order,
-                     use_minion):
+                     use_minion, umax=None):
     nc = s.shape[0]
     nx, ny = n_cell
     P = _padded(n_cell, ng)
@@ -307,7 +327,7 @@ def _mkflux2d_launch(s, umac_pad, vmac_pad, force, mac_rhs, dt, dx, phys_bc,
         _cuda.check(mac_rhs, "mac_rhs", P, **kw)
     outs = [torch.empty(shape, **kw)
             for shape in ((nc, nx + 1, ny), (nc, nx, ny + 1)) * 2]
-    umax = torch.zeros(1, **kw)
+    umax = _umax_buf(umax, kw)
     cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
     iv = [nx, ny, ng, slope_order, int(bool(use_minion)), nc,
           int(bool(is_vel)), cons_mask] + _flat_bc(phys_bc, adv_bc, 2)

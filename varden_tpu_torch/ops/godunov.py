@@ -82,14 +82,15 @@ def _copy_inner(lv, rv, side):
 
 def velpred_2d(u: torch.Tensor, force: torch.Tensor, dt, dx: Sequence[float],
                phys_bc, adv_bc_vel, ng: int, n_cell: Sequence[int],
-               slope_order: int, use_minion: bool
+               slope_order: int, use_minion: bool, eps=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u, force: (2, Nx, Ny) ghost-padded. Returns interior umac (nx+1, ny)
-    and vmac (nx, ny+1)."""
+    and vmac (nx, ny+1). ``eps`` overrides the Riemann tie epsilon."""
     dm = 2
     nx, ny = n_cell
     dt2, dt4 = 0.5 * dt, 0.25 * dt
-    eps = _eps_from(u[:, ng:ng + nx, ng:ng + ny].abs().max())
+    if eps is None:
+        eps = _eps_from(u[:, ng:ng + nx, ng:ng + ny].abs().max())
     uw = [u[c] for c in range(dm)]
     fw = [force[c] for c in range(dm)]
     slopes = [[slope(u[c], a, ng, adv_bc_vel[c][a][0], adv_bc_vel[c][a][1],
@@ -181,21 +182,24 @@ def mkflux_2d(s: torch.Tensor, umac_pad: torch.Tensor, vmac_pad: torch.Tensor,
               force, mac_rhs, dt, dx: Sequence[float], phys_bc, adv_bc,
               ng: int, n_cell: Sequence[int], is_vel: bool,
               is_conservative: Sequence[bool], slope_order: int,
-              use_minion: bool):
+              use_minion: bool, eps=None):
     """Godunov edge states and conservative fluxes on both face sets.
 
     s, force: (nc, Nx, Ny) ghost-padded; mac_rhs: (Nx, Ny) padded;
     umac_pad/vmac_pad: cell-aligned padded MAC faces with one valid
     tangential ghost. force and mac_rhs may be None (statically zero: their
     terms are skipped). Returns interior sedgex (nc, nx+1, ny), sedgey
-    (nc, nx, ny+1), fluxx, fluxy (zero for non-conservative components)."""
+    (nc, nx, ny+1), fluxx, fluxy (zero for non-conservative components).
+    ``eps`` overrides the Riemann tie epsilon."""
     dm = 2
     nx, ny = n_cell
     nc = s.shape[0]
     dt2, dt4 = 0.5 * dt, 0.25 * dt
     macw = (umac_pad, vmac_pad)
-    eps = _eps_from(torch.maximum(_crop(umac_pad, 0, ng, n_cell).abs().max(),
-                                  _crop(vmac_pad, 1, ng, n_cell).abs().max()))
+    if eps is None:
+        eps = _eps_from(torch.maximum(
+            _crop(umac_pad, 0, ng, n_cell).abs().max(),
+            _crop(vmac_pad, 1, ng, n_cell).abs().max()))
     slopes = [[slope(s[c], a, ng, adv_bc[c][a][0], adv_bc[c][a][1],
                      slope_order, n_cell[a]) for c in range(nc)]
               for a in range(dm)]

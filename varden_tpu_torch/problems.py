@@ -39,10 +39,13 @@ def initdata(sim: Sim, dx=None, n_cell=None, lo=None,
     """Initial (u, s) for the configured prob_type; gp = p = 0.
 
     dx / n_cell / lo evaluate it on a fine AMR box (initdata_on_level,
-    reference initdata.f90:19-59)."""
+    reference initdata.f90:19-59). On a decomposed level it is the rank's
+    block, from the level's coordinates."""
     cfg = sim.cfg
     dm = sim.dm
     pt = cfg.prob_type
+    if lo is None and sim.dec is not None:
+        lo = sim.dec.lo
     n_cell = sim.n_cell if n_cell is None else n_cell
     box = dict(dx=dx, n_cell=n_cell, lo=lo)
 

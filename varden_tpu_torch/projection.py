@@ -67,12 +67,12 @@ def macproject(sim: Sim, umac: Tuple[torch.Tensor, ...], rho: torch.Tensor,
     aco = sim.zeros(n)
     phi, (mac_rn, _iters, mac_ratio) = mg.solve(
         n, dx, ell_bc, aco, beta, rhs, alpha=0.0, phi0=phi0, rel_eps=rel_eps,
-        abs_eps=-1.0, return_info=True, bottom=sim.mg_bottom)
+        abs_eps=-1.0, return_info=True, bottom=sim.mg_bottom, dec=sim.dec)
 
     # subtract beta * grad(phi) on every face; the BC-aware ghost pad makes
     # the 2-point difference realize the one-sided boundary gradient
     # (mkumac, macproject.f90:533-581)
-    phi_p = mg._pad_ghost(phi, ell_bc, [[0.0, 0.0]] * dm, dm)
+    phi_p = mg._pad_ghost(phi, ell_bc, [[0.0, 0.0]] * dm, dm, dec=sim.dec)
     new_umac = tuple(
         umac[d] - beta[d] * (_face_diff(phi_p, d, dm, lambda h, l: h - l)
                              / dx[d])
@@ -80,8 +80,8 @@ def macproject(sim: Sim, umac: Tuple[torch.Tensor, ...], rho: torch.Tensor,
     div_after = basic.mac_div(new_umac, dx)
     if mac_rhs is not None:
         div_after = div_after - mac_rhs
-    return (new_umac, div_before.abs().max(), div_after.abs().max(), phi,
-            mac_rn, mac_ratio)
+    return (new_umac, mg._gmax(div_before, sim.dec),
+            mg._gmax(div_after, sim.dec), phi, mac_rn, mac_ratio)
 
 
 def _inflow_pad(sim: Sim):
@@ -118,10 +118,11 @@ def hgproject(sim: Sim, proj_type: int, unew: torch.Tensor,
 
     sigma = 1.0 / rhohalf
     mask = sim.nodal_mask()
-    rhs = nodal.divu_rhs(vel, dx, pmask, dm, inflow_pad=_inflow_pad(sim))
+    rhs = nodal.divu_rhs(vel, dx, pmask, dm, inflow_pad=_inflow_pad(sim),
+                         dec=sim.dec)
     phi, (hg_rn, _iters, hg_ratio) = nodal.solve(
         n, dx, pmask, sigma, rhs, mask=mask, phi0=phi0, rel_eps=rel_eps,
-        abs_eps=abs_eps, return_info=True, bottom=sim.hg_bottom)
+        abs_eps=abs_eps, return_info=True, bottom=sim.hg_bottom, dec=sim.dec)
     gphi = nodal.cell_grad(phi, dx, pmask, dm)
 
     # hg_update (hgproject.f90:581-634)
@@ -187,7 +188,7 @@ def visc_solve(sim: Sim, unew: torch.Tensor, lapu: Optional[torch.Tensor],
     # takes its constant-stencil kernel and makes no face tensors
     beta = (visc_mu,) * dm
     kw = dict(alpha=1.0, rel_eps=rel_eps, abs_eps=-1.0, bottom=sim.mg_bottom,
-              return_info=True)
+              return_info=True, dec=sim.dec)
     bcs = [comp_bc(sim, d) for d in range(dm)]
     if all(b == bcs[0] for b in bcs[1:]):
         # one operator for all components (e.g. no-slip walls): one batched
@@ -227,7 +228,7 @@ def diff_scalar_solve(sim: Sim, snew: torch.Tensor,
         ell_bc, bvals = comp_bc(sim, sim.scal_comp(i))
         phi, _ = mg.solve(n, dx, ell_bc, aco, (visc_mu,) * dm, rh, alpha=1.0,
                           bvals=bvals, phi0=snew[i], rel_eps=rel_eps,
-                          abs_eps=-1.0, bottom=sim.mg_bottom)
+                          abs_eps=-1.0, bottom=sim.mg_bottom, dec=sim.dec)
         out.append(phi)
     return torch.stack(out)
 
@@ -237,4 +238,4 @@ def get_explicit_diffusive_term(sim: Sim, f: torch.Tensor,
     """lap(f) for one variable with its elliptic BCs (reference
     get_explicit_diffusive_term, src/explicit_diffusive_term.f90:16-88)."""
     ell_bc, bvals = comp_bc(sim, comp)
-    return mg.laplacian(f, sim.n_cell, sim.dx, ell_bc, bvals)
+    return mg.laplacian(f, sim.n_cell, sim.dx, ell_bc, bvals, dec=sim.dec)

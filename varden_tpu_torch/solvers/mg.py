@@ -57,6 +57,7 @@ import torch
 
 from ..bc import BC_DIR, BC_NEU, BC_PER
 from ..ops import cuda_kernels as ck
+from ..parallel import halo
 
 # Coarse-fine "ghost Dirichlet": the boundary value lives in the ghost CELL
 BC_GHOST = 3
@@ -82,20 +83,26 @@ def _sl(ndim, axis, s):
     return tuple(out)
 
 
-def _pad_ghost(phi, ell_bc, bvals, dm):
+def _pad_ghost(phi, ell_bc, bvals, dm, dec=None):
     """Pad with 1 ghost cell per spatial axis such that the uniform 2-point
     flux formula realizes the boundary condition:
       PER: wrap;  NEU: ghost = first interior (zero flux);
       DIR: ghost = (8/3) b - 2 phi0 + (1/3) phi1  (quadratic, face value b).
+    With ``dec`` (a rank's block) the internal faces take the neighbours'
+    cells instead.
     """
     for d in range(dm):
         axis = phi.ndim - dm + d
         lo_bc, hi_bc = ell_bc[d]
+        lo_x, hi_x = (None, None) if dec is None else \
+            halo.exchange(phi, dec, d, 1, 1)
 
         def take(i0, i1):
             return phi[_sl(phi.ndim, axis, slice(i0, i1))]
 
-        if lo_bc == BC_PER:
+        if lo_x is not None:
+            lo = lo_x
+        elif lo_bc == BC_PER:
             lo = take(-1, None)
         elif lo_bc == BC_NEU:
             lo = take(0, 1)
@@ -103,7 +110,9 @@ def _pad_ghost(phi, ell_bc, bvals, dm):
             lo = torch.zeros_like(take(0, 1))
         else:  # BC_DIR
             lo = (8.0 / 3.0) * bvals[d][0] - 2.0 * take(0, 1) + (1.0 / 3.0) * take(1, 2)
-        if hi_bc == BC_PER:
+        if hi_x is not None:
+            hi = hi_x
+        elif hi_bc == BC_PER:
             hi = take(0, 1)
         elif hi_bc == BC_NEU:
             hi = take(-1, None)
@@ -156,6 +165,13 @@ class CCLevel:
     cfac: Optional[Tuple[int, ...]] = None
     # dense inverse of the bottom operator (bottom level only)
     binv: Optional[torch.Tensor] = None
+    # a level decomposed over ranks (see make_dlevel): the rank's block
+    # (parallel.mesh.Decomp), the level on the block grown by HALO cells on
+    # its internal faces, and (3-D periodic-x levels) the kernel-7 level of
+    # its frozen-ring sweeps
+    dec: Optional[object] = None
+    ext: Optional["CCLevel"] = None
+    ring: Optional["CCLevel"] = None
 
     @property
     def dm(self):
@@ -258,15 +274,21 @@ def _coarsen_plan(n, dx, dm):
                  for d in range(dm))
 
 
-def laplacian(f, n, dx, ell_bc, bvals=None):
+def laplacian(f, n, dx, ell_bc, bvals=None, dec=None):
     """lap(f) with BC-corrected boundary stencils: cc_applyop with alpha=0,
     beta=-1 (reference explicit_diffusive_term.f90:55-60). The residual of
     -lap with a zero right-hand side is lap(f): one pass of the
     constant-coefficient kernel in 3-D, the plain operator in 2-D. ``f``
-    may carry a leading batch axis."""
+    may carry a leading batch axis. With ``dec`` (a rank's block) it runs
+    on the block grown by one cell from the neighbours."""
     dm = len(n)
     if bvals is None:
         bvals = [[0.0, 0.0]] * dm
+    if dec is not None:
+        fe = halo.extend(f, dec, 1)
+        out = laplacian(fe, fe.shape[fe.ndim - dm:], dx,
+                        block_codes(ell_bc, dec), bvals)
+        return halo.crop(out, dec, 1)
     if dm == 2:
         aco = torch.zeros(tuple(n), dtype=f.dtype, device=f.device)
         level = make_level(n, dx, ell_bc, aco, (1.0,) * dm, 0.0)
@@ -279,10 +301,14 @@ def laplacian(f, n, dx, ell_bc, bvals=None):
 
 
 def build_hierarchy(n, dx, ell_bc, aco, beta, alpha,
-                    bottom: str = "dense") -> List[CCLevel]:
+                    bottom: str = "dense", dec=None,
+                    top: CCLevel = None) -> List[CCLevel]:
     """The level stack by factor-2 (semi-)coarsening, finest first; for the
     dense bottom solver the bottom operator's inverse is formed once
-    here."""
+    here. With ``dec`` the finest levels are decomposed over the ranks (see
+    _dbuild; ``top``: the finest one, already built)."""
+    if dec is not None:
+        return _dbuild(n, dx, ell_bc, aco, beta, alpha, bottom, dec, top)
     dm = len(n)
     levels = []
     while True:
@@ -400,6 +426,8 @@ def _const_fused_route(level: CCLevel) -> bool:
 def _residual(level: CCLevel, phi, rhs, bvals):
     """rhs - L(phi): through the level's kernel, or (2-D, scalar beta) the
     plain operator."""
+    if level.dec is not None:
+        return _dresidual(level, phi, rhs, bvals)
     if not _scalar_beta(level.beta):
         return _var_sweep(level, phi, rhs, bvals, "residual")
     if level.dm == 3:
@@ -412,11 +440,14 @@ def _padded_route(level: CCLevel, phi) -> bool:
     where varden_tpu's accelerator route does (varden_tpu/solvers/mg.py
     :371-404: gsrb_var_sweep_3d refuses a periodic x axis, and the padded
     kernel takes 3-D face-tensor levels of even extents >= 8). The rule
-    looks at the level only, never at the device or the dtype."""
+    looks at the level only (the whole level where it is decomposed), never
+    at the device or the dtype."""
+    n, per_x = level.n, BC_PER in level.ell_bc[0]
+    if level.dec is not None:
+        n, per_x = level.dec.n_glob, level.dec.pmask[0]
     return (level.dm == 3 and phi.ndim == 3
             and not any(_is_scalar_coef(b) for b in level.beta)
-            and BC_PER in level.ell_bc[0]
-            and all(s >= 8 and s % 2 == 0 for s in level.n))
+            and per_x and all(s >= 8 and s % 2 == 0 for s in n))
 
 
 def _padded_sweep(level: CCLevel, phi, rhs, bvals, emit, **fused):
@@ -431,6 +462,8 @@ def gsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
     """nsweeps red-black Gauss-Seidel sweeps (red: index sum even): exact,
     or, on a level of _padded_route, each with the ghost ring of its start,
     so the black cells see the ghosts of the sweep's start."""
+    if level.dec is not None:
+        return _dgsrb(level, phi, rhs, bvals, nsweeps)
     if _padded_route(level, phi):
         return _padded_sweep(level, phi, rhs, bvals, "smooth",
                              nsweeps=nsweeps)
@@ -458,15 +491,26 @@ def jacobi(level: CCLevel, phi, rhs, bvals, nsweeps):
     of the 2-D Helmholtz fast path, where the Jacobi iteration matrix norm
     gamma = |offdiag|/diag is already well below 1."""
     for _ in range(nsweeps):
-        r = rhs - cc_apply(level, phi, bvals)
+        r = (_dresidual(level, phi, rhs, bvals) if level.dec is not None
+             else rhs - cc_apply(level, phi, bvals))
         phi = phi + r * level.inv_diag
     return phi
 
 
-def _mean_sp(x, dm):
+def _mean_sp(x, dm, dec=None):
     """Mean over the spatial (last dm) axes, keepdims: per batch element
-    when a leading batch axis is present."""
-    return x.mean(dim=tuple(range(x.ndim - dm, x.ndim)), keepdim=True)
+    when a leading batch axis is present; over the whole level where ``x``
+    is a rank's block (``dec``)."""
+    axes = tuple(range(x.ndim - dm, x.ndim))
+    if dec is None:
+        return x.mean(dim=axes, keepdim=True)
+    return halo.all_sum(x.sum(dim=axes, keepdim=True)) / math.prod(dec.n_glob)
+
+
+def _gmax(x, dec=None):
+    """max|x| (a 0-d tensor), over every rank's block with ``dec``."""
+    m = x.abs().max()
+    return m if dec is None else halo.all_max(m)
 
 
 def _bottom_dense_A(level: CCLevel, singular: bool):
@@ -589,6 +633,9 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
     computes anyway."""
     level = levels[lev]
     bv = bvals if lev == 0 else [[0.0, 0.0]] * level.dm
+    if level.dec is not None:
+        return _dv_cycle(levels, phi, rhs, bvals, lev, nu1, nu2, singular,
+                         return_resnorm, bottom)
     if lev == len(levels) - 1:
         r = _residual(level, phi, rhs, bv)
         if singular:
@@ -637,6 +684,228 @@ def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
     return (phi, rmax) if return_resnorm else phi
 
 
+# ---------------------------------------------------------------------------
+# Levels decomposed over ranks
+# ---------------------------------------------------------------------------
+# A decomposed level holds the rank's block of every tensor. Its passes run
+# on the block grown by HALO cells from the neighbours on each internal face
+# (parallel.halo.extend), with the level's own boundary codes on the
+# physical faces and BC_PER on the internal ones, and keep the block: the
+# grown cells see a wrong boundary, but a residual spoils only the outermost
+# of them and one red-black sweep the outer two, so the block's cells come
+# out as the whole level's would, bit for bit. A sweep is one exchange and
+# one single-sweep pass of the level's kernel (3, 5 or 8; the 2-D
+# one-number operator in plain code); on the periodic-x levels of
+# _padded_route one pass of kernel 7 on a ring formed at the sweep's start,
+# the wrapped neighbour's cells across a periodic seam, so that the rule of
+# this module's docstring holds across the seam while the internal faces
+# stay exact. The fused stages, whose ghost ring the kernels form from the
+# level's boundary codes, run on the levels gathered onto every rank below
+# the decomposed ones (_dbuild).
+
+HALO = 2
+
+
+def block_codes(ell_bc, dec):
+    """The boundary codes of a rank's block: BC_PER on its internal faces
+    (the grown cells' outer ring, which no kept cell reads)."""
+    return tuple(tuple(BC_PER if dec.internal(d, s) else ell_bc[d][s]
+                       for s in range(2)) for d in range(len(ell_bc)))
+
+
+def _grow_beta(beta, dec, k):
+    return tuple(b if _is_scalar_coef(b) else
+                 halo.extend(b, dec, k, [t == d for t in range(dec.dm)])
+                 for d, b in enumerate(beta))
+
+
+def _seam_cut(dec, d, side):
+    return HALO if dec.seam(d, side) else 0
+
+
+def _cut(f, dec, cuts):
+    """Narrow the trailing dm axes by cuts[d] = (lo, hi)."""
+    for d, (lo, hi) in enumerate(cuts):
+        ax = f.ndim - dec.dm + d
+        f = f.narrow(ax, lo, f.shape[ax] - lo - hi)
+    return f
+
+
+def make_dlevel(n, dx, ell_bc, aco, beta, alpha, dec, cfac=None) -> CCLevel:
+    """A level decomposed over ranks: the rank's block (``n`` its cells,
+    ``aco`` and ``beta`` its coefficients, ``ell_bc`` the whole level's
+    codes) with the grown level of its passes."""
+    dm = len(n)
+    codes = block_codes(ell_bc, dec)
+    level = dataclasses.replace(make_level(n, dx, codes, aco, beta, alpha),
+                                cfac=cfac, dec=dec)
+    aco_e = halo.extend(aco, dec, HALO)
+    beta_e = _grow_beta(beta, dec, HALO)
+    ext = make_level(aco_e.shape[aco_e.ndim - dm:], dx, codes, aco_e,
+                     beta_e, alpha)
+    ring = None
+    if _padded_route(level, aco):
+        # kernel 7's interior: the grown block less the periodic seams,
+        # where the ring is the wrapped neighbour's cells
+        cuts = [(_seam_cut(dec, d, 0), _seam_cut(dec, d, 1))
+                for d in range(dm)]
+        inv = _cut(ext.inv_diag, dec, cuts).contiguous()
+        ring = dataclasses.replace(
+            ext, n=tuple(inv.shape), aco=_cut(aco_e, dec, cuts).contiguous(),
+            beta=tuple(_cut(b, dec, cuts).contiguous() for b in beta_e),
+            inv_diag=inv, diag=_cut(ext.diag, dec, cuts))
+    return dataclasses.replace(level, ext=ext, ring=ring)
+
+
+def _dresidual(level: CCLevel, phi, rhs, bvals):
+    dec, e = level.dec, level.ext
+    phi_e = halo.extend(phi, dec, HALO)
+    rhs_e = _zero_grow(rhs, dec)
+    return halo.crop(_residual(e, phi_e, rhs_e, bvals), dec, HALO)
+
+
+def _zero_grow(f, dec):
+    """``f`` grown by HALO zeros on the internal faces (a residual's
+    right-hand side there is never kept)."""
+    for d in range(dec.dm):
+        ax = f.ndim - dec.dm + d
+        parts = [f]
+        for side in (0, 1):
+            if dec.internal(d, side):
+                shape = list(f.shape)
+                shape[ax] = HALO
+                z = f.new_zeros(shape)
+                parts.insert(0 if side == 0 else len(parts), z)
+        f = torch.cat(parts, dim=ax)
+    return f
+
+
+def _sweep_grown(e: CCLevel, phi_e, rhs_e, bvals):
+    """One exact red-black sweep on a grown level: the single-sweep emit
+    of its kernel, or (2-D, scalar beta) the masked sweep."""
+    if not _scalar_beta(e.beta):
+        return _var_sweep(e, phi_e, rhs_e, bvals, "sweep")
+    if e.dm == 3:
+        return _const_sweep(e, phi_e, rhs_e, bvals, "sweep")
+    colour = ck._colour_index(e.n, phi_e.device) % 2
+    for c in (0, 1):
+        r = rhs_e - cc_apply(e, phi_e, bvals)
+        phi_e = torch.where(colour == c, phi_e + r * e.inv_diag, phi_e)
+    return phi_e
+
+
+def _ring_sweep(level: CCLevel, phi_e, rhs_e, bvals):
+    """One kernel-7 sweep of a decomposed _padded_route level: the ring is
+    phi at the sweep's start, the wrapped neighbour's across a periodic
+    seam and the level's boundary rule on the other faces that bound the
+    whole level."""
+    dec, g = level.dec, level.ring
+    dm = level.dm
+    cuts = [(_seam_cut(dec, d, 0), _seam_cut(dec, d, 1)) for d in range(dm)]
+    inner = _cut(phi_e, dec, cuts)
+    codes = tuple(tuple(BC_NEU if dec.seam(d, s) else g.ell_bc[d][s]
+                        for s in range(2)) for d in range(dm))
+    p = _pad_ghost(inner, codes, bvals, dm)
+    for d in range(dm):
+        for side in (0, 1):
+            if not dec.seam(d, side):
+                continue
+            ax = phi_e.ndim - dm + d
+            src = phi_e.narrow(ax, HALO - 1 if side == 0
+                               else phi_e.shape[ax] - HALO, 1)
+            src = _cut(src, dec, [(0, 0) if t == d else cuts[t]
+                                  for t in range(dm)])
+            sl = [slice(None)] * p.ndim
+            for t in range(dm):
+                sl[p.ndim - dm + t] = ((slice(0, 1) if side == 0
+                                        else slice(-1, None)) if t == d
+                                       else slice(1, -1))
+            p[tuple(sl)] = src
+    out = ck.gsrb_sweep_3d(p, _cut(rhs_e, dec, cuts).contiguous(),
+                           g.inv_diag, g.beta,
+                           g.dx, aco=g.aco, alpha=g.alpha, emit="sweep")
+    keep = [(HALO - cuts[d][0] if dec.internal(d, 0) else 0,
+             HALO - cuts[d][1] if dec.internal(d, 1) else 0)
+            for d in range(dm)]
+    return _cut(out, dec, keep)
+
+
+def _dgsrb(level: CCLevel, phi, rhs, bvals, nsweeps):
+    """nsweeps sweeps of a decomposed level: an exchange of HALO cells and
+    one single-sweep pass each."""
+    dec = level.dec
+    rhs_e = halo.extend(rhs, dec, HALO)
+    for _ in range(nsweeps):
+        phi_e = halo.extend(phi, dec, HALO)
+        if level.ring is not None:
+            phi = _ring_sweep(level, phi_e, rhs_e, bvals)
+        else:
+            phi = halo.crop(_sweep_grown(level.ext, phi_e, rhs_e, bvals),
+                            dec, HALO)
+    return phi
+
+
+def _dbuild(n, dx, ell_bc, aco, beta, alpha, bottom, dec, top):
+    """The hierarchy of a decomposed solve: each rank coarsens its block
+    while the coarser level keeps blocks (Decomp.keeps_blocks) and is not
+    the bottom; from the first level that does not, every rank holds the
+    whole level (gathered, exact) and the rest of the hierarchy, down to
+    the dense bottom, as a one-rank solve would."""
+    dm = len(n)
+    levels = []
+    while True:
+        fac = _coarsen_plan(dec.n_glob, dx, dm)
+        if fac is None or dec.coarsen(fac) is None:
+            raise NotImplementedError(
+                f"a decomposed level of {dec.n_glob} cells must coarsen "
+                f"into the rank blocks {dec.n}")
+        if top is not None and not levels:
+            levels.append(dataclasses.replace(top, cfac=fac))
+        else:
+            levels.append(make_dlevel(n, dx, ell_bc, aco, beta, alpha, dec,
+                                      cfac=fac))
+        cdec = dec.coarsen(fac)
+        n = cdec.n
+        dx = [dx[d] * fac[d] for d in range(dm)]
+        aco = _cell_avg_down(aco, dm, fac)
+        beta = [_face_avg_down(beta[d], d, dm, fac) for d in range(dm)]
+        beta = [b if _is_scalar_coef(b) else b.contiguous() for b in beta]
+        if cdec.keeps_blocks() and _coarsen_plan(cdec.n_glob, dx, dm):
+            dec = cdec
+            continue
+        aco = halo.gather(aco, cdec)
+        beta = [b if _is_scalar_coef(b) else
+                halo.gather(b, cdec, [int(t == d) for t in range(dm)])
+                for d, b in enumerate(beta)]
+        return levels + build_hierarchy(list(cdec.n_glob), dx, ell_bc, aco,
+                                        beta, alpha, bottom=bottom)
+
+
+def _dv_cycle(levels, phi, rhs, bvals, lev, nu1, nu2, singular,
+              return_resnorm, bottom):
+    """v_cycle's visit of a decomposed level: nu1 sweeps, the residual and
+    its restriction on the block; the coarser level's correction, through
+    the whole level on every rank where that is gathered; its prolongation
+    and nu2 sweeps."""
+    level = levels[lev]
+    dec, dm = level.dec, level.dm
+    bv = bvals if lev == 0 else [[0.0, 0.0]] * dm
+    fac = level.cfac
+    phi = _dgsrb(level, phi, rhs, bv, nu1)
+    res = _dresidual(level, phi, rhs, bv)
+    crs = _cell_avg_down(res, dm, fac)
+    rmax = _gmax(res, dec)
+    cdec = None if levels[lev + 1].dec is not None else dec.coarsen(fac)
+    if cdec is not None:
+        crs = halo.gather(crs, cdec)
+    corr = v_cycle(levels, torch.zeros_like(crs), crs, bvals, lev + 1, nu1,
+                   nu2, singular, bottom=bottom)
+    if cdec is not None:
+        corr = cdec.block(corr)
+    phi = _dgsrb(level, phi + ck.cell_prolong(corr, fac), rhs, bv, nu2)
+    return (phi, rmax) if return_resnorm else phi
+
+
 def roundoff_floor(diag_max, phi_max, dtype):
     """The residual norm a solve in ``dtype`` can attain, 4 eps * max|diag| *
     max|phi|: every solver's stopping tolerance is at least this."""
@@ -651,7 +920,7 @@ def is_singular(ell_bc, alpha) -> bool:
 def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
           rel_eps=1.0e-12, abs_eps=-1.0, max_cycles=DEFAULT_MAX_CYCLES,
           nu1=DEFAULT_NU1, nu2=DEFAULT_NU2, return_info=False,
-          bottom="dense"):
+          bottom="dense", dec=None):
     """Solve (alpha*aco - div beta grad) phi = rhs. Returns (phi, resnorm),
     or (phi, (resnorm, cycles, ratio)) with return_info; resnorm and ratio
     are 0-d tensors.
@@ -676,26 +945,36 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
     in-cycle residual monitor keeps falling below 0.7x its previous value;
     an outer loop re-checks the true residual and stops after two passes
     without a 0.9x contraction (the dtype's roundoff floor). The effective
-    tolerance includes that floor, 4 eps * max|diag| * max|phi|."""
+    tolerance includes that floor, 4 eps * max|diag| * max|phi|.
+
+    With ``dec`` (parallel.mesh.Decomp) the solve is decomposed over the
+    ranks: n, aco, beta, rhs and phi0 are the rank's block, ell_bc the whole
+    level's codes. The max norms are all-reduced (exact), the singular
+    means summed over the ranks (the one place where the result depends on
+    the decomposition, by roundoff), and the hierarchy is _dbuild's."""
     dm = len(n)
     if bvals is None:
         bvals = [[0.0, 0.0]] * dm
     singular = is_singular(ell_bc, alpha)
-    L0 = make_level(list(n), list(dx), ell_bc, aco, tuple(beta), alpha)
+    if dec is None:
+        L0 = make_level(list(n), list(dx), ell_bc, aco, tuple(beta), alpha)
+    else:
+        L0 = make_dlevel(list(n), list(dx), ell_bc, aco, tuple(beta), alpha,
+                         dec)
     if singular:
-        rhs = rhs - _mean_sp(rhs, dm)
+        rhs = rhs - _mean_sp(rhs, dm, dec)
     phi = torch.zeros_like(rhs) if phi0 is None else phi0
     dtype = rhs.dtype
-    bnorm = rhs.abs().max()
+    bnorm = _gmax(rhs, dec)
     tol = torch.clamp(rel_eps * bnorm, min=0.0 if abs_eps < 0 else abs_eps)
-    diag_max = L0.diag.abs().max()
+    diag_max = _gmax(L0.diag, dec)
 
     def tol_eff(p):
-        floor = roundoff_floor(diag_max, p.abs().max(), dtype)
+        floor = roundoff_floor(diag_max, _gmax(p, dec), dtype)
         return float(torch.maximum(tol, floor))
 
     def resnorm(p):
-        return _residual(L0, p, rhs, bvals).abs().max()
+        return _gmax(_residual(L0, p, rhs, bvals), dec)
 
     rn = resnorm(phi)
     if alpha != 0.0:
@@ -706,9 +985,10 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
         # inside a cold start) and respects the dtype's attainable floor.
         safe_diag = torch.where(L0.diag == 0.0, torch.ones_like(L0.diag),
                                 L0.diag)
-        gamma, rin, bn = torch.stack(
-            [((L0.diag - alpha * L0.aco) / safe_diag).max(), rn,
-             bnorm]).tolist()
+        gmax = ((L0.diag - alpha * L0.aco) / safe_diag).max()
+        if dec is not None:
+            gmax = halo.all_max(gmax)
+        gamma, rin, bn = torch.stack([gmax, rn, bnorm]).tolist()
         gamma = min(max(gamma, 1.0e-6), 1.0)
         target = max(tol_eff(phi), 1.0e-14 * bn)
         k_smooth = 0
@@ -728,7 +1008,7 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
     iters = 0
     if float(rn) > tol_eff(phi):
         levels = build_hierarchy(list(n), list(dx), ell_bc, aco, list(beta),
-                                 alpha, bottom=bottom)
+                                 alpha, bottom=bottom, dec=dec, top=L0)
         kw = dict(singular=singular, return_resnorm=True, bottom=bottom)
         stall = 0
         while iters < max_cycles and float(rn) > tol_eff(phi) and stall < 2:
@@ -745,7 +1025,7 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
             stall = stall + 1 if float(rn_new) > 0.9 * float(rn) else 0
             rn = rn_new
     if singular:
-        phi = phi - _mean_sp(phi, dm)
+        phi = phi - _mean_sp(phi, dm, dec)
     if return_info:
         tiny = torch.finfo(dtype).tiny
         ratio = rn / max(tol_eff(phi), tiny)

@@ -24,12 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import cuda_kernels as ck
+from ..parallel import halo
 from . import mg as _mg
 
 JACOBI_OMEGA = 0.85
@@ -62,17 +64,21 @@ def element_matrix(dx: Sequence[float]) -> np.ndarray:
     return K
 
 
-def _pad_cell(f, pmask, dm, fill=0.0):
-    """Pad a cell tensor with one ghost per axis: wrap if periodic else fill."""
+def _pad_cell(f, pmask, dm, fill=0.0, dec=None):
+    """Pad a cell tensor with one ghost per axis: wrap if periodic else fill
+    (the neighbour's cells on a decomposed block's internal faces)."""
     for d in range(dm):
         axis = f.ndim - dm + d
+        lo_x, hi_x = (None, None) if dec is None else \
+            halo.exchange(f, dec, d, 1, 1)
         if pmask[d]:
             lo, hi = f[_sl(f.ndim, axis, slice(-1, None))], \
                 f[_sl(f.ndim, axis, slice(0, 1))]
         else:
             lo = torch.full_like(f[_sl(f.ndim, axis, slice(0, 1))], fill)
             hi = lo.clone()
-        f = torch.cat([lo, f, hi], dim=axis)
+        f = torch.cat([lo if lo_x is None else lo_x, f,
+                       hi if hi_x is None else hi_x], dim=axis)
     return f
 
 
@@ -89,6 +95,11 @@ class NodalLevel:
     # level by build_hierarchy (None: formed at each use)
     inv_diag: Optional[torch.Tensor] = None
     sig_np: Optional[torch.Tensor] = None
+    # a level decomposed over ranks (see make_dlevel): the rank's block
+    # (parallel.mesh.Decomp; pmask the block's, the split axes not
+    # periodic) and the level on the block grown by one cell
+    dec: Optional[object] = None
+    ext: Optional["NodalLevel"] = None
 
     @property
     def dm(self):
@@ -205,7 +216,7 @@ def nd_apply(level: NodalLevel, phi):
     return out
 
 
-def node_diag(sigma, dx, pmask, dm):
+def node_diag(sigma, dx, pmask, dm, dec=None):
     """Operator diagonal: diag = c0 * (sum of sigma over adjacent cells)."""
     c0 = 0.0
     for d in range(dm):
@@ -214,7 +225,7 @@ def node_diag(sigma, dx, pmask, dm):
             if t != d:
                 term *= dx[t] / 3.0
         c0 += term
-    sp = _pad_cell(sigma, pmask, dm)
+    sp = _pad_cell(sigma, pmask, dm, dec=dec)
     ns = node_shape(tuple(sigma.shape[sigma.ndim - dm + d] for d in range(dm)),
                     pmask)
     acc = None
@@ -232,6 +243,8 @@ def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
     """Weighted-Jacobi sweeps: kernel 4's fused smooth emit (nsweeps sweeps
     a launch pair), or (masked levels, and 2-D) the operator apply with the
     update outside."""
+    if level.dec is not None:
+        return _djacobi(level, phi, rhs, nsweeps, omega)
     if _fused_route(level):
         return _fused(level, phi, rhs, "smooth", nsweeps, omega=omega)
     inv = _inv_diag(level)
@@ -243,6 +256,8 @@ def jacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
 
 
 def _residual(level: NodalLevel, phi, rhs):
+    if level.dec is not None:
+        return _dresidual(level, phi, rhs)
     if level.mask is None and level.dm == 3:
         return _kernel_nodal(level, phi, rhs, "residual")
     return rhs - nd_apply(level, phi)
@@ -265,7 +280,13 @@ def _cell_avg(f, dm):
 
 
 def build_hierarchy(n, dx, pmask, sigma, mask,
-                    bottom: str = "dense") -> List[NodalLevel]:
+                    bottom: str = "dense", dec=None,
+                    top: NodalLevel = None) -> List[NodalLevel]:
+    """The level stack by factor-2 coarsening, finest first, with the dense
+    bottom's inverse; with ``dec`` the finest levels are decomposed over
+    the ranks (see _dbuild; ``top``: the finest one, already built)."""
+    if dec is not None:
+        return _dbuild(n, dx, pmask, sigma, mask, bottom, dec, top)
     dm = len(n)
     levels = []
     n = list(n)
@@ -365,6 +386,9 @@ def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
     """One V-cycle. With return_resnorm, also returns the max-norm of the
     post-pre-smooth fine residual (a 0-d tensor)."""
     level = levels[lev]
+    if level.dec is not None:
+        return _dv_cycle(levels, phi, rhs, lev, nu1, nu2, return_resnorm,
+                         bottom)
     if lev == len(levels) - 1:
         r = _residual(level, phi, rhs)
         out = phi + bottom_solve(level, r, bottom)
@@ -396,19 +420,178 @@ def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
     return (phi, rmax) if return_resnorm else phi
 
 
-def divu_rhs(u, dx, pmask, dm, inflow_pad=None):
+# ---------------------------------------------------------------------------
+# Levels decomposed over ranks
+# ---------------------------------------------------------------------------
+# A rank holds the nodes of its block's closure: n + 1 along a split axis,
+# the last one shared with the hi neighbour, which owns it (_owned). Both
+# ranks compute a shared node from the same values, since each pass runs on
+# the block grown by one cell and one node from the neighbours and keeps the
+# block's nodes: a Jacobi sweep (kernel 4's single-sweep jacobi emit on an
+# unmasked 3-D level, the apply with the update outside elsewhere) or a
+# residual spoils only the outermost grown node. One exchange a sweep.
+
+
+def _shared(dm):
+    return [True] * dm
+
+
+def make_dlevel(n, dx, pmask, sigma, mask, dec) -> NodalLevel:
+    """A nodal level decomposed over ranks: ``n``, ``sigma`` and ``mask``
+    the rank's block (``pmask`` the block's), with the grown level of its
+    passes."""
+    dm = len(n)
+    lev = NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma,
+                     node_diag(sigma, dx, pmask, dm, dec=dec), mask, dec=dec)
+    sig_e = halo.extend(sigma, dec, 1)
+    mask_e = None if mask is None else halo.extend(mask, dec, 1, _shared(dm))
+    n_e = tuple(sig_e.shape[sig_e.ndim - dm:])
+    ext = NodalLevel(n_e, tuple(dx), tuple(pmask), sig_e,
+                     node_diag(sig_e, dx, pmask, dm), mask_e)
+    ext = dataclasses.replace(
+        ext, inv_diag=_inv_diag(ext),
+        sig_np=ck.node_sigma_np(sig_e, pmask, dm) if dm == 3 else None)
+    return dataclasses.replace(lev, inv_diag=_inv_diag(lev), ext=ext)
+
+
+def _grow(level, f):
+    return halo.extend(f, level.dec, 1, _shared(level.dm))
+
+
+def _dresidual(level: NodalLevel, phi, rhs):
+    return halo.crop(_residual(level.ext, _grow(level, phi),
+                               _grow(level, rhs)), level.dec, 1)
+
+
+def _djacobi(level: NodalLevel, phi, rhs, nsweeps, omega=JACOBI_OMEGA):
+    e, dec = level.ext, level.dec
+    rhs_e = _grow(level, rhs)
+    for _ in range(nsweeps):
+        phi_e = _grow(level, phi)
+        if _fused_route(e):
+            out = ck.nodal_sweep_3d(ck.node_pad(phi_e, e.pmask, 3), e.sig_np,
+                                    rhs_e, e.inv_diag, e.dx, omega, "jacobi")
+        else:
+            out = jacobi(e, phi_e, rhs_e, 1, omega)
+        phi = halo.crop(out, dec, 1)
+    return phi
+
+
+def node_extra(pmask):
+    """Nodes past the cells per axis: 0 on a periodic axis, else 1."""
+    return [0 if p else 1 for p in pmask]
+
+
+def _owned(x, dec, dm):
+    """The nodes this rank owns: a split axis drops the last node, which
+    the hi neighbour owns, unless it is the level's physical end."""
+    for d in range(dm):
+        if dec.split(d) and dec.internal(d, 1):
+            ax = x.ndim - dm + d
+            x = x.narrow(ax, 0, x.shape[ax] - 1)
+    return x
+
+
+def _gmean(x, dec, dm):
+    """The mean over the whole level's nodes."""
+    if dec is None:
+        return x.mean()
+    count = math.prod(node_shape(dec.n_glob, dec.pmask))
+    return halo.all_sum(_owned(x, dec, dm).sum()) / count
+
+
+def _dbuild(n, dx, pmask, sigma, mask, bottom, dec, top):
+    """The hierarchy of a decomposed nodal solve: blocks while the coarser
+    level keeps them and is not the bottom, then the whole level gathered
+    onto every rank and the rest as a one-rank solve builds it."""
+    dm = len(n)
+    levels = []
+
+    def bottom_of(ng):
+        return any(s % 2 != 0 or s <= BOTTOM_SIZE for s in ng)
+
+    while True:
+        if bottom_of(dec.n_glob) or dec.coarsen((2,) * dm) is None:
+            raise NotImplementedError(
+                f"a decomposed nodal level of {dec.n_glob} cells must "
+                f"coarsen into the rank blocks {dec.n}")
+        levels.append(top if top is not None and not levels else
+                      make_dlevel(n, dx, pmask, sigma, mask, dec))
+        cdec = dec.coarsen((2,) * dm)
+        n = cdec.n
+        dx = [2.0 * h for h in dx]
+        sigma = _cell_avg(sigma, dm)
+        mask = _coarsen_mask(mask, pmask, dm)
+        if cdec.keeps_blocks() and not bottom_of(cdec.n_glob):
+            dec = cdec
+            continue
+        sigma = halo.gather(sigma, cdec)
+        if mask is not None:
+            mask = halo.gather(mask, cdec, node_extra(pmask),
+                               node_extra(cdec.pmask))
+        return levels + build_hierarchy(list(cdec.n_glob), dx,
+                                        list(cdec.pmask), sigma, mask,
+                                        bottom=bottom)
+
+
+def _dv_cycle(levels, phi, rhs, lev, nu1, nu2, return_resnorm, bottom):
+    """v_cycle's visit of a decomposed level: nu1 sweeps, the residual and
+    its restriction (on the block grown by two nodes, so that the coarse
+    nodes of the block's closure come out whole), the coarser level's
+    correction (gathered where that level is), its prolongation on the
+    block and nu2 sweeps."""
+    level = levels[lev]
+    dec, dm = level.dec, level.dm
+    phi = _djacobi(level, phi, rhs, nu1)
+    res = _dresidual(level, phi, rhs)
+    rmax = _mg._gmax(res, dec)
+    crs = halo.crop(ck.node_restrict(halo.extend(res, dec, 2, _shared(dm)),
+                                     level.pmask, dm), dec, 1)
+    nxt = levels[lev + 1]
+    cdec = None if nxt.dec is not None else dec.coarsen((2,) * dm)
+    if cdec is not None:
+        crs = halo.gather(crs, cdec, node_extra(level.pmask),
+                          node_extra(cdec.pmask))
+    if nxt.mask is not None:
+        crs = crs * nxt.mask
+    corr = v_cycle(levels, torch.zeros_like(crs), crs, lev + 1, nu1, nu2,
+                   bottom=bottom)
+    if cdec is not None:
+        corr = cdec.block(corr, nodal=True)
+    corr_f = ck.node_prolong(corr, node_shape(level.n, level.pmask),
+                             level.pmask, dm)
+    if level.mask is not None:
+        corr_f = corr_f * level.mask
+    phi = _djacobi(level, phi + corr_f, rhs, nu2)
+    return (phi, rmax) if return_resnorm else phi
+
+
+def divu_rhs(u, dx, pmask, dm, inflow_pad=None, dec=None, keep=None):
     """Weak-form divergence source b_i = sum_cells u_c · ∫_c ∇N_i.
 
     ``u``: (dm, *cells) interior velocity. ``inflow_pad``: optional function
     (comp, d, side) -> ghost value for EXT_DIR inflow faces; other physical
     ghosts are zero (walls via create_uvec zeroing, hgproject.f90:424-427).
+    ``keep``: optional (*cells) 0/1 tensor; a physical face's ghost cell
+    counts only beside a cell it keeps (the uncovered part of a composite
+    row). With ``dec`` the ghosts of a block's internal faces are the
+    neighbours' cells, and the result is the block's nodes.
     """
     comps = []
     for c in range(dm):
         f = u[c]
+        k = keep
         for d in range(dm):
             axis = f.ndim - dm + d
-            if pmask[d]:
+            lo_x, hi_x = (None, None) if dec is None else \
+                halo.exchange(f, dec, d, 1, 1)
+            if lo_x is not None or hi_x is not None:
+                edge = f[_sl(f.ndim, axis, slice(0, 1))]
+                lo = lo_x if lo_x is not None else torch.full_like(
+                    edge, 0.0 if inflow_pad is None else inflow_pad(c, d, 0))
+                hi = hi_x if hi_x is not None else torch.full_like(
+                    edge, 0.0 if inflow_pad is None else inflow_pad(c, d, 1))
+            elif pmask[d]:
                 lo = f[_sl(f.ndim, axis, slice(-1, None))]
                 hi = f[_sl(f.ndim, axis, slice(0, 1))]
             else:
@@ -417,7 +600,14 @@ def divu_rhs(u, dx, pmask, dm, inflow_pad=None):
                                      else inflow_pad(c, d, 0))
                 hi = torch.full_like(edge, 0.0 if inflow_pad is None
                                      else inflow_pad(c, d, 1))
+                if k is not None:
+                    lo = lo * k[_sl(k.ndim, axis, slice(0, 1))]
+                    hi = hi * k[_sl(k.ndim, axis, slice(-1, None))]
             f = torch.cat([lo, f, hi], dim=axis)
+            if k is not None:
+                k = torch.cat([k[_sl(k.ndim, axis, slice(0, 1))], k,
+                               k[_sl(k.ndim, axis, slice(-1, None))]],
+                              dim=axis)
         comps.append(f)
 
     rhs = None
@@ -466,7 +656,7 @@ def cell_grad(phi, dx, pmask, dm):
 
 def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
           rel_eps=1.0e-11, abs_eps=-1.0, max_cycles=DEFAULT_MAX_CYCLES,
-          return_info=False, bottom="dense"):
+          return_info=False, bottom="dense", dec=None):
     """Solve A(sigma) phi = rhs on the node lattice. Returns (phi, resnorm),
     or (phi, (resnorm, cycles, ratio)) with return_info.
 
@@ -474,30 +664,38 @@ def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
     while the in-cycle monitor falls below 0.7x its previous value, an outer
     loop that re-checks the true residual and stops when the inner loop
     ended above tolerance (stalled), and an effective tolerance that
-    includes the dtype's floor 4 eps * max|diag| * max|phi|."""
+    includes the dtype's floor 4 eps * max|diag| * max|phi|.
+
+    With ``dec`` (parallel.mesh.Decomp) the solve is decomposed over the
+    ranks: n, sigma, mask, rhs and phi0 are the rank's block (its closure's
+    nodes), pmask the block's. The max norms are all-reduced (exact) and
+    the singular means summed over the owned nodes of every rank."""
     dm = len(n)
     singular = mask is None
-    L0 = NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma,
-                    node_diag(sigma, dx, pmask, dm), mask)
+    if dec is None:
+        L0 = NodalLevel(tuple(n), tuple(dx), tuple(pmask), sigma,
+                        node_diag(sigma, dx, pmask, dm), mask)
+    else:
+        L0 = make_dlevel(n, dx, pmask, sigma, mask, dec)
     if mask is not None:
         rhs = rhs * mask
     if singular:
-        rhs = rhs - rhs.mean()
+        rhs = rhs - _gmean(rhs, dec, dm)
     phi = torch.zeros_like(rhs) if phi0 is None else phi0
     dtype = rhs.dtype
-    bnorm = rhs.abs().max()
+    bnorm = _mg._gmax(rhs, dec)
     tol = torch.clamp(rel_eps * bnorm, min=0.0 if abs_eps < 0 else abs_eps)
-    diag_max = L0.diag.abs().max()
+    diag_max = _mg._gmax(L0.diag, dec)
 
     def tol_eff(p):
-        floor = _mg.roundoff_floor(diag_max, p.abs().max(), dtype)
+        floor = _mg.roundoff_floor(diag_max, _mg._gmax(p, dec), dtype)
         return float(torch.maximum(tol, floor))
 
-    rn = _residual(L0, phi, rhs).abs().max()
+    rn = _mg._gmax(_residual(L0, phi, rhs), dec)
     iters = 0
     if float(rn) > tol_eff(phi):
         levels = build_hierarchy(list(n), list(dx), list(pmask), sigma, mask,
-                                 bottom=bottom)
+                                 bottom=bottom, dec=dec, top=L0)
         stalled = False
         while iters < max_cycles and float(rn) > tol_eff(phi) and not stalled:
             tl = tol_eff(phi)
@@ -510,10 +708,10 @@ def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
                                     bottom=bottom)
                 iters += 1
                 mon, prev = float(mon2), mon
-            rn = _residual(levels[0], phi, rhs).abs().max()
+            rn = _mg._gmax(_residual(levels[0], phi, rhs), dec)
             stalled = mon > tl
     if singular:
-        phi = phi - phi.mean()
+        phi = phi - _gmean(phi, dec, dm)
     if return_info:
         tiny = torch.finfo(dtype).tiny
         ratio = rn / max(tol_eff(phi), tiny)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from . import bc as bc_mod
-from .config import OUTLET, VardenConfig
+from .config import OUTLET, PERIODIC, VardenConfig
 from .solvers import nodal
 from .solvers.mg import BOTTOM_METHODS
 
@@ -42,19 +42,37 @@ def resolve_device(device=None) -> torch.device:
 
 class Sim:
     """Static per-run context: geometry, BC tables, component maps, and the
-    device and dtype every tensor of the run lives in."""
+    device and dtype every tensor of the run lives in.
 
-    def __init__(self, cfg: VardenConfig, device=None):
+    With ``decomp`` (a parallel.mesh.Decomp) the Sim is one rank's view of
+    a decomposed level: ``n_cell`` is the rank's block, ``pmask`` holds only
+    the periodic axes that are not split, and on the block's internal faces
+    ``phys_bc`` and ``adv_bc`` say "no physical boundary" (PERIODIC,
+    ADV_INTERIOR): the ghost fills take those faces from the neighbours.
+    ``ell_bc`` keeps the level's codes, and the solvers read the internal
+    faces from ``dec``."""
+
+    def __init__(self, cfg: VardenConfig, device=None, decomp=None):
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dm = cfg.dm
-        self.n_cell = cfg.n_cell
+        self.dec = decomp
+        self.n_cell = cfg.n_cell if decomp is None else decomp.n
         self.dx = cfg.dx
-        self.pmask = cfg.pmask
+        self.pmask = cfg.pmask if decomp is None else decomp.local_pmask
         self.phys_bc = cfg.phys_bc
         self.adv_bc = bc_mod.adv_bc_table(cfg)
         self.ell_bc = bc_mod.ell_bc_table(cfg)
+        if decomp is not None:
+            inner = [(d, s) for d in range(self.dm) for s in range(2)
+                     if decomp.internal(d, s)]
+            self.phys_bc = tuple(
+                tuple(PERIODIC if (d, s) in inner else cfg.phys_bc[d][s]
+                      for s in range(2)) for d in range(self.dm))
+            for comp in self.adv_bc:
+                for d, s in inner:
+                    comp[d][s] = bc_mod.ADV_INTERIOR
         self.bvals = bc_mod.bc_values(cfg)
         self.ng = cfg.ng_cell
         self.nscal = cfg.nscal
@@ -89,8 +107,11 @@ class Sim:
         return nodal.node_shape(self.n_cell, self.pmask)
 
     def nodal_mask(self) -> Optional[torch.Tensor]:
-        """Dirichlet node mask for the hg solve: 0 on OUTLET boundary nodes."""
-        if not any(OUTLET in pair for pair in self.phys_bc):
+        """Dirichlet node mask for the hg solve: 0 on OUTLET boundary nodes
+        (None where the level has no outlet: on a decomposed level every
+        rank takes the same solver path, with or without outlet nodes of
+        its own)."""
+        if not any(OUTLET in pair for pair in self.cfg.phys_bc):
             return None
         mask = torch.ones(self.node_shape(), dtype=self.dtype,
                           device=self.device)
@@ -108,7 +129,7 @@ class Sim:
         return bc_mod.fill_ghost(f, ng, self.adv_bc[comp],
                                  self.bvals[comp] if comp < len(self.bvals)
                                  else None,
-                                 self.pmask, self.dm)
+                                 self.pmask, self.dm, dec=self.dec)
 
     def fill_vel(self, u: torch.Tensor, ng: int = None) -> torch.Tensor:
         ng = self.ng if ng is None else ng
