@@ -103,20 +103,23 @@ Phases, each of which asserts and any failure of which exits non-zero:
  16. the decomposed single-level path (varden_tpu_torch.parallel): gloo
      ranks sharing the card, started by parallel.launch, each holding its
      block of every field, its kernels on the card and the halos through
-     pinned host buffers. The viscous 3-D bubble at N_DECOMP_CHECK^3 in
-     float64 on 2 and 4 ranks against the one-rank card run
-     (TOL_DECOMP_F64 of each field's size, the same V-cycles a step); the
-     headline (phase 4's run) on 4 ranks within TOL_DECOMP_F32 of the
-     one-rank run, and config 2's geometry at N_2D_PUBLISHED^2 (phase 9's
-     run) on 4 within TOL_DECOMP_F32, or within twice the one-rank
-     float32 run's distance from float64 where that is larger (its
-     pressure gradient: float32's own roundoff); the gates of phase 4 and
-     the path's kernels
-     launched on every rank. It prints, per rank and step, the launches,
-     the halo exchanges and their bytes, and the step seconds beside the
-     one-rank step: the cost of the decomposition on one card, not a
-     scaling. Which gloo operations take CUDA tensors as they are is
-     probed and printed first.
+     pinned host buffers (phase_decomposed, on the cells of
+     decomp_cells()). The viscous 3-D bubble and config 4's geometry
+     (periodic in x and y: kernel 7's ring sweeps) at N_DECOMP_CHECK^3 in
+     float64 on 2 and 4 ranks, and the headline and config 2's geometry
+     at N_2D_PUBLISHED^2 on 4 ranks in float64, each against its one-rank
+     card run (TOL_DECOMP_F64 of each field's size, the same V-cycles a
+     step); then the headline and config 2's geometry in float32 on 4
+     ranks within TOL_DECOMP_F32 of their one-rank runs (config 2's
+     geometry: or within twice the one-rank float32 run's distance from
+     float64 where that is larger, its pressure gradient being float32's
+     own roundoff). Every rank records the first call of each kind
+     (shapes, emit, boundary codes) of every kernel and holds it against
+     the kernel's plain version on the same inputs at TOL_KERNEL, as
+     phase 2 does; the gates of phase 4 and the path's kernels launched on
+     every rank. It prints, per rank and step, the launches, the halo
+     exchanges and their bytes, and the step seconds beside the one-rank
+     step: the cost of the decomposition on one card, not a scaling.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
@@ -1976,6 +1979,33 @@ TOL_DECOMP_F32 = 1e-4
 DECOMP_TIMEOUT = 420.0
 
 
+def decomp_cells():
+    """Phase 16's cells by key: the configuration, its steps, the rank
+    counts it runs on, the kernels its path launches, its label, whether
+    the density is held to the bubble's range, and (``widen``) whether its
+    float32 gate widens to twice the one-rank float32 run's distance from
+    float64. A float32 cell runs in float64 first, on the same ranks: that
+    run is held to the one-rank float64 run as a float64 cell is."""
+    return {
+        "check": dict(kw=bubble_kw(N_DECOMP_CHECK, "float64",
+                                   visc_coef=1.0e-3),
+                      steps=STEPS_SHORT, ranks=(2, 4), expect=KERNELS_3D,
+                      label=f"viscous 3-D bubble {N_DECOMP_CHECK}^3"),
+        # mesh_shape(2) splits y, mesh_shape(4) x and y: kernel 7's ring
+        # sweep on blocks whose periodic x seam is local, then crosses ranks
+        "rt": dict(kw=rt_kw(N_DECOMP_CHECK, "float64"), steps=STEPS_SHORT,
+                   ranks=(2, 4), expect=KERNELS_RT, bubble=False,
+                   label=f"config 4's geometry {N_DECOMP_CHECK}^3 (periodic "
+                         "x and y)"),
+        "headline": dict(kw=bubble_kw(256, "float32", visc_coef=1.0e-3),
+                         steps=STEPS, ranks=(4,), expect=KERNELS_3D,
+                         label="headline 256^3"),
+        "2d": dict(kw=bubble2d_kw(N_2D_PUBLISHED, "float32"), steps=STEPS,
+                   ranks=(4,), expect=KERNELS_2D, widen=True,
+                   label=f"config 2's geometry {N_2D_PUBLISHED}^2"),
+    }
+
+
 def count_cycles():
     """Count into CYCLES the V-cycles that mg and nodal enter at their
     finest level (the recursion calls the modules' globals)."""
@@ -1994,12 +2024,97 @@ def count_cycles():
         module.v_cycle = wrapped
 
 
+def _call_sig(x):
+    """What tells two calls of a kernel apart: tensor shapes and dtypes,
+    emits, sweep counts and boundary codes (not float values)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return ("t", tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_call_sig(i) for i in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _call_sig(v)) for k, v in x.items()))
+    if isinstance(x, float):
+        return "f"
+    return x
+
+
+def _copied(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copied(i) for i in x)
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    return x
+
+
+# {kind: (name, args, kwargs)}: the calls record_kernel_calls keeps
+RECORDED = {}
+
+
+def record_kernel_calls():
+    """Make every kernel wrapper of counters() keep a copy of its inputs at
+    its first call of each kind (_call_sig) from now on: the shapes a
+    decomposed rank gives it. Returns RECORDED, emptied. Call it before
+    counters(): the wrappers' launch helpers count on the module's name,
+    which then names the recording wrapper."""
+    import functools
+    RECORDED.clear()
+    calls = RECORDED
+    for name, fn in counters().items():
+        if getattr(fn, "recording", False):
+            continue
+
+        @functools.wraps(fn)
+        def rec(*a, _fn=fn, _name=name, **k):
+            key = (_name, _call_sig(a), _call_sig(k))
+            if key not in calls:
+                calls[key] = (_name, _copied(a), _copied(k))
+            return _fn(*a, **k)
+
+        rec.recording = True
+        setattr(sys.modules[fn.__module__], name, rec)
+    return calls
+
+
+def check_recorded(torch, calls):
+    """Each recorded call run again through its kernel and through its
+    plain version, each on its own copy of the recorded inputs, and held
+    as phase 2 holds them (TOL_KERNEL of each output's largest value).
+    Returns one row a call."""
+    rows = []
+    for name, a, k in calls.values():
+        fn = counters()[name]
+        kern = getattr(fn, "__wrapped__", fn)
+        plain = getattr(sys.modules[kern.__module__],
+                        name.removesuffix("_fused") + "_plain")
+        tensors = [t for t in a if isinstance(t, torch.Tensor)]
+        dtype_name = str(tensors[0].dtype).removeprefix("torch.")
+        tol = TOL_KERNEL[dtype_name]
+        out = kern(*_copied(a), **_copied(k))
+        ref = plain(*_copied(a), **_copied(k))
+        errs = max_errs(out, ref)
+        del out, ref
+        rows.append(dict(
+            name=name, shape=list(tensors[0].shape), dtype=dtype_name,
+            emit=k.get("emit", a[6] if name == "nodal_sweep_3d"
+                       and len(a) > 6 else None),
+            errs=[e for e, _ in errs], ref_max=[sc for _, sc in errs],
+            ok=all(e <= tol * max(sc, 1e-30) for e, sc in errs),
+            worst=max(e / (tol * max(sc, 1e-30)) for e, sc in errs)))
+    return rows
+
+
 def decomp_run(kw, steps, expect, out_path=None):
     """Varden on ``kw`` for ``steps`` steps on the card, decomposed over the
     ranks of the process group where there is one (mesh = its size), with
     the launch, exchange and V-cycle counters of every step. Rank 0 writes
-    the gathered final state to ``out_path``. Returns this rank's
-    records."""
+    the gathered final state to ``out_path``. A decomposed rank records the
+    first call of each kind of every kernel and, after the run, holds each
+    against its plain version (check_recorded; these launches are not
+    counted). Returns this rank's records."""
     import torch
     import torch.distributed as dist
     from varden_tpu_torch.config import VardenConfig
@@ -2009,6 +2124,7 @@ def decomp_run(kw, steps, expect, out_path=None):
     ranks = dist.get_world_size() if dist.is_initialized() else 1
     if ranks > 1:
         torch.cuda.set_device(0)
+    calls = record_kernel_calls() if ranks > 1 else None
     count_cycles()
     fns = counters()
     zero_counts(fns)
@@ -2055,53 +2171,11 @@ def decomp_run(kw, steps, expect, out_path=None):
         torch.save({k: getattr(g, k).cpu() for k in ("u", "s", "gp", "p")},
                    out_path)
     block = list(v.sim.dec.n) if v.sim.dec is not None else list(cfg.n_cell)
+    del g, state, v
+    checks = check_recorded(torch, calls) if calls is not None else []
     return {"rank": dist.get_rank() if ranks > 1 else 0, "block": block,
             "per_step": per_step, "launches": launches,
-            "exchanges": halo.exchanges.as_dict()}
-
-
-def gloo_cuda_probe(group):
-    """Which gloo operations take CUDA tensors as they are: each op of
-    ``group`` on tensors of cuda:0, its result checked. Returns {op:
-    "ok" | "wrong result" | "refused: <message>"}."""
-    import torch
-    import torch.distributed as dist
-    torch.cuda.set_device(0)
-    r, n = dist.get_rank(), dist.get_world_size()
-    out = {}
-
-    def attempt(name, fn):
-        try:
-            out[name] = "ok" if fn() else "wrong result"
-        except (RuntimeError, ValueError) as e:
-            out[name] = "refused: " + str(e).splitlines()[0][:160]
-
-    def all_reduce():
-        t = torch.full((4,), float(r + 1), device="cuda")
-        dist.all_reduce(t)
-        return bool((t.cpu() == n * (n + 1) / 2).all())
-
-    def all_gather():
-        parts = [torch.empty(3, device="cuda") for _ in range(n)]
-        dist.all_gather(parts, torch.full((3,), float(r), device="cuda"))
-        return all(bool((p.cpu() == i).all()) for i, p in enumerate(parts))
-
-    def p2p():
-        send = torch.full((5,), float(r), device="cuda")
-        recv = torch.empty(5, device="cuda")
-        peer = (r + 1) % n
-        ops = [dist.P2POp(dist.isend, send, peer),
-               dist.P2POp(dist.irecv, recv, (r - 1) % n)]
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-        torch.cuda.synchronize()
-        return bool((recv.cpu() == (r - 1) % n).all())
-
-    for name, fn in {"collectives": (("all_reduce", all_reduce),
-                                     ("all_gather", all_gather)),
-                     "p2p": (("batch_isend_irecv", p2p),)}[group]:
-        attempt(name, fn)
-    return out
+            "exchanges": halo.exchanges.as_dict(), "kernel_checks": checks}
 
 
 def field_errs(got, ref, what):
@@ -2113,16 +2187,6 @@ def field_errs(got, ref, what):
              f"not {tuple(b.shape)}")
         out[k] = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
     return out
-
-
-def float32_roundoff(torch, kw, steps, expect, fields32):
-    """How far the one-rank float32 run ``fields32`` of ``kw`` lies from the
-    same run in float64, by field (float32's own roundoff on that path)."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "state.pt")
-        decomp_run(dict(kw, dtype="float64"), steps, expect, path)
-        return field_errs(fields32, torch.load(path), "float64 run")
 
 
 def steady_of(rec):
@@ -2137,8 +2201,9 @@ def phase_decomp(torch, kw, steps, nranks, expect, ref_fields, ref_steps,
     fields within ``tol`` of their size, or (``roundoff``: the one-rank
     float32 run's distance from float64, by field) within twice that where
     it is larger; the gates of phase 4 on every step, every kernel of
-    ``expect`` launched on every rank and no other, and (with
-    ``same_cycles``) the same V-cycles and viscous cycles a step."""
+    ``expect`` launched on every rank and no other, each kernel's calls
+    at the ranks' shapes equal to its plain version's (decomp_run), and
+    (with ``same_cycles``) the same V-cycles and viscous cycles a step."""
     import tempfile
     from varden_tpu_torch.parallel import launch
     with tempfile.TemporaryDirectory() as tmp:
@@ -2173,20 +2238,36 @@ def phase_decomp(torch, kw, steps, nranks, expect, ref_fields, ref_steps,
                   f"({s['reductions']['seconds']:.4f} s); launches "
                   f"{ {k: c for k, c in s['launches'].items() if c} }",
                   flush=True)
+    checks = [dict(c, rank=rec["rank"]) for rec in recs
+              for c in rec["kernel_checks"]]
+    for name in sorted({c["name"] for c in checks}):
+        mine = [c for c in checks if c["name"] == name]
+        shapes = sorted({tuple(c["shape"]) for c in mine})
+        worst = max(c["worst"] for c in mine)
+        print(f"    {name} against its plain version at the ranks' inputs: "
+              f"{len(mine)} calls, largest error {worst:.3e} of its "
+              f"tolerance (TOL_KERNEL x max|ref|), emits "
+              f"{sorted({str(c['emit']) for c in mine})}, shapes {shapes}",
+              flush=True)
+    bad = [c for c in checks if not c["ok"]]
+    need(not bad, f"{label}: kernels disagree with their plain versions at "
+         f"the ranks' inputs: {bad[:4]}")
     need(all(errs[k] <= tols[k] for k in errs),
          f"{label}: the fields differ from the one-rank run by {errs} of "
          f"their size (tolerances {tols})")
     rho_hi = 10.0 if len(got["u"].shape) == 4 else 2.0
     tol_rho = TOL_RHO_VISCOUS if kw.get("visc_coef", 0.0) > 0.0 else TOL_RHO
     for rec in recs:
+        recorded = {c["name"] for c in rec["kernel_checks"]}
         for k, c in rec["launches"].items():
             base = k.split(":")[0]
             if base not in expect:
                 need(c == 0, f"{label}: {k} is not on this path but rank "
                      f"{rec['rank']} launched it {c}x")
             elif k == base:
-                need(c > 0, f"{label}: rank {rec['rank']} did not launch "
-                     f"{k}")
+                need(c > 0 and k in recorded,
+                     f"{label}: rank {rec['rank']} did not launch {k}, or "
+                     "did not hold it to its plain version")
         need(rec["exchanges"]["count"] > 0,
              f"{label}: rank {rec['rank']} exchanged no halo")
     for s, ref in zip(recs[0]["per_step"], ref_steps):
@@ -2207,12 +2288,52 @@ def phase_decomp(torch, kw, steps, nranks, expect, ref_fields, ref_steps,
                  f"{label} step {s['step']}: V-cycles {s['cycles']} "
                  f"(viscous {s['visc_cycles']}) against the one-rank run's "
                  f"{ref['cycles']} ({ref['visc_cycles']})")
+    for rec in recs:
+        rec.pop("kernel_checks")
     return {"label": label, "ranks": nranks, "max_rel_err": err,
             "rel_errs": errs, "tolerances": tols,
-            "wall_s": wall, "records": recs,
+            "wall_s": wall, "records": recs, "kernel_checks": checks,
             "one_rank_steps": [{k: r[k] for k in ("step", "seconds", "cycles",
                                                  "visc_cycles")}
                                for r in ref_steps]}
+
+
+def phase_decomposed(torch, keys):
+    """Phase 16 on the cells ``keys`` of decomp_cells(): each cell's
+    one-rank run on the card (in float64 too for a float32 cell), then its
+    decomposed runs against them (phase_decomp), float64 first. Returns
+    their results."""
+    import tempfile
+    cells = decomp_cells()
+    out = []
+    for key in keys:
+        cell = cells[key]
+        kw, steps, expect = cell["kw"], cell["steps"], cell["expect"]
+        dtypes = ("float64",) + (("float32",) if kw["dtype"] == "float32"
+                                 else ())
+        one = {}
+        for dt in dtypes:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "state.pt")
+                rec = decomp_run(dict(kw, dtype=dt), steps, expect, path)
+                one[dt] = (torch.load(path), rec["per_step"])
+            torch.cuda.empty_cache()
+        roundoff = None
+        if cell.get("widen"):
+            roundoff = field_errs(one["float32"][0], one["float64"][0],
+                                  "float64 run")
+        for dt in dtypes:
+            f64 = dt == "float64"
+            for nr in cell["ranks"]:
+                out.append(phase_decomp(
+                    torch, dict(kw, dtype=dt), steps, nr, expect, *one[dt],
+                    TOL_DECOMP_F64 if f64 else TOL_DECOMP_F32,
+                    f"{cell['label']} {dt}", f64,
+                    bubble=cell.get("bubble", True),
+                    roundoff=None if f64 else roundoff))
+                torch.cuda.empty_cache()
+        del one
+    return out
 
 
 def main(argv=None) -> int:
@@ -2273,8 +2394,6 @@ def main(argv=None) -> int:
     v, state, launches, per_step, peak = phase_main(
         torch, bubble_kw(256, "float32", visc_coef=1.0e-3), STEPS, KERNELS_3D)
     visc = viscous_report(per_step)
-    headline_fields = {k: getattr(state, k).cpu() for k in ("u", "s", "gp",
-                                                            "p")}
     prof3 = (profile_step(torch, v, state, args.profile) if args.profile
              else None)
     del v, state
@@ -2328,13 +2447,9 @@ def main(argv=None) -> int:
                     ("viscous-128", bubble2d_kw(128, "float32")),
                     (f"viscous-{N_2D_PUBLISHED}",
                      bubble2d_kw(N_2D_PUBLISHED, "float32"))):
-        _, st, ln, steps_small, _ = phase_main(torch, kw, STEPS, KERNELS_2D)
+        _, _, ln, steps_small, _ = phase_main(torch, kw, STEPS, KERNELS_2D)
         small[key] = {"launches": ln, "steps": steps_small,
                       "mean_step_s": mean_steady(steps_small)}
-        if key == f"viscous-{N_2D_PUBLISHED}":
-            fields_2d = {k: getattr(st, k).cpu() for k in ("u", "s", "gp",
-                                                           "p")}
-        del st
         if kw["visc_coef"] > 0.0:
             small[key]["viscous_solve"] = viscous_report(steps_small)
         torch.cuda.empty_cache()
@@ -2417,47 +2532,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     print("phase 16: the decomposed single-level path, gloo ranks sharing "
-          f"the card: the viscous 3-D bubble at {N_DECOMP_CHECK}^3 float64 "
-          f"on 2 and 4 ranks against the one-rank run, the headline on 4, "
-          f"config 2's geometry at {N_2D_PUBLISHED}^2 on 4", flush=True)
-    from varden_tpu_torch.parallel import launch
-    gloo_cuda = {}
-    for group in ("collectives", "p2p"):
-        try:
-            gloo_cuda.update(launch.spawn(gloo_cuda_probe, 2, group,
-                                          timeout=120.0)[0])
-        except RuntimeError as e:
-            gloo_cuda[group] = "failed: " + str(e).splitlines()[0][:160]
-    print(f"  gloo with CUDA tensors as they are: {gloo_cuda} (the halo "
-          "exchange stages through pinned host buffers either way)",
-          flush=True)
-    import tempfile
-    kw_check = bubble_kw(N_DECOMP_CHECK, "float64", visc_coef=1.0e-3)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "state.pt")
-        one = decomp_run(kw_check, STEPS_SHORT, KERNELS_3D, path)
-        fields_check = torch.load(path)
-    decomposed = [phase_decomp(
-        torch, kw_check, STEPS_SHORT, nr, KERNELS_3D, fields_check,
-        one["per_step"], TOL_DECOMP_F64,
-        f"viscous 3-D bubble {N_DECOMP_CHECK}^3 float64", True)
-        for nr in (2, 4)]
-    torch.cuda.empty_cache()
-    decomposed.append(phase_decomp(
-        torch, bubble_kw(256, "float32", visc_coef=1.0e-3), STEPS, 4,
-        KERNELS_3D, headline_fields, per_step, TOL_DECOMP_F32,
-        "headline 256^3 float32", False))
-    del headline_fields
-    torch.cuda.empty_cache()
-    kw_2d = bubble2d_kw(N_2D_PUBLISHED, "float32")
-    decomposed.append(phase_decomp(
-        torch, kw_2d, STEPS, 4, KERNELS_2D, fields_2d,
-        small[f"viscous-{N_2D_PUBLISHED}"]["steps"], TOL_DECOMP_F32,
-        f"config 2's geometry {N_2D_PUBLISHED}^2 float32", False,
-        roundoff=float32_roundoff(torch, kw_2d, STEPS, KERNELS_2D,
-                                  fields_2d)))
-    del fields_2d
-    torch.cuda.empty_cache()
+          f"the card: the viscous 3-D bubble and config 4's geometry at "
+          f"{N_DECOMP_CHECK}^3 float64 on 2 and 4 ranks, the headline and "
+          f"config 2's geometry at {N_2D_PUBLISHED}^2 on 4 in float64 and "
+          "float32, each against its one-rank run, and every kernel call of "
+          "a rank against its plain version", flush=True)
+    decomposed = phase_decomposed(torch, list(decomp_cells()))
 
     # the JSON line: for each kernel its main case (velocity update, the
     # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
@@ -2510,7 +2590,7 @@ def main(argv=None) -> int:
               "steps_rt": per_step_rt, "launches_rt": launches_rt,
               "peak_bytes_rt": peak_rt, "steps_rt_f64": per_step_rt64,
               "profiled_step_rt": prof_rt, "io": io,
-              "decomposed": decomposed, "gloo_cuda": gloo_cuda,
+              "decomposed": decomposed,
               "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
@@ -2588,8 +2668,10 @@ def main(argv=None) -> int:
         print(f"summary decomposed {r['label']} on {r['ranks']} gloo ranks "
               f"of one card (phase 16; the cost of the decomposition on one "
               f"card, not a scaling): fields within {r['max_rel_err']:.3e} "
-              f"of the one-rank run; steady step "
-              f"{mean_steady(steady):.4f} s against "
+              f"of the one-rank run; {len(r['kernel_checks'])} kernel calls "
+              f"at the ranks' inputs within "
+              f"{max(c['worst'] for c in r['kernel_checks']):.3e} of their "
+              f"tolerance; steady step {mean_steady(steady):.4f} s against "
               f"{mean_steady(one_steady):.4f} s on one rank; per rank and "
               "steady step halo exchanges "
               + ", ".join(

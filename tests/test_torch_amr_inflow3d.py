@@ -13,19 +13,22 @@ its solves stop after 20 outer cycles about 1e10 times above tolerance
 ghost only beside uncovered cells (amr/solve.composite_nodal_solve,
 nodal.divu_rhs's ``keep``), on purpose (ROADMAP.md section 3): its solves
 converge in 4 outer cycles. Held here: varden_tpu with the same split
-patched in (on this hierarchy, the fully covered level 0's uncovered
-right-hand side without the inflow pad) takes the same tolerances and
-outer cycles, every solve at or below its tolerance, and the runs agree.
-Each solve's right-hand-side norm, tolerance and residual in both
-packages are printed (pytest -s)."""
+patched in, cell by cell, takes the same tolerances and outer cycles,
+every solve at or below its tolerance, and the runs agree. Each solve's
+right-hand-side norm, tolerance and residual in both packages are printed
+(pytest -s). The general case, a parent whose inlet face is partly
+covered (ghosts beside covered and uncovered cells), is held at the
+solve, in 2-D and 3-D, against varden_tpu with the same patch."""
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import assert_runs_agree, run_inputs_both
+from torch_inputs import assert_runs_agree, run_inputs_both, smooth
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the composite nodal solve's rel_eps in both packages' hgproject_ml
@@ -43,13 +46,36 @@ class _Nodal:
         return getattr(self._module, name)
 
 
+def _kept_ghosts_divu(divu, u, dx, pmask, dm, inflow_pad, keep):
+    """varden_tpu's divu_rhs with a physical face's ghost cell taken only
+    beside a cell that ``keep`` holds: the velocity grown by its ghost
+    cells (each axis in turn, as divu_rhs pads, a later axis's ghosts on
+    the corners; a ghost times the keep of the cell it lies beside, the
+    corners that of the corner cell), then divu_rhs on the grown cells
+    without ghosts, cut back to the level's nodes."""
+    comps = []
+    for c in range(dm):
+        f, k = u[c], keep
+        for d in range(dm):
+            if pmask[d]:
+                continue
+            ax = f.ndim - dm + d
+            edge = [jnp.take(k, jnp.array([i]), axis=ax) for i in (0, -1)]
+            sides = [inflow_pad(c, d, side) * edge[side] for side in (0, 1)]
+            f = jnp.concatenate([sides[0], f, sides[1]], axis=ax)
+            k = jnp.concatenate([edge[0], k, edge[1]], axis=ax)
+        comps.append(f)
+    rhs = divu(jnp.stack(comps), dx, pmask, dm, inflow_pad=None)
+    cut = tuple(slice(None) if pmask[d] else slice(1, -1) for d in range(dm))
+    return rhs[cut]
+
+
 def _patch_reference(monkeypatch):
     """varden_tpu's composite nodal solve with the port's split of the
     inlet ghosts: a covered parent's uncovered right-hand side (its
-    divu_rhs calls after the levels' own) takes no ghost beside a covered
-    cell; here every level with a child is fully covered, asserted, so
-    that is divu_rhs without the inflow pad. Returns the list that
-    records each solve's (residual, ratio)."""
+    divu_rhs calls after the levels' own) takes a physical face's ghost
+    only beside an uncovered cell (_kept_ghosts_divu). Returns the list
+    that records each solve's (residual, ratio)."""
     from varden_tpu.amr import solve as jsolve
     solves, ctx = [], {}
     orig_solve, orig_divu = jsolve.composite_nodal_solve, jsolve.nodal.divu_rhs
@@ -57,15 +83,15 @@ def _patch_reference(monkeypatch):
     def divu_rhs(u, dx, pmask, dm, inflow_pad=None):
         geom, i = ctx["geom"], ctx["calls"]
         ctx["calls"] += 1
-        if i < geom.nlev:
+        if i < geom.nlev or inflow_pad is None:
             return orig_divu(u, dx, pmask, dm, inflow_pad=inflow_pad)
         parent = [l for l in range(geom.nlev) if geom.children[l]][
             i - geom.nlev]
-        cells = np.zeros(geom.specs[parent].n, dtype=bool)
+        keep = np.ones(geom.specs[parent].n)
         for c in geom.children[parent]:
-            cells[jsolve.covered_slice_rel(geom, c)] = True
-        assert cells.all(), "the patch assumes fully covered parents"
-        return orig_divu(u, dx, pmask, dm, inflow_pad=None)
+            keep[jsolve.covered_slice_rel(geom, c)] = 0.0
+        return _kept_ghosts_divu(orig_divu, u, dx, pmask, dm, inflow_pad,
+                                 jnp.asarray(keep, dtype=u.dtype))
 
     def solve(geom, *a, **k):
         ctx.update(geom=geom, calls=0)
@@ -100,3 +126,80 @@ def test_advect_3d_two_levels(monkeypatch):
         assert max(r["level_res"]) <= r["tol"] and ratio <= 1.0
         assert tol_j == pytest.approx(r["tol"], rel=1e-6)
     assert_runs_agree(*runs)
+
+
+# a child over part of the inlet face (x lo) and none of the outlet: its
+# parent's inlet ghosts lie beside covered and uncovered cells
+PARTIAL = {2: ([((0, 0), (16, 16)), ((0, 8), (12, 12))], [-1, 0], [0, 1]),
+           3: ([((0, 0, 0), (8, 8, 8)), ((0, 4, 4), (8, 8, 8))], [-1, 0],
+               [0, 1])}
+
+
+def _inflow_l(geom, projection):
+    """Each level's inlet ghost velocity, as both packages' hgproject_ml
+    form it: the domain's inflow on a physical side, zero elsewhere."""
+    base = projection._inflow_pad(geom.sim)
+
+    def level(l):
+        if l == 0:
+            return base
+        return lambda c, d, side: (base(c, d, side) if geom.side_kind(
+            l, d, side) == "phys" else 0.0)
+    return [level(l) for l in range(geom.nlev)]
+
+
+@pytest.mark.parametrize("dm", [2, 3], ids=["2d", "3d"])
+def test_composite_nodal_solve_partly_covered_inlet(monkeypatch, dm):
+    from varden_tpu import projection as jproj
+    from varden_tpu.amr import fill as jfill
+    from varden_tpu.amr import hierarchy as jh
+    from varden_tpu.amr import solve as jsolve
+    from varden_tpu.config import VardenConfig as JCfg
+    from varden_tpu.state import Sim as JSim
+    from varden_tpu_torch import projection as tproj
+    from varden_tpu_torch.amr import fill as tfill
+    from varden_tpu_torch.amr import hierarchy as th
+    from varden_tpu_torch.amr import solve as tsolve
+    from varden_tpu_torch.config import VardenConfig as TCfg
+    from varden_tpu_torch.state import Sim as TSim
+    specs, parent, depth = PARTIAL[dm]
+    n = specs[0][1][0]
+    kw = dict(dim_in=dm, prob_type=2, n_cellx=n, n_celly=n, n_cellz=n,
+              max_levs=2, dtype="float64", bcx_lo=11, bcx_hi=12, bcy_lo=14,
+              bcy_hi=14, bcz_lo=14, bcz_hi=14,
+              u_bc=((1.0, 0.0), (0.0, 0.0), (0.0, 0.0)))
+    jg = jfill.MLGeom(JSim(JCfg(**kw)), [jh.LevelSpec(*s) for s in specs],
+                      parent, depth)
+    tg = tfill.MLGeom(TSim(TCfg(**kw), device="cpu"),
+                      [th.LevelSpec(*s) for s in specs], parent, depth)
+    cov = np.zeros(specs[0][1], dtype=bool)
+    cov[jsolve.covered_slice_rel(jg, 1)] = True
+    assert cov[0].any() and not cov[0].all() and not cov[-1].any()
+    sigma = [1.0 / (1.5 + smooth(tuple(s[1]), 3 + i, 0.4, dm=dm))
+             for i, s in enumerate(specs)]
+    vel = [1.0 + smooth((dm,) + tuple(s[1]), 13 + i, 0.5, dm=dm)
+           for i, s in enumerate(specs)]
+
+    def reference():
+        return jax.jit(lambda s, v: jsolve.composite_nodal_solve(
+            jg, s, v, inflow_pad_l=_inflow_l(jg, jproj), rel_eps=1e-10,
+            return_info=True))([jnp.asarray(x) for x in sigma],
+                               [jnp.asarray(x) for x in vel])
+
+    unpatched, _ = reference()
+    solves = _patch_reference(monkeypatch)
+    (jphi, (_rn, _outer, jratio)) = reference()
+    tphi, (_rn, iters, ratio) = tsolve.composite_nodal_solve(
+        tg, [torch.tensor(x) for x in sigma], [torch.tensor(x) for x in vel],
+        inflow_pad_l=_inflow_l(tg, tproj), rel_eps=1e-10, return_info=True)
+    assert len(solves) == 1
+    assert 0 < iters < tsolve.MAX_OUTER and float(ratio) <= 1.0
+    assert float(jratio) <= 1.0
+    apart = 0.0
+    for g, w, u in zip(tphi, jphi, unpatched):
+        g, w, u = g.numpy(), np.array(w), np.array(u)
+        scale = float(np.abs(w).max())
+        assert float(np.abs(g - w).max()) <= 1e-9 * scale
+        apart = max(apart, float(np.abs(u - w).max()) / scale)
+    # the split shows: varden_tpu as it is solves another problem here
+    assert apart > 1e-6

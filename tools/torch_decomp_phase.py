@@ -1,23 +1,17 @@
 """Run chip_smoke.py's phase 16 alone on the card: the decomposed
-single-level path on gloo ranks sharing cuda:0, each cell against the
-one-rank run made here first.
+single-level path on gloo ranks sharing cuda:0, each cell against its
+one-rank run and each rank's kernel calls against their plain versions
+(chip_smoke.phase_decomposed).
 
-    python tools/torch_decomp_phase.py [--cells check,headline,2d]
-        [--f64]
+    python tools/torch_decomp_phase.py [--cells check,rt,headline,2d]
 
-Cells: ``check`` the viscous 3-D bubble at 32^3 in float64 on 2 and 4
-ranks, ``headline`` the viscous 256^3 bubble in float32 on 4 ranks (4
-steps), ``2d`` config 2's geometry at 1024^2 in float32 on 4 ranks.
-The ``2d`` cell's gate, as in phase 16, allows twice the one-rank float32
-run's distance from float64; ``--f64`` prints that distance for the
-headline too. Run from a checkout's root.
+The cells are chip_smoke.decomp_cells()'s. Run from a checkout's root.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
-import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -27,65 +21,23 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def one_rank(kw, steps, expect):
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "state.pt")
-        rec = cs.decomp_run(kw, steps, expect, path)
-        return rec, torch.load(path)
-
-
 def main():
     if not torch.cuda.is_available():
         print("torch_decomp_phase: no CUDA device", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--cells", default="check,headline,2d")
-    ap.add_argument("--f64", action="store_true")
+    ap.add_argument("--cells", default=",".join(cs.decomp_cells()))
     args = ap.parse_args()
     from varden_tpu_torch.ops import _cuda
-    from varden_tpu_torch.parallel import launch
     print(f"card: {cs.smi_name_power()}", flush=True)
     _cuda.build_all()
-    cs.count_cycles()
-    probe = {}
-    for group in ("collectives", "p2p"):
-        try:
-            probe.update(launch.spawn(cs.gloo_cuda_probe, 2, group,
-                                      timeout=120.0)[0])
-        except RuntimeError as e:
-            probe[group] = "failed: " + str(e).splitlines()[0][:160]
-    print(f"gloo with CUDA tensors as they are: {probe}", flush=True)
-    cells = {
-        "check": (cs.bubble_kw(cs.N_DECOMP_CHECK, "float64",
-                               visc_coef=1.0e-3), cs.STEPS_SHORT, (2, 4),
-                  cs.KERNELS_3D, cs.TOL_DECOMP_F64, True),
-        "headline": (cs.bubble_kw(256, "float32", visc_coef=1.0e-3),
-                     cs.STEPS, (4,), cs.KERNELS_3D, cs.TOL_DECOMP_F32,
-                     False),
-        "2d": (cs.bubble2d_kw(cs.N_2D_PUBLISHED, "float32"), cs.STEPS, (4,),
-               cs.KERNELS_2D, cs.TOL_DECOMP_F32, False)}
-    failed = []
-    for key in args.cells.split(","):
-        kw, steps, ranks, expect, tol, same = cells[key]
-        rec, fields = one_rank(kw, steps, expect)
-        roundoff = None
-        if key == "2d" or (args.f64 and kw["dtype"] == "float32"):
-            roundoff = cs.float32_roundoff(torch, kw, steps, expect, fields)
-            print(f"{key}: one-rank float32 against float64, by field "
-                  f"{roundoff}", flush=True)
-        torch.cuda.empty_cache()
-        for nr in ranks:
-            try:
-                cs.phase_decomp(torch, kw, steps, nr, expect, fields,
-                                rec["per_step"], tol, key, same,
-                                roundoff=roundoff if key == "2d" else None)
-            except cs.PhaseError as e:
-                print(f"{key} on {nr} ranks FAILED: {e}", flush=True)
-                failed.append(key)
-        torch.cuda.empty_cache()
-    print("torch_decomp_phase: " + ("failed " + ", ".join(failed) if failed
-                                    else "ok"), flush=True)
-    return 1 if failed else 0
+    try:
+        cs.phase_decomposed(torch, args.cells.split(","))
+    except cs.PhaseError as e:
+        print(f"torch_decomp_phase: FAILED: {e}", flush=True)
+        return 1
+    print("torch_decomp_phase: ok", flush=True)
+    return 0
 
 
 if __name__ == "__main__":

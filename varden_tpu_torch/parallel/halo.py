@@ -13,11 +13,12 @@ nodal sweeps) run on both ranks from the same exchanged cells, so both
 hold the same value of a shared entry; the owner's copy counts where a sum
 over the level needs it (the nodal means).
 
-Transport: NCCL moves CUDA tensors itself (batch_isend_irecv). Gloo,
-which this package uses for several ranks on one card and on the CPU,
-moves CUDA tensors through pinned host buffers: a slab is copied to the
-host, sent, received into a host buffer and copied to the card. That is
-the transport of such runs, not a fallback. ``exchanges`` and
+Transport: NCCL moves CUDA tensors itself. Gloo, which this package uses
+for several ranks on one card and on the CPU, takes CUDA tensors in
+all_reduce and all_gather but refuses them in send and recv, so the
+exchange moves a CUDA slab through pinned host buffers: it is copied to
+the host, sent, received into a host buffer and copied to the card. That
+is the transport of such runs, not a fallback. ``exchanges`` and
 ``reductions`` count the calls, their bytes and their seconds, in the
 style of the kernels' ``.launches``.
 """
@@ -53,8 +54,8 @@ reductions = Counter()
 
 
 def _staged(t: torch.Tensor) -> bool:
-    """Whether ``t`` travels through a host buffer (gloo and a CUDA
-    tensor)."""
+    """Whether ``t`` is sent through a host buffer (gloo's send and recv
+    refuse CUDA tensors)."""
     return t.is_cuda and dist.get_backend() == "gloo"
 
 
@@ -132,12 +133,10 @@ def crop(f: torch.Tensor, dec: Decomp, k: int) -> torch.Tensor:
 
 def _reduce(t: torch.Tensor, op) -> torch.Tensor:
     t0 = time.perf_counter()
-    staged = _staged(t)
-    buf = t.cpu() if staged else t.clone()
-    dist.all_reduce(buf, op=op)
+    out = t.clone()
+    dist.all_reduce(out, op=op)
     reductions.count += 1
-    reductions.bytes += buf.numel() * buf.element_size()
-    out = buf.to(t.device) if staged else buf
+    reductions.bytes += out.numel() * out.element_size()
     reductions.seconds += time.perf_counter() - t0
     return out
 
@@ -168,8 +167,7 @@ def gather(loc: torch.Tensor, dec: Decomp, extra: Sequence[int] = None,
     extra = extra or (0,) * dm
     glob_extra = glob_extra or extra
     t0 = time.perf_counter()
-    staged = _staged(loc)
-    src = loc.cpu() if staged else loc.contiguous()
+    src = loc.contiguous()
     parts = [torch.empty_like(src) for _ in range(dec.nranks)]
     dist.all_gather(parts, src)
     lead = loc.shape[:loc.ndim - dm]
@@ -187,6 +185,5 @@ def gather(loc: torch.Tensor, dec: Decomp, extra: Sequence[int] = None,
         out[tuple(sl)] = part
     reductions.count += 1
     reductions.bytes += src.numel() * src.element_size()
-    out = out.to(loc.device) if staged else out
     reductions.seconds += time.perf_counter() - t0
     return out
