@@ -120,6 +120,22 @@ Phases, each of which asserts and any failure of which exits non-zero:
      every rank. It prints, per rank and step, the launches, the halo
      exchanges and their bytes, and the step seconds beside the one-rank
      step: the cost of the decomposition on one card, not a scaling.
+ 17. AMR under a mesh (phase_decomposed_amr, on the cells of
+     amr_decomp_cells()): every patch of every level cut over gloo ranks
+     sharing the card, the coarse-fine coupling through parallel.halo's
+     fetch and put. Config 5 at an N_AMR_DECOMP^3 base in float64 on 2
+     and 4 ranks and at its full 256^3 base in float32 on 4 (2 steps),
+     config 3 across its regrid and the RT inputs with plotfiles,
+     checkpoints and a restart from the mid-run checkpoint on 4, each
+     against its one-rank run at the same mesh: the same hierarchy at
+     every step, each field of every patch within TOL_DECOMP_F64 (float64,
+     with equal V-cycle and outer counts) or TOL_DECOMP_F32 of its size
+     (the float32 cell widening as phase 16's 2-D cell does, behind its
+     float64 witness, should it fail), every kernel call of every rank
+     held to its plain version at TOL_KERNEL, only rank 0 writing, every
+     file finite with the one-rank run's boxes and the restart bitwise. It
+     prints per rank and step the exchanges and the fetch/put calls,
+     elements and seconds.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
@@ -2336,6 +2352,468 @@ def phase_decomposed(torch, keys):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: AMR under a mesh, every patch of every level decomposed over
+# gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+N_AMR_DECOMP = 64
+AMR_DECOMP_TIMEOUT = 900.0
+# the RT inputs' decomposed I/O run: to step 4 with a checkpoint every 2
+# and a restart from step 2 (cuts of depth from phase 15's 20 and 10: on
+# 4 gloo ranks of one card a step takes 10-14 s, and phase 17 must leave
+# chip_smoke.py inside its time limit)
+RT_IO_DECOMP_STEPS = 4
+RT_IO_DECOMP_CHK = 2
+
+
+def amr_decomp_cells():
+    """Phase 17's cells by key: the configuration (a keyword dict, or the
+    inputs file and its overrides), its steps (config 5 at 64^3: 1, cut
+    for time; config 3: through its regrid at step 5), the rank counts it
+    runs on,
+    the kernels its path launches, its label, whether its float32 gate
+    widens as phase 16's 2-D cell's does, and whether it writes plotfiles
+    and checkpoints and restarts (``io``). Each is held to its one-rank run
+    at the same mesh."""
+    return {
+        "cfg5": dict(kw=cfg5_kw(N_AMR_DECOMP, "float64"), steps=1,
+                     ranks=(2, 4), expect=KERNELS_AMR,
+                     label=f"config 5 {N_AMR_DECOMP}^3 + 2 levels"),
+        "cfg5-full": dict(kw=cfg5_kw(256, "float32"), steps=STEPS_SHORT,
+                          ranks=(4,), expect=KERNELS_AMR, widen=True,
+                          label="config 5 256^3 + 2 levels"),
+        "cfg3": dict(kw=cfg3_kw("float64"), steps=5, ranks=(4,),
+                     expect=KERNELS_2D, regrid=True,
+                     label="config 3 64^2 + 1 level"),
+        "rt-io": dict(inputs=os.path.join(HERE, "inputs",
+                                          "inputs_RayleighTaylor_3d"),
+                      kw=dict(max_step=RT_IO_DECOMP_STEPS,
+                              chk_int=RT_IO_DECOMP_CHK),
+                      steps=RT_IO_DECOMP_STEPS, ranks=(4,),
+                      expect=KERNELS_RT_AMR,
+                      io=True, regrid=True,
+                      label="RT inputs (32^3 + 1 level, regrid every step)"),
+    }
+
+
+def _amr_cfg(cell, mesh, dtype_name=None, **over):
+    from varden_tpu_torch.config import VardenConfig, load_config
+    kw = dict(cell["kw"], mesh=mesh, **over)
+    if dtype_name:
+        kw["dtype"] = dtype_name
+    if "inputs" in cell:
+        return load_config(cell["inputs"], **kw)
+    return VardenConfig(**dict(kw, max_step=cell["steps"]))
+
+
+def _amr_levels_np(v, states):
+    """The whole patches on the host."""
+    return [{k: t.cpu() for k, t in (("u", s.u), ("s", s.s), ("gp", s.gp),
+                                     ("p", s.p))} for s in v.gather(states)]
+
+
+class _WritesBy:
+    """Record the files and directories this process creates."""
+
+    def __enter__(self):
+        import builtins
+        self.seen, self._open, self._mk = [], builtins.open, os.makedirs
+
+        def spy_open(f, mode="r", *a, **k):
+            if any(c in mode for c in "wax+"):
+                self.seen.append(str(f))
+            return self._open(f, mode, *a, **k)
+
+        def spy_mk(p, *a, **k):
+            self.seen.append(str(p))
+            return self._mk(p, *a, **k)
+
+        builtins.open, os.makedirs = spy_open, spy_mk
+        return self
+
+    def __exit__(self, *exc):
+        import builtins
+        builtins.open, os.makedirs = self._open, self._mk
+
+
+def decomp_run_ml(cell, mesh, dtype_name=None, ref_path=None, out_path=None,
+                  io_dir=None):
+    """The multi-level Varden of ``cell`` at ``mesh`` on the card,
+    decomposed over the process group's ranks where there is one (one rank:
+    unsharded, the regridder's patches quantised to the mesh), with the
+    launch, exchange, copy and V-cycle counters of every step. One rank
+    saves the whole patches and its records to ``out_path``; decomposed
+    ranks hold their blocks against the one-rank run's (``ref_path``) and
+    record the first call of each kind of every kernel, held against its
+    plain version after the run (check_recorded). With ``io_dir`` the run
+    writes its plotfiles and checkpoints there and restarts on the same
+    ranks from the mid-run checkpoint. Returns this rank's records."""
+    import torch
+    import torch.distributed as dist
+    from varden_tpu_torch.driver import Varden
+    from varden_tpu_torch.parallel import halo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if ranks > 1 else 0
+    if ranks > 1:
+        torch.cuda.set_device(0)
+    calls = record_kernel_calls() if ranks > 1 else None
+    count_cycles()
+    fns = counters()
+    zero_counts(fns)
+    for c in (halo.exchanges, halo.reductions, halo.copies):
+        c.reset()
+    over = {}
+    if io_dir is not None:
+        over = dict(plot_base_name=os.path.join(io_dir, "full", "plt"),
+                    check_base_name=os.path.join(io_dir, "full", "chk"))
+    cfg = _amr_cfg(cell, mesh, dtype_name, **over)
+    with _WritesBy() as spy:
+        v = Varden(cfg)  # the card: no device named
+
+        def sync():
+            torch.cuda.synchronize()
+            if ranks > 1:
+                dist.barrier()
+
+        def write(final=False):
+            """run_ml's writes (varden.f90:378)."""
+            from varden_tpu_torch.io import output
+            if io_dir is None:
+                return
+            if v._due(cfg.plot_int, final):
+                output.write_plotfile_ml(v.geom, states, v.istep, v.time)
+            if v._due(cfg.chk_int, final):
+                output.write_checkpoint_ml(v.geom, states, v.istep, v.time,
+                                           v.dt, hints=v._ml_hints)
+
+        t0 = time.perf_counter()
+        states = v.initialize_ml()
+        write()
+        sync()
+        t_init = time.perf_counter() - t0
+        per_step = []
+        while v._running(cfg.max_step):
+            before = read_counts(fns)
+            cnt0 = {c: getattr(halo, c).as_dict()
+                    for c in ("exchanges", "reductions", "copies")}
+            cyc0, regrids = dict(CYCLES), v.regrids
+            t0 = time.perf_counter()
+            states = v.step_ml(states)
+            write(final=not v._running(cfg.max_step))
+            sync()
+            sec = time.perf_counter() - t0
+            d = v.last_diag
+            rec = dict(step=v.istep, seconds=sec, dt=v.dt,
+                       key=v.geom.key(), regrid=v.regrids > regrids,
+                       mac_ratio=float(d["mac_ratio"]),
+                       hg_ratio=float(d["hg_ratio"]),
+                       visc_ratio=float(d.get("visc_ratio", 0.0)),
+                       mac_outer=int(d["mac_outer"]),
+                       hg_outer=int(d["hg_outer"]),
+                       visc_outer=[int(k) for k in d.get("visc_outer", [])],
+                       div_before=float(d["div_before"]),
+                       div_after=float(d["div_after"]),
+                       cycles={k: CYCLES[k] - cyc0[k] for k in CYCLES},
+                       launches={k: c - before[k]
+                                 for k, c in read_counts(fns).items()})
+            for c in ("exchanges", "reductions", "copies"):
+                now = getattr(halo, c).as_dict()
+                rec[c] = {k: now[k] - cnt0[c][k] for k in now}
+            per_step.append(rec)
+    launches = read_counts(fns)
+    others_wrote = spy.seen if rank else []
+    for st in states:
+        for key in ("u", "s", "gp", "p"):
+            need(bool(torch.isfinite(getattr(st, key)).all()),
+                 f"rank {rank}: field {key} is not finite")
+    out = {"rank": rank, "per_step": per_step, "launches": launches,
+           "init_s": t_init, "key": v.geom.key(),
+           "blocks": [list(v.geom.bn(l)) for l in range(v.geom.nlev)],
+           "others_wrote": others_wrote}
+    if ref_path is not None:
+        ref = torch.load(ref_path)
+        need(ref["key"] == v.geom.key(), f"rank {rank}: the hierarchy "
+             f"{v.geom.key()} is not the one-rank run's {ref['key']}")
+        errs = {}
+        for lev, (st, r) in enumerate(zip(states, ref["states"])):
+            for k in ("u", "s", "gp", "p"):
+                whole = r[k].to(getattr(st, k).device, torch.float64)
+                mine = getattr(st, k).double()
+                blk = v.geom.block(lev, whole, k == "p")
+                err = float((mine - blk).abs().max()) / max(
+                    1.0, float(whole.abs().max()))
+                errs[k] = max(errs.get(k, 0.0), err)
+        if ranks > 1:
+            e = halo.all_max(torch.tensor([errs[k] for k in
+                                           ("u", "s", "gp", "p")],
+                                          dtype=torch.float64,
+                                          device=states[0].u.device))
+            errs = dict(zip(("u", "s", "gp", "p"), e.tolist()))
+        out["rel_errs"] = errs
+        del ref
+    if io_dir is not None:
+        out["io"] = _amr_io_restart(v, cell, mesh, io_dir, states, ranks)
+        need(ranks == 1 or out["io"]["same"], f"rank {rank}: the restart "
+             f"from chk{cell['kw']['chk_int']:05d} does not equal the "
+             "uninterrupted run bit for bit")
+    if out_path is not None:  # the one-rank run
+        torch.save({"key": v.geom.key(), "per_step": per_step,
+                    "states": _amr_levels_np(v, states)}, out_path)
+    del states, v
+    torch.cuda.empty_cache()
+    out["kernel_checks"] = (check_recorded(torch, calls)
+                            if calls is not None else [])
+    return out
+
+
+def _amr_io_restart(v, cell, mesh, io_dir, states, ranks):
+    """Read back every plotfile and checkpoint the run wrote (finite, its
+    boxes), and (decomposed) restart from the mid-run checkpoint on the
+    same ranks: ``same`` says whether the final patches equal the
+    uninterrupted run's bit for bit on every rank."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from varden_tpu_torch.driver import Varden
+    from varden_tpu_torch.io import boxlib
+    full, again = os.path.join(io_dir, "full"), os.path.join(io_dir, "again")
+    chk = cell["kw"]["chk_int"]
+    rank = dist.get_rank() if ranks > 1 else 0
+    boxes = {}
+    if rank == 0:
+        for d in sorted(os.listdir(full)):
+            if d.startswith("plt"):
+                _n, _t, levels = boxlib.read_plotfile(os.path.join(full, d))
+                need(all(bool(np.isfinite(a).all()) for a in levels),
+                     f"{d} did not read back finite")
+                boxes[d] = [list(a.shape[1:]) for a in levels]
+            for root, dirs, _f in os.walk(os.path.join(full, d)):
+                for sub in dirs:
+                    if sub.startswith("Level_"):
+                        bx, _nodal = boxlib.read_multifab_boxes(
+                            os.path.join(root, sub))
+                        need(all(bool(np.isfinite(a).all()) for a, _ in bx),
+                             f"{d}/{sub} did not read back finite")
+                        boxes.setdefault(d + "/" + os.path.relpath(
+                            os.path.join(root, sub), os.path.join(full, d)),
+                            [[list(lo), list(a.shape)] for a, lo in bx])
+        shutil.copytree(os.path.join(full, f"chk{chk:05d}"),
+                        os.path.join(again, f"chk{chk:05d}"))
+    files = sorted(os.listdir(full)) if rank == 0 else None
+    if ranks == 1:
+        return {"boxes": boxes, "files": files}
+    dist.barrier()
+    t0 = time.perf_counter()
+    cfg = _amr_cfg(cell, mesh, restart=chk,
+                   plot_base_name=os.path.join(again, "plt"),
+                   check_base_name=os.path.join(again, "chk"))
+    v2 = Varden(cfg)
+    st2 = v2.run()
+    torch.cuda.synchronize()
+    t_restart = time.perf_counter() - t0
+    same = (v2.istep == v.istep and v2.time == v.time
+            and v2.geom.key() == v.geom.key()
+            and all(torch.equal(getattr(a, k), getattr(b, k))
+                    for a, b in zip(states, st2) for k in ("u", "s", "gp",
+                                                          "p")))
+    from varden_tpu_torch.parallel import halo
+    same = bool(halo.all_min(torch.tensor(float(same),
+                                          device=states[0].u.device)) == 1.0)
+    return {"boxes": boxes, "restart_s": t_restart, "files": files,
+            "same": same}
+
+
+def phase_decomp_amr(torch, cell, nranks, ref, dtype_name, tol, same_cycles,
+                     roundoff=None, io_dir=None):
+    """Phase 17's run of ``cell`` on ``nranks`` gloo ranks sharing the
+    card against its one-rank run at the same mesh (``ref``: its saved
+    file and records): the hierarchy of every step equal, each field of
+    every patch within ``tol`` of its size (or, with ``roundoff``, twice
+    the one-rank float32 run's distance from float64 where that is
+    larger), every kernel of the path launched on every rank and held to
+    its plain version at the ranks' inputs, and (``same_cycles``) equal
+    V-cycle and outer counts."""
+    from varden_tpu_torch.parallel import launch
+    label = f"{cell['label']} {dtype_name}"
+    t0 = time.perf_counter()
+    recs = launch.spawn(decomp_run_ml, nranks, cell, nranks, dtype_name,
+                        ref["path"], None, io_dir,
+                        timeout=AMR_DECOMP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    errs = recs[0]["rel_errs"]
+    tols = {k: max(tol, 2.0 * roundoff[k]) if roundoff else tol
+            for k in errs}
+    print(f"  {label}: {nranks} gloo ranks on one card, fields within "
+          f"{errs} of their size of the one-rank run at mesh {nranks} "
+          f"(tolerances {tols}), {wall:.1f} s with the ranks' start; "
+          f"blocks of rank 0 {recs[0]['blocks']}", flush=True)
+    for s, r in zip(recs[0]["per_step"], ref["per_step"]):
+        print(f"    step {s['step']}{' (regrid)' if s['regrid'] else ''}: "
+              f"{s['seconds']:.4f} s on {nranks} ranks against "
+              f"{r['seconds']:.4f} s on one (the cost of the decomposition "
+              f"on one card, not a scaling); outer MAC {s['mac_outer']} HG "
+              f"{s['hg_outer']} visc {s['visc_outer']} against "
+              f"{r['mac_outer']} {r['hg_outer']} {r['visc_outer']}; "
+              f"V-cycles {s['cycles']} against {r['cycles']}", flush=True)
+    for rec in recs:
+        for s in steady_of(rec):
+            ex, cp = s["exchanges"], s["copies"]
+            print(f"    rank {rec['rank']} step {s['step']}: halo exchanges "
+                  f"{ex['count']} ({ex['bytes']} bytes sent, "
+                  f"{ex['seconds']:.4f} s); fetch/put {cp['count']} calls, "
+                  f"{cp['elements']} elements received, {cp['bytes']} bytes "
+                  f"sent, {cp['seconds']:.4f} s; reductions "
+                  f"{s['reductions']['count']} "
+                  f"({s['reductions']['seconds']:.4f} s); launches "
+                  f"{ {k: c for k, c in s['launches'].items() if c} }",
+                  flush=True)
+    checks = [dict(c, rank=rec["rank"]) for rec in recs
+              for c in rec["kernel_checks"]]
+    for name in sorted({c["name"] for c in checks}):
+        mine = [c for c in checks if c["name"] == name]
+        print(f"    {name} against its plain version at the ranks' inputs: "
+              f"{len(mine)} calls, largest error "
+              f"{max(c['worst'] for c in mine):.3e} of its tolerance, "
+              f"shapes {sorted({tuple(c['shape']) for c in mine})}",
+              flush=True)
+    bad = [c for c in checks if not c["ok"]]
+    need(not bad, f"{label}: kernels disagree with their plain versions at "
+         f"the ranks' inputs: {bad[:4]}")
+    expect = cell["expect"]
+    for rec in recs:
+        need(not rec["others_wrote"], f"{label}: rank {rec['rank']} wrote "
+             f"{rec['others_wrote'][:4]}")
+        recorded = {c["name"] for c in rec["kernel_checks"]}
+        for k, c in rec["launches"].items():
+            base = k.split(":")[0]
+            if base not in expect:
+                need(c == 0, f"{label}: {k} is not on this path but rank "
+                     f"{rec['rank']} launched it {c}x")
+            elif k == base:
+                need(c > 0 and k in recorded,
+                     f"{label}: rank {rec['rank']} did not launch {k}, or "
+                     "did not hold it to its plain version")
+        need(rec["per_step"] and all(
+            s["copies"]["count"] > 0 for s in rec["per_step"]),
+            f"{label}: rank {rec['rank']} made no coarse-fine copy")
+    need([s["key"] for s in recs[0]["per_step"]]
+         == [r["key"] for r in ref["per_step"]],
+         f"{label}: the hierarchies differ from the one-rank run's")
+    need(not cell.get("regrid") or any(s["regrid"] for s in
+                                       recs[0]["per_step"]),
+         f"{label}: no regrid happened")
+    need(all(errs[k] <= tols[k] for k in errs),
+         f"{label}: the fields differ from the one-rank run by {errs} of "
+         f"their size (tolerances {tols})")
+    for s, r in zip(recs[0]["per_step"], ref["per_step"]):
+        need(max(s["mac_ratio"], s["hg_ratio"], s["visc_ratio"]) <= 1.0,
+             f"{label} step {s['step']}: a solve stopped above its "
+             "tolerance")
+        need(s["div_after"] < s["div_before"],
+             f"{label} step {s['step']}: the MAC projection did not reduce "
+             "div")
+        if same_cycles:
+            need(all(s[k] == r[k] for k in ("cycles", "mac_outer",
+                                             "hg_outer", "visc_outer")),
+                 f"{label} step {s['step']}: cycles {s['cycles']} outer "
+                 f"{s['mac_outer']} {s['hg_outer']} {s['visc_outer']} "
+                 f"against {r['cycles']} {r['mac_outer']} {r['hg_outer']} "
+                 f"{r['visc_outer']}")
+    io = recs[0].get("io")
+    if io is not None:
+        need(io["boxes"] == ref["io"]["boxes"], f"{label}: the plotfiles' "
+             "and checkpoints' boxes differ from the one-rank run's")
+        print(f"    only rank 0 wrote: {io['files']}, every plotfile and "
+              f"checkpoint finite with the one-rank run's boxes; restart "
+              f"from chk{cell['kw']['chk_int']:05d} on {nranks} ranks "
+              "bitwise equal to "
+              f"the uninterrupted run ({io['restart_s']:.1f} s)", flush=True)
+    for rec in recs:
+        rec.pop("kernel_checks")
+    return {"label": label, "ranks": nranks, "rel_errs": errs,
+            "max_rel_err": max(errs.values()), "tolerances": tols,
+            "wall_s": wall, "records": recs, "kernel_checks": checks,
+            "one_rank_steps": [{k: r[k] for k in ("step", "seconds",
+                                                 "cycles", "mac_outer",
+                                                 "hg_outer")}
+                               for r in ref["per_step"]]}
+
+
+def _amr_reference(torch, cell, mesh, dtype_name, tmp, io=False):
+    """The one-rank run of ``cell`` at ``mesh`` (unsharded), saved."""
+    import warnings
+    path = os.path.join(tmp, f"ref-{mesh}-{dtype_name}.pt")
+    io_dir = os.path.join(tmp, f"io-one-{mesh}") if io else None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rec = decomp_run_ml(cell, mesh, dtype_name, None, path, io_dir)
+    torch.cuda.empty_cache()
+    saved = torch.load(path)
+    return {"path": path, "per_step": saved["per_step"],
+            "states": saved["states"], "io": rec.get("io")}
+
+
+def phase_decomposed_amr(torch, keys):
+    """Phase 17 on the cells ``keys`` of amr_decomp_cells(): for each rank
+    count the cell's one-rank run at that mesh, then its decomposed run
+    against it (phase_decomp_amr). A float32 cell whose gate fails widens
+    it as phase 16's 2-D cell does: to twice the one-rank float32 run's
+    distance from float64, after the float64 run on the same ranks meets
+    the float64 gate with equal cycles."""
+    import shutil
+    import tempfile
+    cells = amr_decomp_cells()
+    out = []
+    for key in keys:
+        cell = cells[key]
+        dtype_name = cell["kw"].get("dtype", "float64")
+        f64 = dtype_name == "float64"
+        for nr in cell["ranks"]:
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_amr_")
+            try:
+                ref = _amr_reference(torch, cell, nr, dtype_name, tmp,
+                                     io=cell.get("io", False))
+                io_dir = (os.path.join(tmp, "io-dec") if cell.get("io")
+                          else None)
+                try:
+                    out.append(phase_decomp_amr(
+                        torch, cell, nr, ref, dtype_name,
+                        TOL_DECOMP_F64 if f64 else TOL_DECOMP_F32, f64,
+                        io_dir=io_dir))
+                except PhaseError as e:
+                    if f64 or not cell.get("widen"):
+                        raise
+                    print(f"  {cell['label']} float32: {e}; the float64 "
+                          "runs decide whether the gate widens", flush=True)
+                    ref64 = _amr_reference(torch, cell, nr, "float64", tmp)
+                    out.append(phase_decomp_amr(
+                        torch, cell, nr, ref64, "float64", TOL_DECOMP_F64,
+                        True))
+                    roundoff = field_errs_ml(ref["states"], ref64["states"])
+                    out.append(phase_decomp_amr(
+                        torch, cell, nr, ref, dtype_name, TOL_DECOMP_F32,
+                        False, roundoff=roundoff))
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            torch.cuda.empty_cache()
+    return out
+
+
+def field_errs_ml(got, ref):
+    """{field: max over patches of max|got - ref| / max(1, max|ref|)}."""
+    out = {}
+    for a, b in zip(got, ref):
+        for k in ("u", "s", "gp", "p"):
+            x, y = a[k].double(), b[k].double()
+            out[k] = max(out.get(k, 0.0), float((x - y).abs().max())
+                         / max(1.0, float(y.abs().max())))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2539,6 +3017,16 @@ def main(argv=None) -> int:
           "a rank against its plain version", flush=True)
     decomposed = phase_decomposed(torch, list(decomp_cells()))
 
+    print("phase 17: AMR under a mesh, every patch of every level cut over "
+          "gloo ranks sharing the card: config 5 at a "
+          f"{N_AMR_DECOMP}^3 base float64 on 2 and 4 ranks and at 256^3 "
+          "float32 on 4, config 3 across a regrid and the RT inputs to "
+          f"step {RT_IO_DECOMP_STEPS} with plotfiles, checkpoints and a "
+          f"restart from step {RT_IO_DECOMP_CHK} on 4, each against its "
+          "one-rank run at the same mesh, and every kernel call of a rank "
+          "against its plain version", flush=True)
+    decomposed_amr = phase_decomposed_amr(torch, list(amr_decomp_cells()))
+
     # the JSON line: for each kernel its main case (velocity update, the
     # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
     # finest patch; kernel
@@ -2590,7 +3078,7 @@ def main(argv=None) -> int:
               "steps_rt": per_step_rt, "launches_rt": launches_rt,
               "peak_bytes_rt": peak_rt, "steps_rt_f64": per_step_rt64,
               "profiled_step_rt": prof_rt, "io": io,
-              "decomposed": decomposed,
+              "decomposed": decomposed, "decomposed_amr": decomposed_amr,
               "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
@@ -2678,6 +3166,28 @@ def main(argv=None) -> int:
                   f"r{rec['rank']} "
                   f"{[s['exchanges']['count'] for s in steady_of(rec)]}"
                   for rec in r["records"]), flush=True)
+    for r in decomposed_amr:
+        rec0 = r["records"][0]
+        steady = steady_of(rec0)
+        one_steady = r["one_rank_steps"][1:] or r["one_rank_steps"]
+        print(f"summary decomposed AMR {r['label']} on {r['ranks']} gloo "
+              f"ranks of one card (phase 17; the cost of the decomposition "
+              f"on one card, not a scaling): fields within "
+              f"{r['max_rel_err']:.3e} of the one-rank run; "
+              f"{len(r['kernel_checks'])} kernel calls at the ranks' inputs "
+              f"within {max(c['worst'] for c in r['kernel_checks']):.3e} of "
+              f"their tolerance; steady step {mean_steady(steady):.4f} s "
+              f"against {mean_steady(one_steady):.4f} s on one rank; rank 0 "
+              f"a steady step: exchanges "
+              f"{[s['exchanges']['count'] for s in steady]}, fetch/put "
+              f"calls {[s['copies']['count'] for s in steady]}, elements "
+              f"{[s['copies']['elements'] for s in steady]}, seconds "
+              f"{[round(s['copies']['seconds'], 4) for s in steady]}; "
+              "launches a steady step "
+              + ", ".join(f"{k} {[s['launches'][k] for s in steady]}"
+                          for k in sorted(rec0["launches"])
+                          if ":" not in k and rec0["launches"][k]),
+              flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

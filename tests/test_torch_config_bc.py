@@ -139,9 +139,11 @@ def test_varden_without_device_needs_a_card():
 @pytest.mark.parametrize("extra", [
     dict(mesh=2), dict(use_godunov_debug=True)])
 def test_unported_paths_raise(extra, monkeypatch):
-    """The mesh case: an AMR run on a process group of two ranks (AMR under
-    a mesh is not ported; a single-level one is, and one rank warns and
-    runs unsharded: tests/test_torch_mesh.py)."""
+    """The mesh case: an AMR run on a process group of two ranks is ported
+    now (every patch decomposed over the ranks: tests/test_torch_decomp_amr
+    .py), so it builds; what still raises under a mesh is a mesh that is
+    not the group's size (ValueError). The Godunov debug oracle is not
+    ported (NotImplementedError)."""
     import torch.distributed as dist
     from varden_tpu_torch.driver import Varden
     if "mesh" in extra:
@@ -149,6 +151,14 @@ def test_unported_paths_raise(extra, monkeypatch):
         monkeypatch.setattr(dist, "get_world_size", lambda: 2)
         monkeypatch.setattr(dist, "get_rank", lambda: 0)
         extra = dict(extra, max_levs=2)
+        v = Varden(tcfg.VardenConfig(**_kw(BC_SETS[0], **extra)),
+                   device="cpu")
+        assert v.ml and v.sim.ml_ranks == 2 and v.sim.dec is None
+        with pytest.raises(ValueError, match="2 ranks"):
+            Varden(tcfg.VardenConfig(**_kw(BC_SETS[0], **dict(extra,
+                                                              mesh=4))),
+                   device="cpu")
+        return
     with pytest.raises(NotImplementedError):
         Varden(tcfg.VardenConfig(**_kw(BC_SETS[0], **extra)), device="cpu")
 

@@ -108,10 +108,14 @@ def test_one_rank_mesh_run_warns_and_refuses_mismatch(clean_env):
     clean_env.setattr(dist, "get_rank", lambda: 0)
     with pytest.raises(ValueError, match="2 ranks"):
         Varden(VardenConfig(**cfg, mesh=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="AMR"):
-        Varden(VardenConfig(**cfg, mesh=2, max_levs=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        Varden(VardenConfig(**cfg, mesh=2, plot_int=5), device="cpu")
+    # AMR, plotfiles, checkpoints and restarts run under a mesh now: an AMR
+    # run decomposes its patches (fill.MLGeom) over the group, a
+    # single-level one with output its level
+    v = Varden(VardenConfig(**cfg, mesh=2, max_levs=2), device="cpu")
+    assert v.sim.dec is None and v.sim.ml_ranks == 2
+    v = Varden(VardenConfig(**cfg, mesh=2, plot_int=5, chk_int=5),
+               device="cpu")
+    assert v.sim.dec is not None and v.sim.dec.n == (16, 8)
     clean_env.setattr(dist, "get_world_size", lambda: 8)
     with pytest.raises(ValueError, match="even block"):
         Varden(VardenConfig(**dict(cfg, n_celly=12), mesh=8), device="cpu")

@@ -179,9 +179,10 @@ def test_initdata_2d_matches(prob_type):
 
 
 def test_dm2_is_supported_and_amr_still_raises(monkeypatch):
-    """2-D runs are supported, multi-level ones too (the AMR slice); a
-    multi-level run still raises for what stays unported (the device
-    mesh: AMR on a process group of two ranks)."""
+    """2-D runs are supported, multi-level ones too (the AMR slice), and
+    under a mesh (AMR on a process group of two ranks decomposes every
+    patch); a multi-level run under a mesh still raises where the mesh is
+    not the group's size."""
     import torch.distributed as dist
     cfg = TCfg(**KW)
     tadv.check_supported(cfg)
@@ -190,8 +191,10 @@ def test_dm2_is_supported_and_amr_still_raises(monkeypatch):
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
     monkeypatch.setattr(dist, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError):
-        TVarden(TCfg(**dict(KW, max_levs=2, mesh=2)), device="cpu")
+    v = TVarden(TCfg(**dict(KW, max_levs=2, mesh=2)), device="cpu")
+    assert v.ml and v.sim.ml_ranks == 2
+    with pytest.raises(ValueError, match="2 ranks"):
+        TVarden(TCfg(**dict(KW, max_levs=2, mesh=4)), device="cpu")
     monkeypatch.undo()
     lev = tmg.make_level((8, 8), (0.1, 0.1), [(1, 1)] * 2, torch.zeros(8, 8),
                          (1.0, 1.0), 0.0)

@@ -47,6 +47,7 @@ def main(argv=None):
     import torch
     from .config import VardenConfig
     from .driver import run_from_inputs
+    from .parallel import mesh as pmesh
     defaults = VardenConfig()
     fields = {f.name for f in dataclasses.fields(VardenConfig)}
     typed = {}
@@ -62,6 +63,8 @@ def main(argv=None):
     v = run_from_inputs(path, device=device, **typed)
     if v.sim.device.type == "cuda":
         torch.cuda.synchronize()
+    if not pmesh.is_io_proc():  # rank 0 reports a decomposed run
+        return 0
     print(f"Run time = {time.perf_counter() - t0:.6f}")
     if v.sim.device.type == "cuda":
         print(f"[{torch.cuda.get_device_name(v.sim.device)}] peak bytes "

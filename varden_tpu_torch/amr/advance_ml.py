@@ -25,14 +25,17 @@ import torch
 from torch.profiler import record_function
 
 from .. import projection
-from ..advance import embed_faces
+from .. import bc as bc_mod
 from ..ops import basic, cuda_godunov
+from ..parallel import halo
+from ..parallel import mesh as pmesh
 from ..solvers import mg, nodal
 from ..state import State
 from . import solve as amr_solve
-from .fill import MLGeom, pad_ml, pad_ml_multi
+from .fill import (MLGeom, level_max, level_min, pad_ml, pad_ml_multi,
+                   put_into_parent)
 from .hierarchy import _interleave, _sl, restrict_cells, restrict_faces
-from .solve import covered_slice_rel, pad_phi
+from .solve import pad_phi
 
 # The velocity components share the Helmholtz operator of the viscous
 # solve; when their elliptic BCs agree, one batched composite solve replaces
@@ -45,13 +48,8 @@ BATCH_MAX_CELLS = 5e7
 # MAC helpers
 # ---------------------------------------------------------------------------
 
-def _child_window(geom: MLGeom, c, d=None):
-    """Slice of the parent's cell (d None) or axis-d face tensor covered by
-    child node ``c``."""
-    child, spec = geom.specs[c], geom.specs[geom.parent[c]]
-    return tuple(slice(child.lo[t] // 2 - spec.lo[t],
-                       child.hi[t] // 2 - spec.lo[t] + (1 if t == d else 0))
-                 for t in range(geom.dm))
+def _faces(d, dm):
+    return tuple(int(t == d) for t in range(dm))
 
 
 def edge_restrict_mac(geom: MLGeom, umac_l):
@@ -67,9 +65,46 @@ def edge_restrict_mac(geom: MLGeom, umac_l):
             if (p, d) not in copied:
                 out[p][d] = out[p][d].clone()
                 copied.add((p, d))
-            out[p][d][_child_window(geom, c, d)] = restrict_faces(
-                out[c][d], d, geom.dm)
+            put_into_parent(geom, c, out[p][d],
+                            restrict_faces(out[c][d], d, geom.dm),
+                            _faces(d, geom.dm))
     return [tuple(u) for u in out]
+
+
+def embed_faces_block(geom: MLGeom, umac, ng: int):
+    """advance.embed_faces on the rank's block of level 0: interior MAC
+    components in ghost-padded cell-aligned tensors with one valid
+    tangential ghost layer (the neighbours' faces on internal faces)."""
+    dm, n = geom.dm, geom.bn(0)
+    grown = bc_mod.grow_mac(umac, 1, geom.bpmask(0), dec=geom.decs[0])
+    out = []
+    for d in range(dm):
+        arr = umac[0].new_zeros(tuple(s + 2 * ng for s in n))
+        sl = tuple(slice(ng, ng + n[t] + 1) if t == d
+                   else slice(ng - 1, ng + n[t] + 1) for t in range(dm))
+        arr[sl] = grown[d]
+        out.append(arr)
+    return tuple(out)
+
+
+def _mac_window(geom: MLGeom, lev, r, d):
+    """The parent face window (lo, hi), parent-patch index, from which
+    grow_mac_ml interpolates rank r's block of ``lev`` (axis-d faces): the
+    coarse faces and cells its fine faces and ghost ring read, one more on
+    each side, cut to the parent."""
+    dec = geom.decs[lev]
+    spec, pspec = geom.specs[lev], geom.specs[geom.parent[lev]]
+    blo = spec.lo if dec is None else dec.of_rank(r).glo
+    n = geom.bn(lev)
+    lo, hi = [], []
+    for t in range(geom.dm):
+        g = 0 if t == d else 1
+        start = blo[t] - 2 * pspec.lo[t] - g
+        stop = start + n[t] + 2 * g + (1 if t == d else 0)
+        lo.append(max(start // 2 - 1, 0))
+        hi.append(min((stop - 1) // 2 + 2,
+                      pspec.n[t] + (1 if t == d else 0)))
+    return tuple(lo), tuple(hi)
 
 
 def grow_mac_ml(geom: MLGeom, umac_l, lev: int, ng: int):
@@ -81,17 +116,19 @@ def grow_mac_ml(geom: MLGeom, umac_l, lev: int, ng: int):
     two-stage linear interpolation of create_umac_grown.f90 (consumed at
     velpred.f90:102-106): linear in the normal direction (even fine faces
     coincide with coarse faces, odd ones average the bracketing pair) and
-    linear tangentially (fine = 3/4 c[i] + 1/4 c[i -+ 1])."""
-    sim = geom.sim
+    linear tangentially (fine = 3/4 c[i] + 1/4 c[i -+ 1]). Under a mesh the
+    parent's faces come from the window _mac_window fetches."""
     dm = geom.dm
     if lev == 0:
-        return embed_faces(sim, umac_l[0], ng)
+        return embed_faces_block(geom, umac_l[0], ng)
     par = geom.parent[lev]
     spec, pspec = geom.specs[lev], geom.specs[par]
-    n = spec.n
+    blo, n = geom.blo(lev), geom.bn(lev)
     out = []
     for d in range(dm):
-        cu = umac_l[par][d]
+        wlo, _whi = _mac_window(geom, lev, pmesh.rank(), d)
+        cu = halo.fetch(umac_l[par][d], geom.decs[par],
+                        lambda r, _d=d: _mac_window(geom, lev, r, _d), kind=d)
         arr = cu.new_zeros(tuple(s + 2 * ng for s in n))
         up = cu
         for t in range(dm):
@@ -110,23 +147,38 @@ def grow_mac_ml(geom: MLGeom, umac_l, lev: int, ng: int):
                                 dim=t)
                 up = _interleave(0.75 * up + 0.25 * prv,
                                  0.75 * up + 0.25 * nxt, t)
-        # up: fine-index face field with origin 2*pspec.lo; clip the source
-        # window where the ghost ring would leave the parent's face range
-        # (a box corner on the domain boundary: those ghost faces feed only
-        # edge states that the physical-boundary logic overwrites)
+        # up: fine-index face field with origin 2*(pspec.lo + wlo); clip
+        # the source window where the ghost ring would leave the parent's
+        # face range (a box corner on the domain boundary: those ghost
+        # faces feed only edge states that the physical-boundary logic
+        # overwrites)
         sl, dst = [], []
         for t in range(dm):
             g = 0 if t == d else 1
-            start = spec.lo[t] - 2 * pspec.lo[t] - g
+            start = blo[t] - 2 * pspec.lo[t] - g
             stop = start + n[t] + 2 * g + (1 if t == d else 0)
-            s_lo, s_hi = max(start, 0), min(stop, up.shape[t])
-            sl.append(slice(s_lo, s_hi))
+            full = 2 * pspec.n[t] + (1 if t == d else 0)
+            s_lo, s_hi = max(start, 0), min(stop, full)
+            sl.append(slice(s_lo - 2 * wlo[t], s_hi - 2 * wlo[t]))
             d_lo = ng - g + (s_lo - start)
             dst.append(slice(d_lo, d_lo + (s_hi - s_lo)))
         arr[tuple(dst)] = up[tuple(sl)]
         del up
-        arr[tuple(slice(ng, ng + n[t] + (1 if t == d else 0))
-                  for t in range(dm))] = umac_l[lev][d]
+        # the faces, with the neighbour blocks' in the tangential ghost
+        # layer of an internal face (not across a periodic seam, where the
+        # whole patch has the parent's too)
+        f, lo_t = umac_l[lev][d], [0] * dm
+        dec = geom.decs[lev]
+        for t in range(dm):
+            if t == d or dec is None:
+                continue
+            lo, hi = halo.exchange(f, dec, t, 1, 1)
+            lo = None if dec.seam(t, 0) else lo
+            hi = None if dec.seam(t, 1) else hi
+            lo_t[t] = 0 if lo is None else 1
+            f = torch.cat([x for x in (lo, f, hi) if x is not None], dim=t)
+        arr[tuple(slice(ng - lo_t[t], ng - lo_t[t] + f.shape[t])
+                  for t in range(dm))] = f
         out.append(arr)
     return tuple(out)
 
@@ -149,8 +201,8 @@ def macproject_ml(geom: MLGeom, umac_l, rho_l, phi0_l=None):
         beta_l.append(tuple(projection._face_diff(
             rho_pad, d, dm, lambda h, lo: 2.0 / (h + lo)) for d in range(dm)))
         rhs_l.append(-basic.mac_div(umac_l[l], geom.dx(l)))
-    div_before = amr_solve._max_abs(rhs_l)
-    aco_l = [torch.zeros(geom.specs[l].n, dtype=sim.dtype, device=sim.device)
+    div_before = amr_solve._max_abs(geom, rhs_l)
+    aco_l = [torch.zeros(geom.bn(l), dtype=sim.dtype, device=sim.device)
              for l in range(nlev)]
     phis, (_rn, mac_outer, mac_ratio) = amr_solve.composite_cc_solve(
         geom, sim.press_comp, rhs_l, aco_l, beta_l, 0.0, phi0_l=phi0_l,
@@ -166,8 +218,9 @@ def macproject_ml(geom: MLGeom, umac_l, rho_l, phi0_l=None):
                 pad, d, dm, lambda h, lo, _h=geom.dx(l)[d]: (h - lo) / _h)
             for d in range(dm)))
     new_umac = edge_restrict_mac(geom, new_umac)
-    div_after = amr_solve._max_abs([basic.mac_div(new_umac[l], geom.dx(l))
-                                    for l in range(nlev)])
+    div_after = amr_solve._max_abs(geom, [basic.mac_div(new_umac[l],
+                                                        geom.dx(l))
+                                          for l in range(nlev)])
     return new_umac, div_before, div_after, phis, mac_ratio, mac_outer
 
 
@@ -179,7 +232,7 @@ def hgproject_ml(geom: MLGeom, proj_type, unew_l, uold_l, rhohalf_l, p_l,
     sim = geom.sim
     dm, nlev = geom.dm, geom.nlev
     rel_eps = sim.eps(1.0e-10)
-    pmask_l = [geom.pmask_level(l) for l in range(nlev)]
+    pmask_l = [geom.bpmask(l) for l in range(nlev)]
     vel_l, sigma_l, inflow_l = [], [], []
     base_inflow = projection._inflow_pad(sim)
     for l in range(nlev):
@@ -247,9 +300,7 @@ def restrict_and_sync(geom: MLGeom, arrs_l):
         if p not in copied:
             out[p] = out[p].clone()
             copied.add(p)
-        lead = out[p].ndim - geom.dm
-        out[p][(slice(None),) * lead + covered_slice_rel(geom, c)] = \
-            restrict_cells(out[c], geom.dm)
+        put_into_parent(geom, c, out[p], restrict_cells(out[c], geom.dm))
     return out
 
 
@@ -260,6 +311,7 @@ def flux_sync(geom: MLGeom, flux_l, is_cons):
     dm = geom.dm
     out = [list(f) for f in flux_l]
     copied = set()
+    cons = [c for c in range(len(is_cons)) if is_cons[c]]
     for ci in range(geom.nlev - 1, 0, -1):
         p = geom.parent[ci]
         for d in range(dm):
@@ -267,13 +319,12 @@ def flux_sync(geom: MLGeom, flux_l, is_cons):
                 out[p][d] = out[p][d].clone()
                 copied.add((p, d))
             rf = restrict_faces(out[ci][d], d, dm)
-            sl = (slice(None),) + _child_window(geom, ci, d)
-            cons = [c for c in range(len(is_cons)) if is_cons[c]]
             if len(cons) == len(is_cons):
-                out[p][d][sl] = rf
+                put_into_parent(geom, ci, out[p][d], rf, _faces(d, dm))
             else:
                 for c in cons:
-                    out[p][d][(c,) + sl[1:]] = rf[c]
+                    put_into_parent(geom, ci, out[p][d][c], rf[c],
+                                    _faces(d, dm))
     return [tuple(f) for f in out]
 
 
@@ -281,7 +332,7 @@ def flux_sync(geom: MLGeom, flux_l, is_cons):
 # the multilevel step
 # ---------------------------------------------------------------------------
 
-def _warm(hints, cur_key, prev_key):
+def _warm(geom, hints, cur_key, prev_key):
     """Per-node warm start: linear time-extrapolation once two consecutive
     past solutions exist (see advance._warm), else the last solution."""
     if hints is None or hints.get(cur_key) is None:
@@ -292,7 +343,8 @@ def _warm(hints, cur_key, prev_key):
     out = []
     for c, pv in zip(cur, prev):
         delta = c - pv
-        ok = delta.abs().max() < 0.5 * c.abs().max()
+        ok = level_max(geom, delta.abs().max()) < \
+            0.5 * level_max(geom, c.abs().max())
         out.append(torch.where(ok, c + delta, c))
     return out
 
@@ -302,29 +354,32 @@ def _lap_level(geom: MLGeom, l, arrs, ell, bv):
     ghosts (explicit_diffusive_term over the hierarchy)."""
     sim = geom.sim
     pad = pad_phi(geom, l, arrs, ell, bv, ng=1)
-    zero = torch.zeros(geom.specs[l].n, dtype=sim.dtype, device=sim.device)
+    zero = torch.zeros(geom.bn(l), dtype=sim.dtype, device=sim.device)
     return -mg.apply_padded(pad, zero, (1.0,) * geom.dm, 0.0, geom.dx(l),
                             geom.dm)
 
 
 def _mkflux_update_level(geom: MLGeom, l, old, s_pad, umac, mac_pads, force,
-                         fupd, dt, adv_bc, is_vel, is_cons, flux_comps=()):
+                         fupd, dt, comps, is_vel, is_cons, flux_comps=(),
+                         umax=None):
     """Godunov edge states and the update of one level's components, and
     the conservative fluxes of the components ``flux_comps`` lists (the
     flux registers read them): in 3-D one pass of the fused kernel, which
     emits the listed fluxes beside the update as varden_tpu's does; in 2-D
-    the edge kernel and the plain update. Returns (new, fluxes or None)."""
+    the edge kernel and the plain update. ``comps``: the components' global
+    indices (their adv_bc). Returns (new, fluxes or None)."""
     sim = geom.sim
     cfg = sim.cfg
-    tail = (dt, geom.dx(l), geom.phys_bc_level(l), adv_bc, sim.ng,
-            geom.specs[l].n, is_vel, is_cons, cfg.slope_order,
-            cfg.use_minion)
+    tail = (dt, geom.dx(l), geom.phys_bc_block(l),
+            geom.adv_bc_block(l, comps), sim.ng,
+            geom.bn(l), is_vel, is_cons, cfg.slope_order, cfg.use_minion)
     if geom.dm == 3:
         out = cuda_godunov.mkflux_update_3d_fused(
-            s_pad, mac_pads, force, fupd, None, *tail, flux_comps=flux_comps)
+            s_pad, mac_pads, force, fupd, None, *tail, flux_comps=flux_comps,
+            umax=umax)
         return out if flux_comps else (out, None)
     ex, ey, fx, fy = cuda_godunov.mkflux_2d_fused(
-        s_pad, mac_pads[0], mac_pads[1], force, None, *tail)
+        s_pad, mac_pads[0], mac_pads[1], force, None, *tail, umax=umax)
     new = basic.update(old, umac, (ex, ey), (fx, fy), fupd, dt, geom.dx(l),
                        is_cons)
     if not flux_comps:
@@ -350,8 +405,6 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
                   for d in range(dm)]
     bv_vel = [[[sim.bvals[d][t][s2] for s2 in range(2)] for t in range(dm)]
               for d in range(dm)]
-    adv_bc_vel = [sim.adv_bc[d] for d in range(dm)]
-    adv_bc_scal = [sim.adv_bc[c] for c in scal_comps]
 
     # explicit viscous term per level (coarse-fine ghosts via the solver pad)
     lapu_l = None
@@ -379,8 +432,10 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     with record_function("step::velpred"):
         u_pads, vf_pads = vel_pads()
         umac_l = [velpred(u_pads[l], vf_pads[l], dt, geom.dx(l),
-                          geom.phys_bc_level(l), adv_bc_vel, ng,
-                          geom.specs[l].n, cfg.slope_order, cfg.use_minion)
+                          geom.phys_bc_block(l),
+                          geom.adv_bc_block(l, vel_comps), ng,
+                          geom.bn(l), cfg.slope_order, cfg.use_minion,
+                          umax=_block_max(geom, u_l[l]))
                   for l in range(nlev)]
         del u_pads, vf_pads
         umac_l = edge_restrict_mac(geom, umac_l)
@@ -389,8 +444,11 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     with record_function("step::macproject"):
         umac_l, div_b, div_a, phi_mac_l, mac_ratio, mac_outer = \
             macproject_ml(geom, umac_l, s_l,
-                          phi0_l=_warm(hints, "phi_mac", "phi_mac_prev"))
+                          phi0_l=_warm(geom, hints, "phi_mac", "phi_mac_prev"))
         mac_pads_l = [grow_mac_ml(geom, umac_l, l, ng) for l in range(nlev)]
+        mac_max_l = [_block_max(geom, torch.stack([f.abs().max()
+                                                   for f in umac_l[l]]))
+                     for l in range(nlev)]
 
     # ---- scalar advance with each level's own fluxes; the inter-level
     # conservative flux sync (ml_edge_restriction_c, mkflux.f90:137-146) is
@@ -400,7 +458,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     if cfg.diff_coef > 0.0:
         laps_l = []
         for l in range(nlev):
-            comps = [torch.zeros(geom.specs[l].n, dtype=sim.dtype,
+            comps = [torch.zeros(geom.bn(l), dtype=sim.dtype,
                                  device=sim.device)]
             for i in range(1, sim.nscal):
                 ell, bv = projection.comp_bc(sim, sim.scal_comp(i))
@@ -425,8 +483,8 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
             s_pad = pad_ml_multi(geom, s_l, scal_comps, l, ng)
             snew, sflux = _mkflux_update_level(
                 geom, l, s_l[l], s_pad, umac_l[l], mac_pads_l[l], sf_pad,
-                sf_half, dt, adv_bc_scal, False, is_cons,
-                tuple(cons_idx) if need_flux else ())
+                sf_half, dt, scal_comps, False, is_cons,
+                tuple(cons_idx) if need_flux else (), umax=mac_max_l[l])
             del s_pad, sf_pad, sf_half
             snew_l.append(snew)
             sflux_own_l.append(sflux)
@@ -486,7 +544,8 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
                 cfg.boussinesq)
             unew, _ = _mkflux_update_level(
                 geom, l, u_l[l], u_pads[l], umac_l[l], mac_pads_l[l],
-                vf_pads[l], vfh, dt, adv_bc_vel, True, [False] * dm)
+                vf_pads[l], vfh, dt, vel_comps, True, [False] * dm,
+                umax=mac_max_l[l])
             u_pads[l] = vf_pads[l] = None
             unew_l.append(unew)
         del u_pads, vf_pads, mac_pads_l
@@ -545,13 +604,14 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     with record_function("step::hgproject"):
         unew_l, p_l, gp_l, phi_hg_l, hg_ratio, hg_outer = hgproject_ml(
             geom, proj_type, unew_l, u_l, rhohalf_l, p_l, gp_l, dt,
-            phi0_l=_warm(hints, "phi_hg", "phi_hg_prev"))
+            phi0_l=_warm(geom, hints, "phi_hg", "phi_hg_prev"))
 
     new_states = [State(u=unew_l[l], s=snew_l[l], gp=gp_l[l], p=p_l[l])
                   for l in range(nlev)]
     diag = {"div_before": div_b, "div_after": div_a,
-            "smin": snew_l[0][0].min(), "smax": snew_l[0][0].max(),
-            "umax": unew_l[0].abs().max(),
+            "smin": level_min(geom, snew_l[0][0].min()),
+            "smax": level_max(geom, snew_l[0][0].max()),
+            "umax": level_max(geom, unew_l[0].abs().max()),
             "mac_ratio": mac_ratio, "hg_ratio": hg_ratio,
             "mac_outer": mac_outer, "hg_outer": hg_outer,
             "phi_mac": phi_mac_l, "phi_hg": phi_hg_l}
@@ -560,10 +620,19 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     return new_states, diag
 
 
+def _block_max(geom: MLGeom, x):
+    """max|x| over a decomposed patch (the Godunov kernels' tie epsilon is
+    formed from it), else None: the kernels form it from their input."""
+    return None if geom.decs[0] is None else halo.all_max(x.abs().max())
+
+
 def ml_estdt(geom: MLGeom, states, dtold) -> float:
-    """The smallest of the levels' dt estimates (a host float)."""
+    """The smallest of the levels' dt estimates (a host float); each
+    level's maxima over all of its blocks where it is decomposed."""
     sim = geom.sim
+    lmax = None if geom.decs[0] is None else halo.all_max
     return min(basic.estdt(states[l].u, states[l].s[0], states[l].gp,
                            sim.cfg.ext_force, geom.dx(l), dtold,
-                           sim.cfg.cflfac, sim.cfg.max_dt_growth)
+                           sim.cfg.cflfac, sim.cfg.max_dt_growth,
+                           level_max=lmax)
                for l in range(geom.nlev))

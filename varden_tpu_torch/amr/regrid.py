@@ -5,7 +5,9 @@ pipeline (initialize.f90:152-342, regrid.f90:20-272): tagged cells cluster
 into Berger-Rigoutsos boxes, buffer and quantize, merge into ISOLATED
 patches and nest into the patch tree. Clustering runs on the host in numpy;
 the tags are computed on the run's device and copied to the host once per
-regrid.
+regrid. Under a mesh each rank tags its blocks, the tags are gathered, and
+every rank clusters the same tree; the new patches' blocks are filled from
+the old hierarchy's blocks by parallel.halo.fetch.
 """
 from __future__ import annotations
 
@@ -17,10 +19,12 @@ import numpy as np
 import torch
 
 from .. import problems
+from ..parallel import halo
+from ..parallel import mesh as pmesh
 from ..parallel.mesh import mesh_shape
 from ..state import Sim, State
-from .fill import MLGeom
-from .hierarchy import LevelSpec, domain_spec, prolong_cells, prolong_nodes
+from .fill import MLGeom, child_image
+from .hierarchy import LevelSpec, domain_spec, prolong_cells
 
 QUANT = 8          # box edges quantized to multiples of this (fine index)
 NEST_BUFFER = 2    # coarse-cell proper-nesting margin (enforce_proper_nesting)
@@ -219,10 +223,15 @@ def _overlap_cells(spec: LevelSpec, lo_f, hi_f) -> int:
 def compute_tags(sim: Sim, geom: MLGeom, states: List[State]):
     """The tag arrays compute_tree consumes (nodes of depth < max_levs - 1),
     as host numpy booleans: one device-to-host copy per node."""
-    return {i: problems.tag_cells(sim, states[i].s[0],
-                                  geom.depth[i]).cpu().numpy()
+    return {i: _tags(sim, geom, i, states[i].s[0])
             for i in range(geom.nlev)
             if geom.depth[i] < sim.cfg.max_levs - 1}
+
+
+def _tags(sim: Sim, geom: MLGeom, i, rho):
+    """Node i's tags on the host, whole (gathered from the blocks)."""
+    t = problems.tag_cells(sim, rho, geom.depth[i]).to(rho.dtype)
+    return geom.gather(i, t).cpu().numpy() > 0.5
 
 
 def _children_of_depth(sim: Sim, specs, depth, d, cand):
@@ -319,60 +328,94 @@ def geom_covers(geom: MLGeom, specs, parent, depth, waste: float) -> bool:
     return True
 
 
+def _interp_block(geom: MLGeom, c, parent_t):
+    """Rank's block of node ``c`` interpolated (limited slopes) from its
+    parent's blocks: the window of the block's coarse image with one cell
+    of slope halo, cut to the parent (whose outermost cells keep zero
+    slope, as when the whole parent is prolonged)."""
+    dm = geom.dm
+    pn = geom.specs[geom.parent[c]].n
+
+    def win(r):
+        lo, hi = child_image(geom, c, r)
+        return (tuple(max(l - 1, 0) for l in lo),
+                tuple(min(h + 1, n) for h, n in zip(hi, pn)))
+
+    w = halo.fetch(parent_t, geom.decs[geom.parent[c]], win)
+    up = prolong_cells(w, dm)
+    wlo = win(pmesh.rank())[0]
+    ilo = child_image(geom, c, pmesh.rank())[0]
+    sl = (slice(None),) * (up.ndim - dm) + tuple(
+        slice(2 * (i - l), 2 * (i - l) + n)
+        for i, l, n in zip(ilo, wlo, geom.bn(c)))
+    return up[sl].clone()
+
+
 def build_level_data(sim: Sim, old_geom: MLGeom, states: List[State],
                      new_geom: MLGeom) -> List[State]:
     """Move the state onto the new patch tree: interpolate each node from
     its (already built) parent, copy where old same-depth patches overlap
-    (regrid.f90:274-341), nodal-prolong p."""
+    (regrid.f90:274-341), nodal-prolong p. Under a mesh each rank builds
+    its blocks, fetching the parent's and the old patches' parts."""
+    from .solve import _prolonged
     dm = sim.dm
     new_states = [states[0]]
     for c in range(1, new_geom.nlev):
         spec = new_geom.specs[c]
-        pi = new_geom.parent[c]
-        parent = new_states[pi]
-        pspec = new_geom.specs[pi]
-
-        def interp(arr):
-            up = prolong_cells(arr, dm)
-            sl = [slice(None)] * (arr.ndim - dm)
-            for d in range(dm):
-                start = spec.lo[d] - 2 * pspec.lo[d]
-                sl.append(slice(start, start + spec.n[d]))
-            return up[tuple(sl)].clone()
-
-        u, s, gp = interp(parent.u), interp(parent.s), interp(parent.gp)
-        pc = parent.p
-        for d in range(dm):
-            if new_geom.side_kind(pi, d, 0) == "per":
-                pc = torch.cat([pc, pc.narrow(d, 0, 1)], dim=d)
-        pup = prolong_nodes(pc, dm)
-        slp = []
-        for d in range(dm):
-            count = spec.n[d] + (0 if new_geom.side_kind(c, d, 0) == "per"
-                                 else 1)
-            start = spec.lo[d] - 2 * pspec.lo[d]
-            slp.append(slice(start, start + count))
-        p = pup[tuple(slp)].clone()
+        parent = new_states[new_geom.parent[c]]
+        u, s, gp = (_interp_block(new_geom, c, parent.u),
+                    _interp_block(new_geom, c, parent.s),
+                    _interp_block(new_geom, c, parent.gp))
+        p = _prolonged(new_geom, c, parent.p).clone()
+        blo, bn = new_geom.blo(c), new_geom.bn(c)
 
         # copy the overlap from every old same-depth patch that intersects
         for o in range(1, old_geom.nlev):
             if old_geom.depth[o] != new_geom.depth[c] or o >= len(states):
                 continue
-            old, ospec = states[o], old_geom.specs[o]
-            lo = [max(spec.lo[d], ospec.lo[d]) for d in range(dm)]
-            hi = [min(spec.hi[d], ospec.hi[d]) for d in range(dm)]
-            if all(h > l for l, h in zip(lo, hi)):
-                src = (slice(None),) + tuple(
-                    slice(lo[d] - ospec.lo[d], hi[d] - ospec.lo[d])
-                    for d in range(dm))
-                dst = (slice(None),) + tuple(
-                    slice(lo[d] - spec.lo[d], hi[d] - spec.lo[d])
-                    for d in range(dm))
-                u[dst] = old.u[src]
-                s[dst] = old.s[src]
-                gp[dst] = old.gp[src]
+            ospec = old_geom.specs[o]
+            if any(min(spec.hi[d], ospec.hi[d]) <= max(spec.lo[d],
+                                                       ospec.lo[d])
+                   for d in range(dm)):
+                continue
+
+            def box(r, _o=ospec):
+                dec = new_geom.decs[c]
+                glo = spec.lo if dec is None else dec.of_rank(r).glo
+                lo = [max(glo[d], _o.lo[d]) for d in range(dm)]
+                hi = [min(glo[d] + bn[d], _o.hi[d]) for d in range(dm)]
+                if any(h <= l for l, h in zip(lo, hi)):
+                    return None
+                return (tuple(l - ol for l, ol in zip(lo, _o.lo)),
+                        tuple(h - ol for h, ol in zip(hi, _o.lo)))
+
+            old = states[o]
+            got = halo.fetch(torch.cat([old.u, old.s, old.gp]),
+                             old_geom.decs[o], box)
+            mine = box(pmesh.rank())
+            if got is None:
+                continue
+            dst = (slice(None),) + tuple(
+                slice(l + ol - b, h + ol - b)
+                for l, h, ol, b in zip(mine[0], mine[1], ospec.lo, blo))
+            u[dst] = got[:dm]
+            s[dst] = got[dm:dm + sim.nscal]
+            gp[dst] = got[dm + sim.nscal:]
         new_states.append(State(u=u, s=s, gp=gp, p=p))
     return new_states
+
+
+def _init_block(sim: Sim, geom: MLGeom, i) -> State:
+    """initdata on the rank's block of node i (the whole node when it is
+    not decomposed)."""
+    spec = geom.specs[i]
+    if i == 0 and geom.decs[0] is None:
+        return problems.initdata(sim)
+    if geom.decs[i] is None:
+        return problems.initdata_on_spec(sim, spec, geom.depth[i])
+    st = problems.initdata_on_spec(sim, LevelSpec(geom.blo(i), geom.bn(i)),
+                                   geom.depth[i])
+    return State(u=st.u, s=st.s, gp=st.gp, p=sim.zeros(geom.bnode_shape(i)))
 
 
 def initialize_adaptive(sim: Sim) -> Tuple[MLGeom, List[State]]:
@@ -382,11 +425,12 @@ def initialize_adaptive(sim: Sim) -> Tuple[MLGeom, List[State]]:
     per depth."""
     buf = max(sim.cfg.amr_buf_width, 2)
     specs, parent, depth = [domain_spec(sim.n_cell, 0)], [-1], [0]
-    states = [problems.initdata(sim)]
+    geom = MLGeom(sim, specs, parent, depth)
+    states = [_init_block(sim, geom, 0)]
     for d in range(sim.cfg.max_levs - 1):
         cand = []
         for i in [i for i in range(len(specs)) if depth[i] == d]:
-            tags = problems.tag_cells(sim, states[i].s[0], d).cpu().numpy()
+            tags = _tags(sim, geom, i, states[i].s[0])
             cand += _child_boxes(sim, tags, specs[i], buf)
         children = _children_of_depth(sim, specs, depth, d, cand)
         added = False
@@ -395,10 +439,12 @@ def initialize_adaptive(sim: Sim) -> Tuple[MLGeom, List[State]]:
                 specs.append(spec)
                 parent.append(j)
                 depth.append(d + 1)
-                states.append(problems.initdata_on_spec(sim, spec, d + 1))
                 added = True
         if not added:
             break
+        geom = MLGeom(sim, specs, parent, depth)
+        states += [_init_block(sim, geom, i)
+                   for i in range(len(states), len(specs))]
     return MLGeom(sim, specs, parent, depth), states
 
 
@@ -446,7 +492,6 @@ def initialize_fixed(sim: Sim) -> Tuple[MLGeom, List[State]]:
     previous-depth patch with the largest overlap. The file's first level
     entry describes the reference's level 2."""
     specs, parent, depth = [domain_spec(sim.n_cell, 0)], [-1], [0]
-    states = [problems.initdata(sim)]
     for li, boxes in enumerate(parse_fixed_grids(sim.cfg.fixed_grids,
                                                  sim.dm)):
         d = li + 1
@@ -467,12 +512,15 @@ def initialize_fixed(sim: Sim) -> Tuple[MLGeom, List[State]]:
             specs.append(spec)
             parent.append(best)
             depth.append(d)
-            states.append(problems.initdata_on_spec(sim, spec, d))
-    return MLGeom(sim, specs, parent, depth), states
+    geom = MLGeom(sim, specs, parent, depth)
+    return geom, [_init_block(sim, geom, i) for i in range(len(specs))]
 
 
 def write_grids(path: str, geom: MLGeom, istep: int):
-    """Append the current box hierarchy (the grdlog of varden.f90:622-663)."""
+    """Append the current box hierarchy (the grdlog of varden.f90:622-663);
+    rank 0 writes it."""
+    if not pmesh.is_io_proc():
+        return
     with open(path, "a") as f:
         f.write(f"step {istep}: {geom.ndepth} levels, {geom.nlev} boxes\n")
         for d in range(geom.ndepth):

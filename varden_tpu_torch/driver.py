@@ -12,10 +12,14 @@ The device mesh (mesh > 0, varden_tpu/driver.py:68-94): with one rank in
 the process group the run warns and runs unsharded, as varden_tpu does with
 too few devices, the regridder keeping its mesh-quantised patch extents.
 With mesh ranks (torch.distributed, parallel.mesh.maybe_init_distributed)
-a single-level run is decomposed: each rank holds its block of every field
-(parallel.mesh.Decomp) and its Sim exchanges halos and reduces norms with
-the others; ``gather`` gives the whole State. AMR and plotfiles or
-checkpoints under a mesh raise NotImplementedError.
+the run is decomposed: each rank holds its block of every field
+(parallel.mesh.Decomp) and exchanges halos and reduces norms with the
+others. A single-level run's Sim is the rank's block; a multi-level run
+decomposes every patch of every level over the same ranks (fill.MLGeom,
+the coarse-fine coupling through parallel.halo.fetch and put). Rank 0
+alone writes plotfiles, checkpoints, job info and the grids file, and
+every rank reads a checkpoint to restart. ``gather`` gives the whole State
+(the list of whole patches of a multi-level run).
 """
 from __future__ import annotations
 
@@ -41,33 +45,35 @@ WARM_EXTRAP_MAX_CELLS = 5e7
 
 
 def _decomposition(cfg: VardenConfig, device):
-    """The rank's block of a decomposed run, or None (no mesh, or one
-    rank)."""
+    """(the rank's block of the base level, the number of ranks) of a
+    decomposed run, or (None, 1): no mesh, or one rank."""
     if cfg.mesh <= 0:
-        return None
+        return None, 1
     pmesh.maybe_init_distributed(resolve_device(device))
     ranks = pmesh.world_size()
     if ranks == 1:
         warnings.warn(f"mesh={cfg.mesh} ranks requested but the process "
                       "group has 1; running unsharded")
-        return None
+        return None, 1
     if cfg.mesh != ranks:
         raise ValueError(f"mesh={cfg.mesh} but the process group has "
                          f"{ranks} ranks")
-    if cfg.max_levs > 1:
-        raise NotImplementedError("AMR under a mesh (max_levs > 1 on "
-                                  f"{ranks} ranks) is not ported yet")
-    if cfg.plot_int > 0 or cfg.chk_int > 0 or cfg.restart >= 0:
-        raise NotImplementedError("plotfiles, checkpoints and restarts of "
-                                  f"a run on {ranks} ranks are not ported "
-                                  "yet")
     dec = pmesh.make_decomp(cfg.n_cell, cfg.pmask, ranks, pmesh.rank())
     if not dec.keeps_blocks() or any(dec.n[d] < cfg.ng_cell
                                      for d in range(cfg.dm) if dec.split(d)):
         raise ValueError(f"{ranks} ranks cut {cfg.n_cell} cells into blocks "
                          f"of {dec.n}: a split axis needs an even block of "
                          f"at least {max(pmesh.MIN_BLOCK, cfg.ng_cell)}")
-    return dec
+    return dec, ranks
+
+
+def gather_states_ml(geom: MLGeom, states):
+    """The whole patches' States on every rank from each rank's blocks of
+    a decomposed multi-level run (exact); ``states`` themselves
+    otherwise."""
+    return [State(u=geom.gather(l, st.u), s=geom.gather(l, st.s),
+                  gp=geom.gather(l, st.gp), p=geom.gather(l, st.p, True))
+            for l, st in enumerate(states)]
 
 
 def gather_state(sim: Sim, state: State) -> State:
@@ -84,8 +90,8 @@ def gather_state(sim: Sim, state: State) -> State:
 
 class Varden:
     """A configured simulation, single-level or (max_levs > 1) multi-level,
-    on one device or (mesh > 0 in a process group of mesh ranks,
-    single-level) decomposed over the group's ranks.
+    on one device or (mesh > 0 in a process group of mesh ranks)
+    decomposed over the group's ranks.
 
     ``device`` defaults to the card; with no card present the constructor
     raises unless ``device="cpu"`` is given (the plain PyTorch path)."""
@@ -93,8 +99,11 @@ class Varden:
     def __init__(self, cfg: VardenConfig, device=None):
         advance.check_supported(cfg)
         self.cfg = cfg
-        self.sim = Sim(cfg, device=device,
-                       decomp=_decomposition(cfg, device))
+        dec, ranks = _decomposition(cfg, device)
+        ml = cfg.max_levs > 1
+        self.sim = Sim(cfg, device=device, decomp=None if ml else dec)
+        if ml and ranks > 1:
+            self.sim.ml_ranks = ranks
         self.time = 0.0
         self.dt = 1.0e20
         self.istep = 0
@@ -172,9 +181,12 @@ class Varden:
         self._report(diag)
         return state
 
-    def gather(self, state: State) -> State:
+    def gather(self, state):
         """The whole level's State on every rank from each rank's block of
-        a decomposed run (exact); ``state`` itself otherwise."""
+        a decomposed run (exact), or of a multi-level run the list of whole
+        patches' States; ``state`` itself otherwise."""
+        if self.ml:
+            return gather_states_ml(self.geom, state)
         return gather_state(self.sim, state)
 
     def _report(self, diag, levels=""):
@@ -282,10 +294,8 @@ class Varden:
 
     def _zero_ml_hints(self):
         sim, geom = self.sim, self.geom
-        z_mac = [sim.zeros(s.n) for s in geom.specs]
-        z_hg = [sim.zeros(nodal.node_shape(geom.specs[l].n,
-                                           geom.pmask_level(l)))
-                for l in range(geom.nlev)]
+        z_mac = [sim.zeros(geom.bn(l)) for l in range(geom.nlev)]
+        z_hg = [sim.zeros(geom.bnode_shape(l)) for l in range(geom.nlev)]
         hints = {"phi_mac": z_mac, "phi_hg": z_hg}
         if self._hints_have_prev():
             hints["phi_mac_prev"] = [z.clone() for z in z_mac]

@@ -22,7 +22,33 @@ import torch
 
 from ..amr.hierarchy import LevelSpec, restrict_cells
 from ..ops import basic
+from ..parallel import halo
+from ..parallel import mesh as pmesh
+from ..solvers.nodal import node_extra
 from ..state import Sim, State
+
+
+def _written():
+    """Every rank waits until rank 0 has written (a decomposed run), so
+    that no rank reads a file before it is complete."""
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+
+
+def _whole(sim: Sim, t, nodal=False):
+    """The whole level from the rank's block of a decomposed single-level
+    run (exact); ``t`` itself otherwise."""
+    dec = sim.dec
+    if dec is None:
+        return t
+    if not nodal:
+        return halo.gather(t, dec)
+    return halo.gather(t, dec, node_extra(dec.local_pmask),
+                       node_extra(dec.pmask))
+
+
+def _block(sim: Sim, t, nodal=False):
+    return t if sim.dec is None else sim.dec.block(t, nodal).contiguous()
 
 
 def _to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
@@ -57,8 +83,11 @@ def write_plotfile(sim: Sim, state: State, istep: int, time: float,
                    dt: float, base: str = None):
     from . import boxlib
     name = f"{base or sim.cfg.plot_base_name}{istep:05d}"
-    fields = _plot_stack(state, sim.fill_vel(state.u), sim.dx, sim.ng,
-                         sim.n_cell, sim.phys_bc)
+    fields = _whole(sim, _plot_stack(state, sim.fill_vel(state.u), sim.dx,
+                                     sim.ng, sim.n_cell, sim.phys_bc))
+    if not pmesh.is_io_proc():
+        _written()
+        return name
     coarsen = 1
     if sim.cfg.coarsen_plot_data:
         # 2x cell-average restriction before writing (reference
@@ -67,6 +96,7 @@ def write_plotfile(sim: Sim, state: State, istep: int, time: float,
         coarsen = 2
     boxlib.write_plotfile(name, sim, _to_host([fields])[0],
                           plot_field_names(sim), time, coarsen=coarsen)
+    _written()
     return name
 
 
@@ -129,10 +159,16 @@ def write_checkpoint(sim: Sim, state: State, istep: int, time: float,
     starts in hints.npz."""
     from . import boxlib
     name = f"{base or sim.cfg.check_base_name}{istep:05d}"
-    os.makedirs(name, exist_ok=True)
     keys = list(hints) if hints is not None else []
-    chk, p, *h = _to_host([torch.cat([state.u, state.s, state.gp]), state.p]
-                          + [hints[k] for k in keys])
+    whole = ([_whole(sim, torch.cat([state.u, state.s, state.gp])),
+              _whole(sim, state.p, nodal=True)]
+             + [_whole(sim, hints[k], nodal=k.startswith("phi_hg"))
+                for k in keys])
+    if not pmesh.is_io_proc():
+        _written()
+        return name
+    os.makedirs(name, exist_ok=True)
+    chk, p, *h = _to_host(whole)
     boxlib.write_multifab(os.path.join(name, "State", "Level_0"),
                           np.asarray(chk, np.float64))
     boxlib.write_multifab(os.path.join(name, "Pressure", "Level_0"),
@@ -142,13 +178,15 @@ def write_checkpoint(sim: Sim, state: State, istep: int, time: float,
         np.savez(os.path.join(name, "hints.npz"), **dict(zip(keys, h)))
     _write_chk_header(name, time, dt, 1)
     write_job_info(name, sim)
+    _written()
     return name
 
 
 def read_checkpoint(sim: Sim, name: str):
     """reference checkpoint_read (checkpoint.f90:85-145) +
     fill_restart_data. Returns (State, header dict, hints or None), the
-    tensors on sim's device in its dtype."""
+    tensors on sim's device in its dtype (every rank reads the files and
+    keeps its block of a decomposed run)."""
     from . import boxlib
     time, dt, _nlevs = _read_chk_header(name)
     chk, _lo, _ = boxlib.read_multifab(os.path.join(name, "State", "Level_0"))
@@ -158,40 +196,46 @@ def read_checkpoint(sim: Sim, name: str):
         raise ValueError(f"{name}: the Pressure multifab must be nodal")
     p = _unwrap_nodal(p, sim.pmask, chk.shape[1:])
     dm, nscal = sim.dm, sim.nscal
-    state = State(u=sim.tensor(chk[:dm]), s=sim.tensor(chk[dm:dm + nscal]),
-                  gp=sim.tensor(chk[dm + nscal:2 * dm + nscal]),
-                  p=sim.tensor(p[0]))
+    state = State(u=_block(sim, sim.tensor(chk[:dm])),
+                  s=_block(sim, sim.tensor(chk[dm:dm + nscal])),
+                  gp=_block(sim, sim.tensor(chk[dm + nscal:2 * dm + nscal])),
+                  p=_block(sim, sim.tensor(p[0]), nodal=True))
     header = {"time": time, "dt": dt, "nlevs": 1, "istep": _istep_of(name),
               "n_cell": list(chk.shape[1:]), "dim": dm}
     hints = None
     hp = os.path.join(name, "hints.npz")
     if os.path.exists(hp):
         with np.load(hp) as data:
-            hints = {k: sim.tensor(data[k]) for k in data.files}
+            hints = {k: _block(sim, sim.tensor(data[k]),
+                               nodal=k.startswith("phi_hg"))
+                     for k in data.files}
     return state, header, hints
 
 
 def write_plotfile_ml(geom, states, istep: int, time: float,
                       base: str = None):
     """Multi-level BoxLib plotfile (reference varden.f90:492-592): one FAB
-    per patch, patches grouped by depth into Level_d multifabs."""
+    per patch, patches grouped by depth into Level_d multifabs (gathered
+    from the blocks onto rank 0, which writes)."""
     from . import boxlib
     from ..amr.fill import pad_ml_multi
     sim = geom.sim
     name = f"{base or sim.cfg.plot_base_name}{istep:05d}"
     u_l = [st.u for st in states]
-    stacks = [_plot_stack(states[l],
-                          pad_ml_multi(geom, u_l, list(range(sim.dm)), l,
-                                       sim.ng),
-                          geom.dx(l), sim.ng, geom.specs[l].n,
-                          geom.phys_bc_level(l))
-              for l in range(geom.nlev)]
+    stacks = [geom.gather(l, _plot_stack(
+        states[l], pad_ml_multi(geom, u_l, list(range(sim.dm)), l, sim.ng),
+        geom.dx(l), sim.ng, geom.bn(l), geom.phys_bc_block(l)))
+        for l in range(geom.nlev)]
+    if not pmesh.is_io_proc():
+        _written()
+        return name
     arrays = _to_host(stacks)
     level_fields = [[(arrays[i], list(geom.specs[i].lo))
                      for i in geom.nodes_at(d)]
                     for d in range(1, geom.ndepth)]
     boxlib.write_plotfile(name, sim, arrays[0], plot_field_names(sim), time,
                           level_fields=level_fields)
+    _written()
     return name
 
 
@@ -207,11 +251,17 @@ def write_checkpoint_ml(geom, states, istep: int, time: float, dt: float,
     from . import boxlib
     sim = geom.sim
     name = f"{base or sim.cfg.check_base_name}{istep:05d}"
-    os.makedirs(name, exist_ok=True)
     keys = [(k, l) for l in range(geom.nlev) for k in (hints or {})]
-    host = _to_host([torch.cat([st.u, st.s, st.gp]) for st in states]
-                    + [st.p for st in states]
-                    + [hints[k][l] for k, l in keys])
+    whole = ([geom.gather(l, torch.cat([st.u, st.s, st.gp]))
+              for l, st in enumerate(states)]
+             + [geom.gather(l, st.p, True) for l, st in enumerate(states)]
+             + [geom.gather(l, hints[k][l], k.startswith("phi_hg"))
+                for k, l in keys])
+    if not pmesh.is_io_proc():
+        _written()
+        return name
+    os.makedirs(name, exist_ok=True)
+    host = _to_host(whole)
     chk, p, h = (host[:geom.nlev], host[geom.nlev:2 * geom.nlev],
                  host[2 * geom.nlev:])
     for d in range(geom.ndepth):
@@ -232,6 +282,7 @@ def write_checkpoint_ml(geom, states, istep: int, time: float, dt: float,
                  **{f"{k}_{l}": a for (k, l), a in zip(keys, h)})
     _write_chk_header(name, time, dt, geom.ndepth)
     write_job_info(name, sim)
+    _written()
     return name
 
 
@@ -239,7 +290,8 @@ def read_checkpoint_ml(sim: Sim, name: str):
     """Rebuild the patch tree from the stored per-depth boxarrays (the
     reference's fill_restart_data role, restart.f90:15-50): each box at
     depth d parents to the depth-(d-1) box containing it. Returns (MLGeom,
-    per-patch States, header dict, hints or None)."""
+    per-patch States, header dict, hints or None); under a mesh every rank
+    reads the files and keeps its blocks."""
     from . import boxlib
     from ..amr.fill import MLGeom
     time, dt, nlevs = _read_chk_header(name)
@@ -274,6 +326,10 @@ def read_checkpoint_ml(sim: Sim, name: str):
                                 gp=sim.tensor(chk[dm + nscal:]),
                                 p=sim.tensor(p[0])))
     geom = MLGeom(sim, specs, parent, depth)
+    # each rank keeps its blocks
+    states = [State(u=geom.block(l, st.u), s=geom.block(l, st.s),
+                    gp=geom.block(l, st.gp), p=geom.block(l, st.p, True))
+              for l, st in enumerate(states)]
     header = {"time": time, "dt": dt, "nlevs": nlevs,
               "istep": _istep_of(name), "n_cell": list(sim.n_cell),
               "dim": dm, "specs": [[list(s.lo), list(s.n)] for s in specs]}
@@ -281,15 +337,17 @@ def read_checkpoint_ml(sim: Sim, name: str):
     hp = os.path.join(name, "hints.npz")
     if os.path.exists(hp):
         with np.load(hp) as data:
-            hints = {k: [sim.tensor(data[f"{k}_{l}"])
-                         for l in range(geom.nlev)]
+            def part(key, l):
+                return geom.block(l, sim.tensor(data[f"{key}_{l}"]),
+                                  key.startswith("phi_hg"))
+
+            hints = {k: [part(k, l) for l in range(geom.nlev)]
                      for k in ("phi_mac", "phi_hg")}
             # the extrapolation pair; a checkpoint without it restarts with
             # prev = the last solution (no extrapolation for one step)
             for k in ("phi_mac", "phi_hg"):
                 kp = f"{k}_prev"
-                hints[kp] = ([sim.tensor(data[f"{kp}_{l}"])
-                              for l in range(geom.nlev)]
+                hints[kp] = ([part(kp, l) for l in range(geom.nlev)]
                              if f"{kp}_0" in data.files else list(hints[k]))
     return geom, states, header, hints
 

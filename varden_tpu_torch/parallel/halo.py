@@ -18,19 +18,30 @@ for several ranks on one card and on the CPU, takes CUDA tensors in
 all_reduce and all_gather but refuses them in send and recv, so the
 exchange moves a CUDA slab through pinned host buffers: it is copied to
 the host, sent, received into a host buffer and copied to the card. That
-is the transport of such runs, not a fallback. ``exchanges`` and
-``reductions`` count the calls, their bytes and their seconds, in the
-style of the kernels' ``.launches``.
+is the transport of such runs, not a fallback. ``exchanges``,
+``reductions`` and ``copies`` count the calls, their bytes and their
+seconds, in the style of the kernels' ``.launches``.
+
+``fetch`` and ``put`` are BoxLib's parallel copy between decompositions,
+which the coarse-fine coupling of a decomposed AMR hierarchy runs on: every
+rank asks for a box of a decomposed patch (``fetch``) and receives only its
+intersections with the other ranks' blocks, or writes (adds) a box it
+computed into the ranks that hold it (``put``). The pattern comes from the
+Decomps and the boxes alone, which every rank computes for every rank, so
+no request travels; each pair of ranks exchanges at most one message a
+call. ``copies.elements`` counts the entries a rank received from others.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .mesh import Decomp
+from .mesh import Decomp, rank as rank_
 
 
 class Counter:
@@ -42,15 +53,17 @@ class Counter:
     def reset(self):
         self.count = 0
         self.bytes = 0
+        self.elements = 0
         self.seconds = 0.0
 
     def as_dict(self):
         return {"count": self.count, "bytes": self.bytes,
-                "seconds": self.seconds}
+                "elements": self.elements, "seconds": self.seconds}
 
 
 exchanges = Counter()
 reductions = Counter()
+copies = Counter()
 
 
 def _staged(t: torch.Tensor) -> bool:
@@ -175,10 +188,10 @@ def gather(loc: torch.Tensor, dec: Decomp, extra: Sequence[int] = None,
         g + e for g, e in zip(dec.n_glob, glob_extra)), dtype=loc.dtype,
         device=src.device)
     for r, part in enumerate(parts):
-        coords = (r // dec.mesh[1], r % dec.mesh[1]) + (0,) * (dm - 2)
+        rlo = dec.of_rank(r).lo
         sl = [slice(None)] * len(lead)
         for d in range(dm):
-            lo = coords[d] * dec.n[d]
+            lo = rlo[d]
             hi = min(lo + dec.n[d] + extra[d], out.shape[len(lead) + d])
             sl.append(slice(lo, hi))
             part = part.narrow(len(lead) + d, 0, hi - lo)
@@ -187,3 +200,285 @@ def gather(loc: torch.Tensor, dec: Decomp, extra: Sequence[int] = None,
     reductions.bytes += src.numel() * src.element_size()
     reductions.seconds += time.perf_counter() - t0
     return out
+
+
+# ---------------------------------------------------------------------------
+# parallel copy between decompositions
+# ---------------------------------------------------------------------------
+# Entries of a decomposed patch tensor are indexed in the patch: cells
+# 0..N-1 along an axis, faces (along their own axis) and nodes 0..N (N - 1
+# on a periodic node axis, whose node N is node 0). A block holds its
+# entries from dec.lo - pad (``pad`` ghost entries on every side, which a
+# padded tensor holds) for as many as its tensor has; the blocks of one
+# patch all have one shape. The entry a fetch reads has one owner: the
+# block it lies in (the last one for the shared end entry), the first and
+# last block also owning the ghosts beyond the patch, and along a
+# replicated axis the requester's own copy.
+
+def ext_of(kind, dec):
+    """Entries past the N cells of the whole patch per axis: ``kind``
+    "cell", "node" (none on a periodic axis), or an int d (faces along
+    axis d)."""
+    dm = dec.dm
+    if kind == "cell":
+        return (0,) * dm
+    if kind == "node":
+        return tuple(0 if p else 1 for p in dec.pmask)
+    return tuple(int(t == kind) for t in range(dm))
+
+
+def _rank_coords(dec: Decomp, r: int):
+    my = dec.mesh[1]
+    return (r // my, r % my) + (0,) * (dec.dm - 2)
+
+
+def _own(dec: Decomp, r: int, d: int, total: int, pad: int):
+    """[lo, hi) of the entries along axis d that rank r's block owns."""
+    if not dec.split(d):
+        return -pad, total + pad
+    b, c = dec.n[d], _rank_coords(dec, r)[d]
+    return (-pad if c == 0 else c * b,
+            total + pad if c == dec.mesh[d] - 1 else (c + 1) * b)
+
+
+def _segments(a, b, total, wrap):
+    """Split the requested entries [a, b) into (first entry, offset in the
+    request, count) runs, wrapped into [0, total) where ``wrap``."""
+    if not wrap:
+        return [(a, 0, b - a)] if b > a else []
+    out, i = [], a
+    while i < b:
+        g = i % total
+        k = min(b - i, total - g)
+        out.append((g, i - a, k))
+        i += k
+    return out
+
+
+def _fetch_pieces(dec: Decomp, s: int, t: int, box, total, pad, wrap):
+    """The pieces of rank t's box that rank s owns: per axis a list of
+    (first entry, offset in the box, count), one product of them each."""
+    if dec is not None and dec.rep:
+        cs, ct = _rank_coords(dec, s), _rank_coords(dec, t)
+        if any(dec.rep[d] and cs[d] != ct[d] for d in range(dec.dm)):
+            return []
+    axes = []
+    for d in range(len(total)):
+        if dec is None:
+            olo, ohi = -pad, total[d] + pad
+        else:
+            olo, ohi = _own(dec, s, d, total[d], pad)
+        segs = []
+        for g, off, k in _segments(box[0][d], box[1][d], total[d],
+                                   wrap[d]):
+            lo, hi = max(g, olo), min(g + k, ohi)
+            if hi > lo:
+                segs.append((lo, off + lo - g, hi - lo))
+        if not segs:
+            return []
+        axes.append(segs)
+    return list(itertools.product(*axes))
+
+
+def _move(sends, recvs, like):
+    """One message per peer each way: ``sends`` {peer: [tensor]} flattened
+    into one buffer, ``recvs`` {peer: numel}; returns {peer: flat tensor}.
+    Staged through pinned host buffers where gloo carries CUDA tensors."""
+    staged = _staged(like)
+    ops, bufs = [], {}
+    for peer, parts in sends.items():
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        ops.append(dist.P2POp(dist.isend, _host(flat) if staged else flat,
+                              peer))
+    for peer, numel in recvs.items():
+        bufs[peer] = torch.empty(numel, dtype=like.dtype,
+                                 device="cpu" if staged else like.device,
+                                 pin_memory=staged)
+        ops.append(dist.P2POp(dist.irecv, bufs[peer], peer))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return {p: (b.to(like.device) if staged else b) for p, b in bufs.items()}
+
+
+def _index(lead, dm, per_axis, base):
+    return (slice(None),) * lead + tuple(
+        slice(g - b, g - b + k) for (g, _o, k), b in zip(per_axis, base))
+
+
+def _dst_index(lead, per_axis):
+    return (slice(None),) * lead + tuple(slice(o, o + k)
+                                         for (_g, o, k) in per_axis)
+
+
+def fetch(src: torch.Tensor, dec: Optional[Decomp], box_of: Callable,
+          kind="cell", pad: int = 0, wrap: bool = False) -> torch.Tensor:
+    """The box ``box_of(rank())`` = (lo, hi) of the decomposed patch whose
+    block ``src`` is (``pad`` ghost entries a side; leading axes pass
+    through), in the patch's entry index (see ext_of for ``kind``). Every
+    rank calls it, ``box_of(r)`` giving rank r's box (None: none); each
+    receives the parts of its box that other ranks own and copies its own.
+    ``wrap`` (per axis, or one for all): indices past a periodic axis wrap
+    around it. With ``dec`` None (one rank) it is a slice. Returns None on
+    a rank without a box."""
+    me = 0 if dec is None else rank_()
+    dm = len(box_of(me)[0]) if dec is None else dec.dm
+    t0 = time.perf_counter()
+    nr = 1 if dec is None else dec.nranks
+    total = tuple(n + e for n, e in zip(
+        src.shape[src.ndim - dm:] if dec is None else dec.n_glob,
+        (0,) * dm if dec is None else ext_of(kind, dec)))
+    if dec is None:
+        total = tuple(t - 2 * pad for t in total)
+    if isinstance(wrap, bool):
+        wrap = (wrap,) * dm
+    wr = tuple(wrap) if dec is None else tuple(
+        w and p for w, p in zip(wrap, dec.pmask))
+    lead = src.ndim - dm
+    base_me = tuple(-pad for _ in range(dm)) if dec is None else \
+        tuple(l - pad for l in dec.lo)
+    my_box = box_of(me)
+    out = None if my_box is None else src.new_empty(
+        src.shape[:lead] + tuple(h - l for l, h in zip(*my_box)))
+    sends, recvs, plans = {}, {}, {}
+    for s in range(nr):
+        if my_box is None:
+            break
+        if s == me:
+            for pc in _fetch_pieces(dec, me, me, my_box, total, pad, wr):
+                out[_dst_index(lead, pc)] = src[_index(lead, dm, pc,
+                                                       base_me)]
+            continue
+        pcs = _fetch_pieces(dec, s, me, my_box, total, pad, wr)
+        if pcs:
+            plans[s] = pcs
+            recvs[s] = sum(math.prod(k for _g, _o, k in pc)
+                           for pc in pcs) * math.prod(src.shape[:lead])
+    for t in range(nr):
+        box = box_of(t) if t != me else None
+        if box is None:
+            continue
+        pcs = _fetch_pieces(dec, me, t, box, total, pad, wr)
+        if pcs:
+            sends[t] = [src[_index(lead, dm, pc, base_me)] for pc in pcs]
+    got = _move(sends, recvs, src) if nr > 1 else {}
+    for s, flat in got.items():
+        at = 0
+        for pc in plans[s]:
+            shape = src.shape[:lead] + tuple(k for _g, _o, k in pc)
+            m = math.prod(shape)
+            out[_dst_index(lead, pc)] = flat[at:at + m].reshape(shape)
+            at += m
+    copies.count += 1
+    copies.elements += sum(recvs.values())
+    copies.bytes += sum(sum(p.numel() for p in v)
+                        for v in sends.values()) * src.element_size()
+    copies.seconds += time.perf_counter() - t0
+    return out
+
+
+def _held(dec: Decomp, r: int, shape, total):
+    """Per axis the runs (first entry, offset in the block, count) of the
+    entries rank r's block holds (its tensor's trailing ``shape``, one for
+    every block of a patch): a node past the end of a periodic axis is
+    node 0 again."""
+    lo = dec.of_rank(r).lo
+    out = []
+    for d in range(dec.dm):
+        h0, h1 = lo[d], lo[d] + shape[d]
+        runs = [(h0, 0, min(h1, total[d]) - h0)]
+        if h1 > total[d]:
+            runs.append((0, total[d] - h0, h1 - total[d]))
+        out.append(runs)
+    return out
+
+
+def put(dst: torch.Tensor, dec: Optional[Decomp], box_of: Callable,
+        data: Optional[torch.Tensor], add: bool = False,
+        kind="cell") -> torch.Tensor:
+    """Write (``add``: add) each rank's ``data``, the box ``box_of(r)`` of
+    the decomposed patch whose block ``dst`` is (unpadded; leading axes
+    pass through; ``kind`` as in fetch), into every block that holds a part
+    of it, in place; returns ``dst``. Every rank calls it; a rank with
+    ``box_of`` None gives nothing. The boxes of a ``put`` with ``add`` must
+    not overlap."""
+    me = rank_()
+    t0 = time.perf_counter()
+    if dec is None:
+        box = box_of(0)
+        if box is not None:
+            idx = (slice(None),) * (dst.ndim - len(box[0])) + tuple(
+                slice(l, h) for l, h in zip(*box))
+            if add:
+                dst[idx] += data
+            else:
+                dst[idx] = data
+        return dst
+    dm = dec.dm
+    lead = dst.ndim - dm
+    shape = dst.shape[lead:]
+    total = tuple(n + e for n, e in zip(dec.n_glob, ext_of(kind, dec)))
+
+    def pieces(s, t):
+        """Per axis (first entry, offset in s's data, offset in t's
+        block, count) runs; their products are the pieces."""
+        box = box_of(s)
+        if box is None:
+            return []
+        axes = []
+        for d, runs in enumerate(_held(dec, t, shape, total)):
+            segs = []
+            for g, off, k in runs:
+                lo, hi = max(box[0][d], g), min(box[1][d], g + k)
+                if hi > lo:
+                    segs.append((lo, lo - box[0][d], off + lo - g, hi - lo))
+            if not segs:
+                return []
+            axes.append(segs)
+        return list(itertools.product(*axes))
+
+    def src_idx(per):
+        return (slice(None),) * lead + tuple(slice(o, o + k)
+                                             for _g, o, _h, k in per)
+
+    def dst_idx(per):
+        return (slice(None),) * lead + tuple(slice(h, h + k)
+                                             for _g, _o, h, k in per)
+
+    def apply(per, vals):
+        if add:
+            dst[dst_idx(per)] += vals
+        else:
+            dst[dst_idx(per)] = vals
+
+    sends, recvs, plans = {}, {}, {}
+    for t in range(dec.nranks):
+        if t != me and data is not None:
+            pcs = pieces(me, t)
+            if pcs:
+                sends[t] = [data[src_idx(per)] for per in pcs]
+    for s in range(dec.nranks):
+        pcs = pieces(s, me)
+        if not pcs:
+            continue
+        if s == me:
+            for per in pcs:
+                apply(per, data[src_idx(per)])
+            continue
+        plans[s] = pcs
+        recvs[s] = math.prod(dst.shape[:lead]) * sum(
+            math.prod(k for _g, _o, _h, k in per) for per in pcs)
+    got = _move(sends, recvs, dst)
+    for s, flat in got.items():
+        at = 0
+        for per in plans[s]:
+            shp = dst.shape[:lead] + tuple(k for _g, _o, _h, k in per)
+            m = math.prod(shp)
+            apply(per, flat[at:at + m].reshape(shp))
+            at += m
+    copies.count += 1
+    copies.elements += sum(recvs.values())
+    copies.bytes += sum(sum(p.numel() for p in v)
+                        for v in sends.values()) * dst.element_size()
+    copies.seconds += time.perf_counter() - t0
+    return dst

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -80,14 +81,20 @@ MIN_BLOCK = 4
 
 @dataclasses.dataclass(frozen=True)
 class Decomp:
-    """One rank's block of a level of ``n_glob`` cells split ``mesh[d]``
-    ways along each axis (1 on the axes that are not split), and its
-    neighbours. A neighbour across a periodic seam is the wrapped rank;
-    across a physical face there is none."""
+    """One rank's block of a level (or of an AMR patch) of ``n_glob``
+    cells split ``mesh[d]`` ways along each axis (1 on the axes that are
+    not split), and its neighbours. A neighbour across a periodic seam is
+    the wrapped rank; across a physical face there is none. ``coords`` is
+    the rank's place in the mesh of ranks. An axis in ``rep`` is not split
+    although the mesh has several ranks along it: every rank holds it whole
+    (a patch axis that does not cut into even blocks). ``offset`` is the
+    patch's first cell in its level's index space (0 for a whole level)."""
     n_glob: Tuple[int, ...]
     mesh: Tuple[int, ...]
     coords: Tuple[int, ...]
     pmask: Tuple[bool, ...]
+    offset: Optional[Tuple[int, ...]] = None
+    rep: Optional[Tuple[bool, ...]] = None
 
     @property
     def dm(self) -> int:
@@ -96,12 +103,33 @@ class Decomp:
     @property
     def n(self) -> Tuple[int, ...]:
         """The block's cells per axis."""
-        return tuple(g // m for g, m in zip(self.n_glob, self.mesh))
+        return tuple(g // m if self.split(d) else g
+                     for d, (g, m) in enumerate(zip(self.n_glob, self.mesh)))
 
     @property
     def lo(self) -> Tuple[int, ...]:
-        """The block's first cell in the level."""
-        return tuple(c * b for c, b in zip(self.coords, self.n))
+        """The block's first cell in the patch."""
+        return tuple(c * b if self.split(d) else 0
+                     for d, (c, b) in enumerate(zip(self.coords, self.n)))
+
+    @property
+    def glo(self) -> Tuple[int, ...]:
+        """The block's first cell in the level's index space."""
+        off = self.offset or (0,) * self.dm
+        return tuple(o + l for o, l in zip(off, self.lo))
+
+    @property
+    def primary(self) -> bool:
+        """Whether this rank's copy of the replicated axes is the one that
+        counts in a sum over the ranks (the first along each)."""
+        return all(self.coords[d] == 0 for d in range(self.dm)
+                   if self.rep and self.rep[d])
+
+    def of_rank(self, r: int) -> "Decomp":
+        """The same patch's block on rank ``r``."""
+        my = self.mesh[1]
+        return dataclasses.replace(
+            self, coords=(r // my, r % my) + (0,) * (self.dm - 2))
 
     @property
     def nranks(self) -> int:
@@ -111,7 +139,7 @@ class Decomp:
         return out
 
     def split(self, d: int) -> bool:
-        return self.mesh[d] > 1
+        return self.mesh[d] > 1 and not (self.rep and self.rep[d])
 
     def rank_of(self, coords: Sequence[int]) -> int:
         return coords[0] * self.mesh[1] + coords[1]
@@ -152,7 +180,9 @@ class Decomp:
         if any(b % f for b, f in zip(self.n, fac)):
             return None
         return dataclasses.replace(
-            self, n_glob=tuple(g // f for g, f in zip(self.n_glob, fac)))
+            self, n_glob=tuple(g // f for g, f in zip(self.n_glob, fac)),
+            offset=None if self.offset is None else tuple(
+                o // f for o, f in zip(self.offset, fac)))
 
     def keeps_blocks(self) -> bool:
         """Whether a multigrid level of this shape stays on the ranks'
@@ -193,3 +223,31 @@ def make_decomp(n_glob: Sequence[int], pmask: Sequence[bool], nranks: int,
                              f"which does not divide its {n_glob[d]} cells")
     coords = (rank_ // my, rank_ % my) + (0,) * (dm - 2)
     return Decomp(tuple(n_glob), mesh, coords, tuple(pmask))
+
+
+def make_patch_decomp(n: Sequence[int], offset: Sequence[int],
+                      pmask: Sequence[bool], nranks: int, rank_: int,
+                      min_block: int, name: str = "patch") -> Decomp:
+    """Rank ``rank_``'s block of an AMR patch of ``n`` cells at ``offset``
+    over the ranks' ``mesh_shape(nranks)``. A patch axis that does not cut
+    into even blocks of at least ``min_block`` cells stays whole on every
+    rank (replicated, computed redundantly), with a warning, as varden_tpu
+    replicates a patch axis that its mesh axis does not divide
+    (varden_tpu/parallel/mesh.py:141-176)."""
+    dm = len(n)
+    mx, my = mesh_shape(nranks)
+    mesh = (mx, my) + (1,) * (dm - 2)
+    rep = []
+    for d in range(dm):
+        m = mesh[d]
+        b = n[d] // m
+        ok = m == 1 or (n[d] % m == 0 and b % 2 == 0 and b >= min_block)
+        rep.append(not ok)
+        if not ok:
+            warnings.warn(f"{name} (extent {tuple(n)}) replicates on mesh "
+                          f"axis {d} (size {m}): its {n[d]} cells do not "
+                          f"cut into even blocks of at least {min_block}")
+    coords = (rank_ // my, rank_ % my) + (0,) * (dm - 2)
+    return Decomp(tuple(n), mesh, coords, tuple(pmask),
+                  offset=tuple(int(o) for o in offset),
+                  rep=tuple(rep) if any(rep) else None)

@@ -197,7 +197,11 @@ def _fused(level: NodalLevel, phi, rhs, emit, nsweeps, corr=None,
 def nd_apply_raw(level: NodalLevel, phi):
     """The operator apply WITHOUT the mask: the composite solves, whose
     boundary nodes carry inhomogeneous (coarse-interpolated) values. In 3-D
-    the kernel's apply emit."""
+    the kernel's apply emit. On a decomposed level (make_dlevel) the apply
+    runs on the block grown by one cell and node."""
+    if level.dec is not None:
+        return halo.crop(nd_apply_raw(level.ext, _grow(level, phi)),
+                         level.dec, 1)
     if level.dm == 3:
         return _kernel_nodal(level, phi, None, "apply")
     return _factored_apply(phi, level.sigma, level.dx, level.pmask, level.dm)
@@ -585,12 +589,18 @@ def divu_rhs(u, dx, pmask, dm, inflow_pad=None, dec=None, keep=None):
             axis = f.ndim - dm + d
             lo_x, hi_x = (None, None) if dec is None else \
                 halo.exchange(f, dec, d, 1, 1)
+            k_x = (None, None) if dec is None or k is None else \
+                halo.exchange(k, dec, d, 1, 1)
             if lo_x is not None or hi_x is not None:
                 edge = f[_sl(f.ndim, axis, slice(0, 1))]
                 lo = lo_x if lo_x is not None else torch.full_like(
                     edge, 0.0 if inflow_pad is None else inflow_pad(c, d, 0))
                 hi = hi_x if hi_x is not None else torch.full_like(
                     edge, 0.0 if inflow_pad is None else inflow_pad(c, d, 1))
+                if k is not None and lo_x is None:
+                    lo = lo * k[_sl(k.ndim, axis, slice(0, 1))]
+                if k is not None and hi_x is None:
+                    hi = hi * k[_sl(k.ndim, axis, slice(-1, None))]
             elif pmask[d]:
                 lo = f[_sl(f.ndim, axis, slice(-1, None))]
                 hi = f[_sl(f.ndim, axis, slice(0, 1))]
@@ -605,9 +615,10 @@ def divu_rhs(u, dx, pmask, dm, inflow_pad=None, dec=None, keep=None):
                     hi = hi * k[_sl(k.ndim, axis, slice(-1, None))]
             f = torch.cat([lo, f, hi], dim=axis)
             if k is not None:
-                k = torch.cat([k[_sl(k.ndim, axis, slice(0, 1))], k,
-                               k[_sl(k.ndim, axis, slice(-1, None))]],
-                              dim=axis)
+                k = torch.cat([k[_sl(k.ndim, axis, slice(0, 1))]
+                               if k_x[0] is None else k_x[0], k,
+                               k[_sl(k.ndim, axis, slice(-1, None))]
+                               if k_x[1] is None else k_x[1]], dim=axis)
         comps.append(f)
 
     rhs = None

@@ -58,6 +58,9 @@ class Sim:
         self.device = resolve_device(device)
         self.dm = cfg.dm
         self.dec = decomp
+        # the ranks a multi-level run's patches are decomposed over (0: one
+        # rank); its Sim holds the whole domain and fill.MLGeom the blocks
+        self.ml_ranks = 0
         self.n_cell = cfg.n_cell if decomp is None else decomp.n
         self.dx = cfg.dx
         self.pmask = cfg.pmask if decomp is None else decomp.local_pmask
