@@ -11,7 +11,8 @@ Phases, each of which asserts and any failure of which exits non-zero:
   2. each kernel against its plain PyTorch version on the same inputs at
      the main paths' shapes (256^3 for the five 3-D kernels, 4096^2 for the
      three 2-D ones, BASELINE config 5's patches for kernels 6 and 11 and
-     for kernel 2's flux option (the AMR scalar advance's call), and
+     for kernel 2's flux option (the AMR scalar advance's call; in float64
+     the 384^3 patch holds kernel 11 alone), and
      128^3 and 256^3 with config 4's boundaries for kernel 7's single
      sweep and its fused V-cycle stages (each beside the ghost pad, padded
      sweeps and restriction they replace), beside kernel 3's sweep and the
@@ -136,6 +137,24 @@ Phases, each of which asserts and any failure of which exits non-zero:
      file finite with the one-rank run's boxes and the restart bitwise. It
      prints per rank and step the exchanges and the fetch/put calls,
      elements and seconds.
+ 18. the tail (phase_tail): profiling.profile_phases on the headline
+     (viscous 3-D bubble, 256^3, float32) after its initialization, the
+     launch counters zeroed just before and read just after: kernels 1,
+     11, 6, 3 and 4 launched (kernel 11 twice a scalar phase call, kernel
+     6 once), kernel 2 and the 2-D ones not, the first call of each kind
+     of kernels 11 and 6 recorded and held to its plain version at
+     TOL_KERNEL, the Timing summary printed; profile_phases on config 2's
+     geometry at N_2D^2 (kernels 9, 10 and 8); profile_phases_ml on config
+     5 at 256^3 + 2 levels (kernels 1, 3 and 4); each phase TAIL_REPS
+     timed calls after one warm-up (a cut of depth: the reference times
+     3). Then use_godunov_debug on the card in float64, each run for
+     STEPS_SHORT steps against the same run without the flag within
+     TOL_STEP of each field's size: the viscous bubble at 32^3 (the
+     oracle's edge states, then kernel 6; kernels 1, 2 and 11 not), the
+     2-D bubble at 64^2 (kernels 9 and 10 not) and config 5 at a 32^3
+     base (kernels 1, 11 and 6 on every level, kernel 2 not). The JSON
+     line's launches of kernels 11 and 6 are those of the headline's
+     profiled phases, the path that runs them.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
@@ -234,8 +253,9 @@ INVISCID = KERNELS_3D[:4]
 KERNELS_2D = ("gsrb_sweep_2d", "velpred_2d_fused", "mkflux_2d_fused")
 # the 3-D AMR path runs the single-level kernels (kernel 2 advances the
 # scalars with its flux option); the face kernel and the update (kernels 11
-# and 6) are on no main path, and phase 2 alone holds them; a 2-D AMR run
-# takes the 2-D kernels
+# and 6) are off the main paths of phases 4-17: phase 18 (the profiler's
+# scalar phase, the debug oracle) runs them; a 2-D AMR run takes the 2-D
+# kernels
 KERNELS_AMR = KERNELS_3D
 OFF_PATH = ("update_3d", "mkflux_3d_fused")
 # config 4 (periodic in x): its MAC levels take kernel 7's fused stages (the
@@ -768,25 +788,30 @@ def kernel_cases_2d(torch, dtype_name, n=N_2D):
     return cases
 
 
-def kernel_cases_amr(torch, dtype_name):
+# the largest patch (cells) at which phase 2 holds every AMR kernel in
+# float64; above it kernel 11 alone (its plain version peaks at 43.8 GB of
+# device memory at 384^3 in float64; kernels 2's and 6's plain versions
+# were not run at that size)
+F64_ALL_KERNELS_MAX = 240 ** 3
+
+
+def kernel_cases_amr(torch, dtype_name, shapes=None):
     """Kernels 6 and 11, and kernel 2 with its flux option (the AMR scalar
     advance's call; the bound counts the flux bytes and the flux products),
     at the AMR main path's shapes: BASELINE config 5's
     patches (256^3 with its walls; 240^3 and 384^3, interior patches whose
-    every side is coarse-fine) in float32, the first two in float64 (the
-    plain versions' temporaries at 384^3 would not fit), and an odd, thin
-    grid: smooth seeded fields on seeded MAC faces."""
+    every side is coarse-fine) and an odd, thin grid (or ``shapes``):
+    smooth seeded fields on seeded MAC faces. In float64 the 384^3 patch
+    holds kernel 11 alone (F64_ALL_KERNELS_MAX). A generator: one shape's
+    inputs live at a time."""
     from varden_tpu_torch import advance, problems
     from varden_tpu_torch.config import INTERIOR, VardenConfig
     from varden_tpu_torch.ops import cuda_godunov as cg
     from varden_tpu_torch.ops import cuda_update as cu
     from varden_tpu_torch.state import Sim
 
-    shapes = [(n,) * 3 for n in N_AMR_PATCHES]
-    if dtype_name == "float64":
-        shapes = shapes[:2]
-    shapes.append((37, 5, 61))
-    cases = []
+    if shapes is None:
+        shapes = [(n,) * 3 for n in N_AMR_PATCHES] + [(37, 5, 61)]
     for n in shapes:
         sim = Sim(VardenConfig(**cfg5_kw(n[0], dtype_name, n_celly=n[1],
                                          n_cellz=n[2])), device="cuda")
@@ -825,25 +850,26 @@ def kernel_cases_amr(torch, dtype_name):
             nc = a[0].shape[0]
             face_b = sum(math.prod(f) for f in faces) * nc * \
                 a[0].element_size()
-            cases.append(("mkflux_3d_fused", f"{case} {tag}",
-                          (lambda a=a: cg.mkflux_3d_fused(*a)),
-                          (lambda a=a: cg.mkflux_3d_plain(*a)),
-                          nbytes([a[0], *a[1], a[2]]) + 2 * face_b,
-                          mkflux_ops(a[11], a[2] is not None, order) * cells))
+            yield ("mkflux_3d_fused", f"{case} {tag}",
+                   (lambda a=a: cg.mkflux_3d_fused(*a)),
+                   (lambda a=a: cg.mkflux_3d_plain(*a)),
+                   nbytes([a[0], *a[1], a[2]]) + 2 * face_b,
+                   mkflux_ops(a[11], a[2] is not None, order) * cells)
+        if dtype_name == "float64" and cells > F64_ALL_KERNELS_MAX:
+            del a, s_pad, sf_pad, u_pad, uf_pad, mac_pads, umac
+            continue
         # kernel 2 with its flux option, as the AMR scalar advance calls it:
         # density conservative with its flux, a tracer convective, no force
         a = (s_pad, mac_pads, None, None, None, *tail, adv_s, ng, n, False,
              [True, False], order, False)
         flux_b = sum(math.prod(f) for f in faces) * s_pad.element_size()
-        cases.append(("mkflux_update_3d_fused", f"scalars+flux {tag}",
-                      (lambda a=a: cg.mkflux_update_3d_fused(
-                          *a, flux_comps=(0,))),
-                      (lambda a=a: cg.mkflux_update_3d_plain(
-                          *a, flux_comps=(0,))),
-                      nbytes([s_pad, *mac_pads]) + 2 * cells
-                      * s_pad.element_size() + flux_b,
-                      (mkflux_update_ops([True, False], False, False, order)
-                       + 3) * cells))
+        yield ("mkflux_update_3d_fused", f"scalars+flux {tag}",
+               (lambda a=a: cg.mkflux_update_3d_fused(*a, flux_comps=(0,))),
+               (lambda a=a: cg.mkflux_update_3d_plain(*a, flux_comps=(0,))),
+               nbytes([s_pad, *mac_pads]) + 2 * cells * s_pad.element_size()
+               + flux_b,
+               (mkflux_update_ops([True, False], False, False, order) + 3)
+               * cells)
         del s_pad, sf_pad, u_pad, uf_pad, mac_pads
         # kernel 6: the scalars' update (density conservative, a tracer
         # convective; no force, as the inviscid scalar step passes it) and
@@ -861,13 +887,12 @@ def kernel_cases_amr(torch, dtype_name):
             a = (sold, umac, sedge, flux, force, dt, sim.dx, cons)
             read = nbytes([sold, force, *umac]) + sum(
                 math.prod(f) for f in faces) * nc * sold.element_size()
-            cases.append(("update_3d", f"{case} {tag}",
-                          (lambda a=a: cu.update_3d(*a)),
-                          (lambda a=a: cu.update_3d_plain(*a)),
-                          read + nbytes([sold]), update_ops(cons, with_f)
-                          * cells))
+            yield ("update_3d", f"{case} {tag}",
+                   (lambda a=a: cu.update_3d(*a)),
+                   (lambda a=a: cu.update_3d_plain(*a)),
+                   read + nbytes([sold]), update_ops(cons, with_f) * cells)
+            del a, sold, force, per_c, sedge, flux
         del umac
-    return cases
 
 
 def smoother_cases(torch, dtype_name, n):
@@ -2070,9 +2095,10 @@ def _copied(x):
 RECORDED = {}
 
 
-def record_kernel_calls():
-    """Make every kernel wrapper of counters() keep a copy of its inputs at
-    its first call of each kind (_call_sig) from now on: the shapes a
+def record_kernel_calls(names=None):
+    """Make every kernel wrapper of counters() (or those named in
+    ``names``) keep a copy of its inputs at its first call of each kind
+    (_call_sig) from now on, until stop_recording(): the shapes a
     decomposed rank gives it. Returns RECORDED, emptied. Call it before
     counters(): the wrappers' launch helpers count on the module's name,
     which then names the recording wrapper."""
@@ -2080,7 +2106,7 @@ def record_kernel_calls():
     RECORDED.clear()
     calls = RECORDED
     for name, fn in counters().items():
-        if getattr(fn, "recording", False):
+        if getattr(fn, "recording", False) or (names and name not in names):
             continue
 
         @functools.wraps(fn)
@@ -2093,6 +2119,17 @@ def record_kernel_calls():
         rec.recording = True
         setattr(sys.modules[fn.__module__], name, rec)
     return calls
+
+
+def stop_recording():
+    """Put back the wrappers that record_kernel_calls replaced, with the
+    launches counted meanwhile."""
+    for name, fn in counters().items():
+        if getattr(fn, "recording", False):
+            fn.__wrapped__.launches = fn.launches
+            if hasattr(fn, "fused_launches"):
+                fn.__wrapped__.fused_launches = fn.fused_launches
+            setattr(sys.modules[fn.__module__], name, fn.__wrapped__)
 
 
 def check_recorded(torch, calls):
@@ -2803,6 +2840,167 @@ def phase_decomposed_amr(torch, keys):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the tail, profiling.profile_phases / profile_phases_ml and the
+# Godunov debug oracle (use_godunov_debug) on the card
+# ---------------------------------------------------------------------------
+
+# the kernels of profile_phases' four phases in 3-D (premac: kernel 1; mac:
+# kernel 3's fused stages; scalar: kernel 11, then kernel 6; hg: kernel
+# 4's), in 2-D (kernels 9, 8, 10), and of profile_phases_ml's three phases
+# on a 3-D hierarchy (kernel 1 on every level, the composite solves'
+# kernels 3 and 4)
+KERNELS_TAIL = ("velpred_3d_fused", "mkflux_3d_fused", "update_3d",
+                "gsrb_var_sweep_3d", "nodal_sweep_3d")
+KERNELS_TAIL_ML = ("velpred_3d_fused", "gsrb_var_sweep_3d", "nodal_sweep_3d")
+# timed calls of each phase (after the one warm-up call; the phases' first
+# calls make the next phase's inputs): a cut of depth, the reference takes 3
+TAIL_REPS = 2
+
+
+def phase_profile(torch, kw, expect, off, record=()):
+    """profiling.profile_phases (or, with max_levs > 1, profile_phases_ml)
+    on the configuration ``kw`` after its initialization, on the card,
+    with every launch counter zeroed just before and read just after: the
+    kernels of ``expect`` launched, those of ``off`` not. The kernels of
+    ``record``
+    keep their first call of each kind, each then held against its plain
+    version (check_recorded). Returns the phases' seconds, the launches
+    and the recorded calls' rows."""
+    from varden_tpu_torch import profiling
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.driver import Varden
+    v = Varden(VardenConfig(**kw))
+    t0 = time.perf_counter()
+    states = v.initialize_ml() if v.ml else v.initialize()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    calls = record_kernel_calls(record) if record else None
+    fns = counters()
+    zero_counts(fns)
+    try:
+        if v.ml:
+            phases = profiling.profile_phases_ml(v.geom, states, v.dt,
+                                                 TAIL_REPS)
+        else:
+            phases = profiling.profile_phases(v.sim, states, v.dt, TAIL_REPS)
+        torch.cuda.synchronize()
+        launches = read_counts(fns)
+    finally:
+        if record:
+            stop_recording()
+    print(f"  initialization {t_init:.3f} s; launches "
+          f"{ {k: c for k, c in launches.items() if c} }", flush=True)
+    for k in expect:
+        need(launches[k] > 0, f"{k} did not launch on the profiled phases")
+    for k in off:
+        need(launches[k] == 0, f"{k} launched {launches[k]}x on the "
+                               f"profiled phases")
+    rows = check_recorded(torch, calls) if record else []
+    for r in rows:
+        print(f"  recorded {r['name']} {r['shape']} {r['dtype']}: errs "
+              f"{[f'{e:.3e}' for e in r['errs']]}, worst "
+              f"{r['worst']:.3e} of TOL_KERNEL", flush=True)
+        need(r["ok"], f"{r['name']} at {r['shape']} on the profiled phases "
+                      f"disagrees with its plain version: {r['errs']}")
+    need(not record or {r["name"] for r in rows} == set(record),
+         f"phase 18: recorded {[r['name'] for r in rows]}, not {record}")
+    del v, states
+    torch.cuda.empty_cache()
+    return {"phases": phases, "launches": launches, "init_s": t_init,
+            "kernel_checks": rows}
+
+
+def phase_debug(torch, kw, steps, expect_on, expect_off):
+    """Varden.run of ``kw`` (float64) for ``steps`` steps on the card with
+    use_godunov_debug and without, launches counted in the flagged run:
+    the kernels of ``expect_on`` launched, those of ``expect_off`` not;
+    every field of every level within TOL_STEP of its size of the run
+    without the flag (in the oracle's role the two forms compute the same
+    thing)."""
+    from varden_tpu_torch.config import VardenConfig
+    from varden_tpu_torch.driver import Varden
+    out = {}
+    fns = counters()
+    for flag in (True, False):
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        v = Varden(VardenConfig(**kw, max_step=steps,
+                                use_godunov_debug=flag))
+        states = v.run()
+        torch.cuda.synchronize()
+        out[flag] = (states if v.ml else [states], read_counts(fns),
+                     time.perf_counter() - t0)
+        del v
+    (dbg, launches, t_dbg), (ref, _, t_ref) = out[True], out[False]
+    for k in expect_on:
+        need(launches[k] > 0, f"{k} did not launch on the debug run")
+    for k in expect_off:
+        need(launches[k] == 0, f"{k} launched {launches[k]}x on the debug "
+                               f"run")
+    need(len(dbg) == len(ref), "the debug run built another hierarchy")
+    worst = 0.0
+    for a, b in zip(dbg, ref):
+        for key in ("u", "s", "gp", "p"):
+            x, y = getattr(b, key), getattr(a, key)
+            need(x.shape == y.shape, f"debug run {key}: shape {y.shape}")
+            need(bool(torch.isfinite(y).all()), f"debug run {key} not finite")
+            err = float((x - y).abs().max()) / max(1.0,
+                                                   float(x.abs().max()))
+            worst = max(worst, err)
+            need(err <= TOL_STEP, f"debug run field {key} differs from the "
+                                  f"run without the flag by {err} of its size")
+    print(f"  {steps} steps float64, {len(dbg)} level(s): within "
+          f"{worst:.3e} of the run without the flag (tol {TOL_STEP:.0e}); "
+          f"wall {t_dbg:.3f} s against {t_ref:.3f} s; launches "
+          f"{ {k: c for k, c in launches.items() if c} }", flush=True)
+    return {"max_rel_err": worst, "launches": launches, "debug_s": t_dbg,
+            "plain_s": t_ref}
+
+
+def phase_tail(torch):
+    """Phase 18: profile_phases on the headline (kernels 11 and 6 recorded
+    and held to their plain versions) and on config 2's geometry at
+    N_2D^2, profile_phases_ml on config 5 at 256^3 + 2 levels (each phase
+    TAIL_REPS timed calls after a warm-up), then the debug oracle on the
+    card in float64 against the same runs without it."""
+    out = {}
+    print(f"  profile_phases, the headline 256^3 float32:", flush=True)
+    out["headline"] = phase_profile(
+        torch, bubble_kw(256, "float32", visc_coef=1.0e-3), KERNELS_TAIL,
+        ("mkflux_update_3d_fused",) + KERNELS_2D,
+        record=("mkflux_3d_fused", "update_3d"))
+    ln = out["headline"]["launches"]
+    need(ln["mkflux_3d_fused"] == 2 * ln["update_3d"],
+         f"kernel 11 launched {ln['mkflux_3d_fused']}x for "
+         f"{ln['update_3d']} scalar phase call(s), not 2 a call")
+    print(f"  profile_phases, config 2's geometry {N_2D}^2 float32:",
+          flush=True)
+    out["2d"] = phase_profile(
+        torch, bubble2d_kw(N_2D, "float32", visc_coef=VISC_2D), KERNELS_2D,
+        KERNELS_3D + OFF_PATH)
+    print("  profile_phases_ml, config 5 256^3 + 2 levels float32:",
+          flush=True)
+    out["cfg5"] = phase_profile(
+        torch, cfg5_kw(256, "float32"), KERNELS_TAIL_ML,
+        ("mkflux_update_3d_fused",) + OFF_PATH + KERNELS_2D)
+    print("  use_godunov_debug on the card, float64:", flush=True)
+    out["debug"] = {
+        "bubble32": phase_debug(
+            torch, bubble_kw(32, "float64", visc_coef=1.0e-3), STEPS_SHORT,
+            ("update_3d", "gsrb_const_sweep_3d"),
+            ("velpred_3d_fused", "mkflux_update_3d_fused",
+             "mkflux_3d_fused")),
+        "bubble2d_64": phase_debug(
+            torch, bubble2d_kw(64, "float64"), STEPS_SHORT,
+            ("gsrb_sweep_2d",), ("velpred_2d_fused", "mkflux_2d_fused")),
+        "cfg5_32": phase_debug(
+            torch, cfg5_kw(32, "float64"), STEPS_SHORT,
+            ("velpred_3d_fused", "mkflux_3d_fused", "update_3d"),
+            ("mkflux_update_3d_fused",))}
+    return out
+
+
 def field_errs_ml(got, ref):
     """{field: max over patches of max|got - ref| / max(1, max|ref|)}."""
     out = {}
@@ -3027,6 +3225,17 @@ def main(argv=None) -> int:
           "against its plain version", flush=True)
     decomposed_amr = phase_decomposed_amr(torch, list(amr_decomp_cells()))
 
+    print(f"phase 18: the tail: profiling.profile_phases on the headline "
+          f"256^3 (kernels 11 and 6 recorded and held to their plain "
+          f"versions) and on config 2's geometry at {N_2D}^2, "
+          f"profile_phases_ml on config 5 at 256^3 + 2 levels, "
+          f"{TAIL_REPS} timed calls a phase; then use_godunov_debug on the "
+          "card in float64 against the runs without it", flush=True)
+    t_tail = time.perf_counter()
+    tail = phase_tail(torch)
+    print(f"  phase 18 took {time.perf_counter() - t_tail:.1f} s",
+          flush=True)
+
     # the JSON line: for each kernel its main case (velocity update, the
     # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
     # finest patch; kernel
@@ -3044,7 +3253,9 @@ def main(argv=None) -> int:
                  "gsrb_sweep_3d": f"smooth_restrict {N_RT}^3"}
     launches_3d = dict(launches)
     launches.update({k: launches2[k] for k in KERNELS_2D})
-    launches.update({k: launches_amr[k] for k in OFF_PATH})
+    # kernels 11 and 6: their launches on the path that runs them, phase
+    # 18's profile_phases on the headline
+    launches.update({k: tail["headline"]["launches"][k] for k in OFF_PATH})
     launches["gsrb_sweep_3d"] = launches_rt["gsrb_sweep_3d"]
     kernels = []
     for name in REPLACES:
@@ -3079,7 +3290,7 @@ def main(argv=None) -> int:
               "peak_bytes_rt": peak_rt, "steps_rt_f64": per_step_rt64,
               "profiled_step_rt": prof_rt, "io": io,
               "decomposed": decomposed, "decomposed_amr": decomposed_amr,
-              "total_s": total_s}
+              "tail": tail, "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
     runs = [("3-D main path (phase 4)", per_step, launches_3d, prof3),
@@ -3187,6 +3398,21 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {[s['launches'][k] for s in steady]}"
                           for k in sorted(rec0["launches"])
                           if ":" not in k and rec0["launches"][k]),
+              flush=True)
+    for key, r in tail.items():
+        if key == "debug":
+            continue
+        print(f"summary profile phases {key} (phase 18): "
+              + ", ".join(f"{k} {t:.6f} s" for k, t in r["phases"].items())
+              + f"; launches { {k: c for k, c in r['launches'].items() if c} }"
+              + (f"; {len(r['kernel_checks'])} recorded kernel calls within "
+                 f"{max(c['worst'] for c in r['kernel_checks']):.3e} of "
+                 "their tolerance" if r["kernel_checks"] else ""),
+              flush=True)
+    for key, r in tail["debug"].items():
+        print(f"summary use_godunov_debug {key} (phase 18): within "
+              f"{r['max_rel_err']:.3e} of the run without the flag; "
+              f"launches { {k: c for k, c in r['launches'].items() if c} }",
               flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -186,3 +186,40 @@ def test_mkflux_plain_matches_the_tpu_kernel_interpreted():
     for part, (g, r) in zip(("sedge", "sflux"), zip(got, ref)):
         for d in range(3):
             _close(g[d], r[d], f"{part}[{d}] vs the interpreted TPU kernel")
+
+
+@pytest.mark.parametrize("kind,minion", [("scal", True), ("vel", False),
+                                         ("scal+force", True)])
+def test_mkflux_wrapper_umax_and_absent_inputs(kind, minion):
+    """Kernel 11's wrapper on the CPU with the level's umax given (the tie
+    epsilon formed from it, as varden_tpu's eps argument sets it), with
+    mac_rhs present under use_minion, and with force and mac_rhs absent
+    (None) against varden_tpu's zero tensors."""
+    bc, n = MKFLUX_CASES[2]
+    js, ts = _sims(bc, n)
+    s_pad, force, jmac, tmac, adv, is_vel, cons = _mkflux_inputs(js, ts, kind,
+                                                                 13)
+    dt, ng = 2e-3, js.ng
+    rhs = np.array(js.fill_extrap(jnp.asarray(
+        np.random.RandomState(14).rand(*n) - 0.5), ng))
+    umax = 2.5
+    jf = (jnp.asarray(force) if force is not None
+          else jnp.zeros_like(jnp.asarray(s_pad)))
+    for with_rhs in (False, True):
+        jr = jnp.asarray(rhs) if with_rhs else jnp.zeros(s_pad.shape[1:])
+        for given in (None, umax):
+            eps = None if given is None else jnp.asarray(1e-8 * given)
+            ref = jax.jit(lambda s, m, f, r: jg3.mkflux_3d(
+                s, m, f, r, dt, js.dx, js.phys_bc, adv, ng, n, is_vel, cons,
+                js.cfg.slope_order, minion, eps=eps))(
+                    jnp.asarray(s_pad), jmac, jf, jr)
+            got = tcg.mkflux_3d_fused(
+                torch.tensor(s_pad), tmac,
+                None if force is None else torch.tensor(force),
+                torch.tensor(rhs) if with_rhs else None, dt, ts.dx,
+                ts.phys_bc, adv, ng, n, is_vel, cons, ts.cfg.slope_order,
+                minion, umax=None if given is None else torch.tensor(given))
+            for part, (g, r) in zip(("sedge", "sflux"), zip(got, ref)):
+                for d in range(3):
+                    _close(g[d], r[d], f"{part}[{d}] rhs={with_rhs} "
+                                       f"umax={given}")

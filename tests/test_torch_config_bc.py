@@ -138,14 +138,16 @@ def test_varden_without_device_needs_a_card():
 
 @pytest.mark.parametrize("extra", [
     dict(mesh=2), dict(use_godunov_debug=True)])
-def test_unported_paths_raise(extra, monkeypatch):
-    """The mesh case: an AMR run on a process group of two ranks is ported
-    now (every patch decomposed over the ranks: tests/test_torch_decomp_amr
-    .py), so it builds; what still raises under a mesh is a mesh that is
-    not the group's size (ValueError). The Godunov debug oracle is not
-    ported (NotImplementedError)."""
+def test_mesh_and_debug_paths_build(extra, monkeypatch):
+    """The mesh case: an AMR run on a process group of two ranks builds
+    (every patch decomposed over the ranks: tests/test_torch_decomp_amr
+    .py); what still raises under a mesh is a mesh that is not the group's
+    size (ValueError). The Godunov debug oracle (use_godunov_debug) builds
+    and one step runs on the CPU, through the oracle (the step's full
+    comparison with varden_tpu is tests/test_torch_godunov_ref.py)."""
     import torch.distributed as dist
     from varden_tpu_torch.driver import Varden
+    from varden_tpu_torch.ops import godunov_ref
     if "mesh" in extra:
         monkeypatch.setattr(dist, "is_initialized", lambda: True)
         monkeypatch.setattr(dist, "get_world_size", lambda: 2)
@@ -159,8 +161,22 @@ def test_unported_paths_raise(extra, monkeypatch):
                                                               mesh=4))),
                    device="cpu")
         return
-    with pytest.raises(NotImplementedError):
-        Varden(tcfg.VardenConfig(**_kw(BC_SETS[0], **extra)), device="cpu")
+    calls = []
+    for name in ("velpred_3d", "mkflux_3d"):
+        def spy(*a, _f=getattr(godunov_ref, name), _n=name, **k):
+            calls.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(godunov_ref, name, spy)
+    v = Varden(tcfg.VardenConfig(**_kw(BC_SETS[0], n=(8, 8, 8), **extra)),
+               device="cpu")
+    state = v.step(v.initialize())
+    # the initial pressure iterations and the step: the predictor, then
+    # the scalars' and the velocity's edge states, each time
+    assert v.istep == 1 and len(calls) % 3 == 0 and calls
+    assert calls == ["velpred_3d", "mkflux_3d", "mkflux_3d"] * (
+        len(calls) // 3)
+    assert all(torch.isfinite(getattr(state, k)).all()
+               for k in ("u", "s", "gp", "p"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -838,15 +838,19 @@ def test_update_kernel(cuda, dtype, n, cons, with_force):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("bc", BCS)
 @pytest.mark.parametrize("n", [(24, 40, 16), (5, 3, 7), (3, 3, 3)])
-@pytest.mark.parametrize("kind", ["scal", "scal+force", "vel"])
+@pytest.mark.parametrize("kind", ["scal", "scal+force", "vel",
+                                  "scal+rhs+umax"])
 def test_mkflux_kernel(cuda, bc, dtype, n, kind):
+    """Kernel 11, two launches (the tie epsilon and one brick pass), with
+    and without force and mac_rhs (use_minion takes them into the hat
+    states), with the level's umax given."""
     sim = _sim(bc, n, dtype, cuda)
     ng = sim.ng
     umac = tuple(sim.tensor(_smooth(tuple(n[t] + (1 if t == d else 0)
                                           for t in range(3)), 10 + d))
                  for d in range(3))
     mac_pads = advance.embed_faces(sim, umac, ng)
-    force = None
+    force = rhs = umax = None
     if kind == "vel":
         s_pad = sim.fill_vel(sim.tensor(_smooth((3,) + n, 3)))
         adv = [sim.adv_bc[d] for d in range(3)]
@@ -857,28 +861,33 @@ def test_mkflux_kernel(cuda, bc, dtype, n, kind):
         s_pad = sim.fill_scal(s)
         adv = [sim.adv_bc[sim.scal_comp(i)] for i in range(2)]
         cons = [True, False]
-        if kind == "scal+force":
+        if kind != "scal":
             f = _smooth((2,) + n, 7, 0.1)
             f[0] = 0.0
             force = sim.fill_extrap(sim.tensor(f), ng)
-    args = (s_pad, mac_pads, force, None, 2e-3, sim.dx, sim.phys_bc, adv, ng,
-            n, kind == "vel", cons, 4, False)
+        if kind == "scal+rhs+umax":
+            rhs = sim.fill_extrap(sim.tensor(_smooth(n, 8, 0.2)), ng)
+            umax = sim.tensor(1.7)
+    args = (s_pad, mac_pads, force, rhs, 2e-3, sim.dx, sim.phys_bc, adv, ng,
+            n, kind == "vel", cons, 4, rhs is not None)
     before = cuda_godunov.mkflux_3d_fused.launches
-    out = cuda_godunov.mkflux_3d_fused(*args)
+    out = cuda_godunov.mkflux_3d_fused(*args, umax=umax)
     torch.cuda.synchronize()
-    assert cuda_godunov.mkflux_3d_fused.launches == before + 5
-    ref = cuda_godunov.mkflux_3d_plain(*args)
+    assert cuda_godunov.mkflux_3d_fused.launches == before + 2
+    ref = cuda_godunov.mkflux_3d_plain(*args, umax=umax)
     for part, o, r in zip(("sedge", "sflux"), out, ref):
         for d in range(3):
             _close(o[d], r[d], sim.dtype, f"mkflux {part}[{d}] bc={bc} n={n}")
 
 
-def test_amr_step_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("debug", [False, True])
+def test_amr_step_on_card_matches_cpu(cuda, debug):
     """One viscous 3-D ml_advance on a two-level hierarchy (16^3 base, a
     refined patch inside the domain), float64, the card against the plain
     path on the CPU from one numpy-made state: 1e-8 of each field's size
     (the composite solves stop at 1e-10 and 1e-12 of their right-hand
-    sides and may take other cycle counts)."""
+    sides and may take other cycle counts). With use_godunov_debug every
+    level takes kernel 11 and then kernel 6 instead of kernel 2."""
     from varden_tpu_torch.amr import advance_ml
     from varden_tpu_torch.amr.fill import hierarchy_from_numpy
     from varden_tpu_torch.amr.hierarchy import LevelSpec
@@ -886,7 +895,7 @@ def test_amr_step_on_card_matches_cpu(cuda):
     kw = dict(dim_in=3, prob_type=1, n_cellx=16, n_celly=16, n_cellz=16,
               max_levs=2, grav=-9.8, dtype="float64", visc_coef=1e-3,
               cflfac=0.5, bcx_lo=15, bcx_hi=15, bcy_lo=15, bcy_hi=15,
-              bcz_lo=15, bcz_hi=15)
+              bcz_lo=15, bcz_hi=15, use_godunov_debug=debug)
     cfg = VardenConfig(**kw)
     cpu = Sim(cfg, device="cpu")
     specs = [((0, 0, 0), (16, 16, 16)), ((8, 8, 4), (16, 16, 16))]
@@ -907,8 +916,10 @@ def test_amr_step_on_card_matches_cpu(cuda):
         out[name] = (new, diag, [f.launches - b
                                  for f, b in zip(counted, before)])
     # the scalars and the velocity of both levels through kernel 2 (the
-    # scalars with their fluxes); the face kernel and the update not at all
-    assert out["card"][2] == [0, 0, 4 * 2] and out["cpu"][2] == [0, 0, 0]
+    # scalars with their fluxes), the face kernel and the update not at
+    # all; with the flag through kernels 11 and 6, kernel 2 not at all
+    assert out["card"][2] == ([4, 4 * 2, 0] if debug else [0, 0, 4 * 2])
+    assert out["cpu"][2] == [0, 0, 0]
     for a, b in zip(out["cpu"][0], out["card"][0]):
         for k in ("u", "s", "gp", "p"):
             x, y = getattr(a, k), getattr(b, k).cpu()

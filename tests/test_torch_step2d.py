@@ -185,7 +185,6 @@ def test_dm2_is_supported_and_amr_still_raises(monkeypatch):
     not the group's size."""
     import torch.distributed as dist
     cfg = TCfg(**KW)
-    tadv.check_supported(cfg)
     assert TVarden(cfg, device="cpu").sim.dm == 2
     assert TVarden(TCfg(**dict(KW, max_levs=2)), device="cpu").ml
     monkeypatch.setattr(dist, "is_initialized", lambda: True)

@@ -10,13 +10,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from varden_tpu_torch import advance, bc, problems, projection
+from torch_inputs import smooth
+from varden_tpu_torch import advance, bc, problems, profiling, projection
 from varden_tpu_torch.config import VardenConfig
 from varden_tpu_torch.driver import Varden, gather_state
 from varden_tpu_torch.parallel import halo
 from varden_tpu_torch.parallel.mesh import make_decomp
 from varden_tpu_torch.solvers import mg, nodal
-from varden_tpu_torch.state import Sim
+from varden_tpu_torch.state import Sim, State
 
 WALLS2 = dict(bcx_lo=15, bcx_hi=15, bcy_lo=15, bcy_hi=15)
 WALLS3 = dict(WALLS2, bcz_lo=15, bcz_hi=15)
@@ -300,6 +301,41 @@ def case_inlet(nranks):
     return state, dict(CYCLES), v.time
 
 
+def case_debug(nranks):
+    """The viscous 3-D bubble at 16^3 with use_godunov_debug, its velocity
+    perturbed by a seeded field: profiling.phase_fns' four phases on that
+    state (premac's and mac's faces, scalar's snew, hg's velocity), the
+    phase keys of profile_phases, then STEPS steps of the oracle's
+    route."""
+    cfg = VardenConfig(**dict(STEP_CFGS["visc3d"], use_godunov_debug=True))
+    dec = _decomp(cfg.n_cell, cfg.pmask, nranks)
+    sim = Sim(cfg, device="cpu", decomp=dec)
+    whole = problems.initdata(Sim(cfg, device="cpu"))
+    u = whole.u + torch.as_tensor(smooth(tuple(whole.u.shape), 5, 0.3))
+    state = State(u=_block(u, dec), s=_block(whole.s, dec),
+                  gp=_block(whole.gp, dec), p=_block(whole.p, dec, True))
+    f = profiling.phase_fns(sim)
+    umac = f["premac"](state, STEP_DT)
+    umac2 = f["mac"](state, umac)[0]
+    snew = f["scalar"](state, umac2, STEP_DT)
+    unew = f["hg"](state, snew, STEP_DT)[0]
+
+    def faces(um):
+        if dec is None:
+            return [_np(x) for x in um]
+        return [_np(halo.gather(x, dec, *[[int(t == d) for t in range(3)]]
+                                * 2)) for d, x in enumerate(um)]
+
+    out = {"premac": faces(umac), "mac": faces(umac2),
+           "scalar": _np(_gather(snew, dec)), "hg": _np(_gather(unew, dec)),
+           "keys": list(profiling.profile_phases(sim, state, STEP_DT, 1))}
+    for _ in range(STEPS):
+        state, _diag = advance.advance_timestep(sim, state, STEP_DT,
+                                                projection.REGULAR_TIMESTEP)
+    out["steps"] = _state_np(gather_state(sim, state))
+    return out
+
+
 def _state_np(st):
     return {k: _np(getattr(st, k)) for k in ("u", "s", "gp", "p")}
 
@@ -323,6 +359,8 @@ def run_case(nranks, name):
     if kind == "inlet":
         st, cycles, t = case_inlet(nranks)
         return _state_np(st), cycles, t
+    if kind == "debug":
+        return case_debug(nranks)
     raise ValueError(name)
 
 

@@ -4,13 +4,15 @@ the reference's advance_timestep call stack (src/advance_timestep.f90:
 scalar_advance (src/scalar_advance.f90:17-173), make_at_halftime,
 velocity_advance (src/velocity_advance.f90:17-142) and the nodal projection.
 
-Ported so far: dm=2 and dm=3 with the windowed Godunov path (not
-use_godunov_debug), inviscid or viscous and diffusive (Crank-Nicolson or
+dm=2 and dm=3, inviscid or viscous and diffusive (Crank-Nicolson or
 backward Euler). Both Godunov phases run through the kernels of
 ops/cuda_godunov.py: fused with the update in 3-D, followed by the plain
-basic.update in 2-D, as in varden_tpu. The projections, the viscous and
-diffusive solves and the explicit Laplacians run through the solvers, whose
-modules say which of their passes are kernels of ops/cuda_kernels.py.
+basic.update in 2-D, as in varden_tpu. With use_godunov_debug they run the
+full-array oracle of ops/godunov_ref.py instead, each followed by
+basic.update (in 3-D the update_3d kernel), as varden_tpu routes that
+flag. The projections, the viscous and diffusive solves and the explicit
+Laplacians run through the solvers, whose modules say which of their
+passes are kernels of ops/cuda_kernels.py.
 
 The parts of a step are named torch.profiler ranges (RANGES), so that a
 profile of a step gives host and device time by part.
@@ -24,7 +26,7 @@ from torch.profiler import record_function
 
 from . import projection
 from .bc import grow_mac
-from .ops import basic, cuda_godunov
+from .ops import basic, cuda_godunov, godunov_ref
 from .parallel import halo
 from .solvers import mg
 from .state import Sim, State
@@ -32,13 +34,6 @@ from .state import Sim, State
 
 RANGES = ("step::velpred", "step::macproject", "step::scalar_advance",
           "step::velocity_advance", "step::visc_solve", "step::hgproject")
-
-
-def check_supported(cfg) -> None:
-    """Raise for the configurations this slice of the port does not run."""
-    if cfg.use_godunov_debug:
-        raise NotImplementedError("the full-array Godunov debug oracle is "
-                                  "not ported (use_godunov_debug)")
 
 
 def embed_faces(sim: Sim, umac, ng: int):
@@ -109,14 +104,28 @@ def _level_extremes(sim: Sim, x, dim=None):
 
 
 def _mkflux_update(sim: Sim, sold, s_pad, umac, mac_pads, force, fupd, dt,
-                   adv_bc, is_vel, is_cons, umax=None):
+                   adv_bc, is_vel, is_cons, umax=None, slopes=None):
     """Godunov edge states and the conservative/convective update of the
     components of ``sold``: one fused kernel in 3-D; in 2-D the edge-state
-    kernel and then basic.update. mac_rhs is None (zero) in both. ``umax``:
-    the level's max|umac| on a decomposed run."""
+    kernel and then basic.update; with use_godunov_debug the oracle's edge
+    states (``slopes``: the velocity's, from the predictor) and then
+    basic.update. mac_rhs is None (zero) throughout. ``umax``: the level's
+    max|umac| on a decomposed run."""
     cfg = sim.cfg
     tail = (dt, sim.dx, sim.phys_bc, adv_bc, sim.ng, sim.n_cell, is_vel,
             is_cons, cfg.slope_order, cfg.use_minion)
+    if cfg.use_godunov_debug:
+        if sim.dm == 3:
+            sedge, sflux = godunov_ref.mkflux_3d(s_pad, mac_pads, force, None,
+                                                 *tail, slopes=slopes,
+                                                 umax=umax)
+        else:
+            ex, ey, fx, fy = godunov_ref.mkflux_2d(
+                s_pad, mac_pads[0], mac_pads[1], force, None, *tail,
+                umax=umax)
+            sedge, sflux = (ex, ey), (fx, fy)
+        return basic.update(sold, umac, sedge, sflux, fupd, dt, sim.dx,
+                            is_cons)
     if sim.dm == 3:
         return cuda_godunov.mkflux_update_3d_fused(s_pad, mac_pads, force,
                                                    fupd, None, *tail,
@@ -127,6 +136,25 @@ def _mkflux_update(sim: Sim, sold, s_pad, umac, mac_pads, force, fupd, dt,
                         is_cons)
 
 
+def _velpred(sim: Sim, u_pad, vf_pad, dt, umax=None):
+    """The Godunov MAC prediction: kernel 1 (3-D) or 9 (2-D), or with
+    use_godunov_debug the oracle. Returns (umac, the oracle's velocity
+    slopes in 3-D or None)."""
+    cfg = sim.cfg
+    args = (u_pad, vf_pad, dt, sim.dx, sim.phys_bc,
+            [sim.adv_bc[d] for d in range(sim.dm)], sim.ng, sim.n_cell,
+            cfg.slope_order, cfg.use_minion)
+    if not cfg.use_godunov_debug:
+        velpred = (cuda_godunov.velpred_2d_fused if sim.dm == 2
+                   else cuda_godunov.velpred_3d_fused)
+        return velpred(*args, umax=umax), None
+    if sim.dm == 2:
+        return godunov_ref.velpred_2d(*args, umax=umax), None
+    slopes = godunov_ref.vel_slopes_3d(u_pad, args[5], sim.ng, sim.n_cell,
+                                       cfg.slope_order)
+    return godunov_ref.velpred_3d(*args, slopes=slopes, umax=umax), slopes
+
+
 def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
                      hints: Dict = None
                      ) -> Tuple[State, Dict[str, torch.Tensor]]:
@@ -135,8 +163,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     'phi_hg_prev'}) to warm-start the elliptic solves; the new ones are
     returned in the diag dict."""
     cfg = sim.cfg
-    check_supported(cfg)
-    dm, dx, n, ng = sim.dm, sim.dx, sim.n_cell, sim.ng
+    dm, ng = sim.dm, sim.ng
     uold, sold, gp, p = state.u, state.s, state.gp, state.p
     adv_bc_vel = [sim.adv_bc[d] for d in range(dm)]
     adv_bc_scal = [sim.adv_bc[sim.scal_comp(i)] for i in range(sim.nscal)]
@@ -151,12 +178,9 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
                                  cfg.visc_coef, 1.0, cfg.boussinesq)
     u_pad = sim.fill_vel(uold)
     vf_pad = sim.fill_extrap(vel_force, ng)
-    velpred = (cuda_godunov.velpred_2d_fused if dm == 2
-               else cuda_godunov.velpred_3d_fused)
     with record_function("step::velpred"):
-        umac = velpred(u_pad, vf_pad, dt, dx, sim.phys_bc, adv_bc_vel, ng, n,
-                       cfg.slope_order, cfg.use_minion,
-                       umax=_level_max(sim, uold))
+        umac, u_slopes = _velpred(sim, u_pad, vf_pad, dt,
+                                  _level_max(sim, uold))
 
     # ---- MAC projection
     with record_function("step::macproject"):
@@ -200,8 +224,8 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     with record_function("step::velocity_advance"):
         unew = _mkflux_update(sim, uold, u_pad, umac, mac_pads, vf_pad,
                               vel_force_half, dt, adv_bc_vel, True,
-                              [False] * dm, mac_max)
-    del u_pad, vf_pad, mac_pads
+                              [False] * dm, mac_max, u_slopes)
+    del u_pad, vf_pad, mac_pads, u_slopes
     if cfg.visc_coef > 0.0:
         # backward Euler drops the explicit viscous term, Crank-Nicolson
         # keeps half of it (advance_timestep.f90:116-120)

@@ -11,8 +11,11 @@ The per-level Godunov work runs through the kernels of ops/cuda_godunov.py,
 as varden_tpu runs its Pallas kernels per level. In 3-D the scalar and the
 velocity advance run the fused mkflux + update kernel on every level; for
 the scalars it also emits the conservative fluxes that the flux registers
-synchronise (its flux_comps option, as in varden_tpu). In 2-D the edge
-kernel is mkflux_2d_fused followed by the plain update, as in varden_tpu.
+synchronise (its flux_comps option, as in varden_tpu); with
+use_godunov_debug a 3-D level takes varden_tpu's unfused route instead:
+the edge-state kernel mkflux_3d_fused, whose fluxes the registers read,
+then the update_3d kernel. In 2-D the edge kernel is mkflux_2d_fused
+followed by the plain update, as in varden_tpu, with or without the flag.
 The parts of
 the step are the torch.profiler ranges of the single-level step
 (advance.RANGES).
@@ -365,14 +368,24 @@ def _mkflux_update_level(geom: MLGeom, l, old, s_pad, umac, mac_pads, force,
     """Godunov edge states and the update of one level's components, and
     the conservative fluxes of the components ``flux_comps`` lists (the
     flux registers read them): in 3-D one pass of the fused kernel, which
-    emits the listed fluxes beside the update as varden_tpu's does; in 2-D
-    the edge kernel and the plain update. ``comps``: the components' global
-    indices (their adv_bc). Returns (new, fluxes or None)."""
+    emits the listed fluxes beside the update as varden_tpu's does, or with
+    use_godunov_debug varden_tpu's unfused route, the edge kernel (its
+    sflux the listed fluxes) and then basic.update (the update_3d kernel);
+    in 2-D the edge kernel and the plain update. ``comps``: the components'
+    global indices (their adv_bc). Returns (new, fluxes or None)."""
     sim = geom.sim
     cfg = sim.cfg
     tail = (dt, geom.dx(l), geom.phys_bc_block(l),
             geom.adv_bc_block(l, comps), sim.ng,
             geom.bn(l), is_vel, is_cons, cfg.slope_order, cfg.use_minion)
+    if geom.dm == 3 and cfg.use_godunov_debug:
+        sedge, sflux = cuda_godunov.mkflux_3d_fused(
+            s_pad, mac_pads, force, None, *tail, umax=umax)
+        new = basic.update(old, umac, sedge, sflux, fupd, dt, geom.dx(l),
+                           is_cons)
+        if not flux_comps:
+            return new, None
+        return new, tuple(f[list(flux_comps)] for f in sflux)
     if geom.dm == 3:
         out = cuda_godunov.mkflux_update_3d_fused(
             s_pad, mac_pads, force, fupd, None, *tail, flux_comps=flux_comps,

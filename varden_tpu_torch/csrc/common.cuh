@@ -68,21 +68,6 @@ __device__ __forceinline__ i64 at(const Grid& g, int c0, int c1, int c2) {
   return ((i64)c0 * g.P[1] + c1) * g.P[2] + c2;
 }
 
-// c shifted by off along axis
-__device__ __forceinline__ i64 at_off(const Grid& g, const int* c, int axis,
-                                      int off) {
-  int q[3] = {c[0], c[1], c[2]};
-  q[axis] += off;
-  return at(g, q[0], q[1], q[2]);
-}
-
-__device__ __forceinline__ void unflat(const Grid& g, i64 p, int* c) {
-  c[2] = (int)(p % g.P[2]);
-  i64 r = p / g.P[2];
-  c[1] = (int)(r % g.P[1]);
-  c[0] = (int)(r / g.P[1]);
-}
-
 template <typename T>
 __device__ __forceinline__ T sgn(T x) {
   return (T)((x > (T)0) - (x < (T)0));
@@ -183,30 +168,6 @@ __device__ __forceinline__ T slope_at(F S, int i, int ng, int n, int bc_lo,
 struct AdvBC {
   int code[MAXC][3][2];
 };
-
-// Limited slopes of nc padded components along each axis, one thread per
-// padded point: out[(a*nc + c)*N + p].
-template <typename T>
-__global__ void slopes_kernel(const T* __restrict__ s, T* __restrict__ out,
-                              Grid g, int nc, int order, AdvBC bc) {
-  i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.N) return;
-  int c[3];
-  unflat(g, p, c);
-  for (int comp = 0; comp < nc; ++comp) {
-    const T* sc = s + comp * g.N;
-    for (int a = 0; a < 3; ++a) {
-      auto S = [&](int m) {
-        int q[3] = {c[0], c[1], c[2]};
-        q[a] = m;
-        return sc[at(g, q[0], q[1], q[2])];
-      };
-      out[(a * nc + comp) * g.N + p] =
-          slope_at<T>(S, c[a], g.ng, g.n[a], bc.code[comp][a][0],
-                      bc.code[comp][a][1], order);
-    }
-  }
-}
 
 __host__ inline AdvBC read_adv_bc(const long long* iv, int nc) {
   AdvBC b;

@@ -1,14 +1,17 @@
-// The BCG edge-state stages of cell-centred components in 3-D. The kernel
-// that emits the edge states and fluxes (mkflux.cu) runs them staged
-// through device memory: the tie epsilon (max |mac|), the limited slopes,
-// the hat states on every face set, the six double-hat states, then the
-// final edge state per face; one thread per padded point (stages 1-2) or
-// interior face (stage 3). Together they compute the plain function
-// godunov3d.mkflux_3d. The fused mkflux + update kernel (mkflux_update.cu)
-// shares the parameters (read_mk) and the tie epsilon and runs the same
-// formulas, in the same order, on shared-memory tiles. The x/y slab
-// stitching of the TPU kernels has no counterpart: boundaries are handled
-// in the same launch as the interior.
+// The BCG edge-state stages of cell-centred components in 3-D, on the
+// shared-memory bricks of the two kernels that compute them: the fused
+// mkflux + update (mkflux_update.cu) and the edge states and fluxes alone
+// (mkflux.cu). Together the stages compute the plain function
+// godunov3d.mkflux_3d: the tie epsilon (max |mac|, its own launch, a
+// grid-wide dependency), then in one brick pass, one component at a time,
+// the limited slopes, the hat states on every face set, the six double-hat
+// states and the final edge states, each stage in the plain version's
+// order of operations. The x/y slab stitching of the TPU kernels has no
+// counterpart: boundaries are handled in the same pass as the interior.
+// Each kernel keeps its own body (the sequence of stages and barriers):
+// the fused kernel's body assembled from shared helper functions compiled
+// to another register allocation and ran 8-20% slower on the H100
+// (tools/torch_mkflux_compare.py), with the same results bit for bit.
 #pragma once
 #include "common.cuh"
 
@@ -39,7 +42,7 @@ __host__ __device__ constexpr int other(int n, int k) {
 }
 
 // a box of brick-local points [lo, lo + e) per axis, axis 2 fastest: the
-// tiles of the brick kernels (mkflux_update.cu, velpred.cu)
+// tiles of the brick kernels (mkflux_update.cu, mkflux.cu, velpred.cu)
 struct Box {
   int lo[3];
   int e[3];
@@ -59,181 +62,6 @@ __device__ __forceinline__ void bpoint(Box b, int i, int* l) {
   i /= b.e[2];
   l[1] = i % b.e[1] + b.lo[1];
   l[0] = i / b.e[1] + b.lo[0];
-}
-
-// hat-stage l/r states of component c on axis-a faces at padded point x,
-// with the mkflux.f90 face overrides (godunov3d.mkflux_3d face_bc)
-template <typename T>
-__device__ void mk_lr(const MK& m, const MKPtrs& P, const T* slopes, int a,
-                      int c, const int* x, T& l, T& r) {
-  const Grid& g = m.g;
-  const T* sc = (const T*)P.s + c * g.N;
-  const T* adv = (const T*)P.mac[a];
-  const T* sl = slopes + (i64)(a * m.nc + c) * g.N;
-  i64 p = at(g, x[0], x[1], x[2]);
-  i64 pm = at_off(g, x, a, -1);
-  T dt2 = (T)(0.5 * m.dt);
-  T advp = adv[p];
-  l = (sc[pm] + (T)0.5 * sl[pm]) - (T)(0.5 * m.dt / m.dx[a]) * advp * sl[pm];
-  r = sc[p] - ((T)0.5 + dt2 * advp / (T)m.dx[a]) * sl[p];
-  bool cons = (m.cons_mask >> c) & 1;
-  if (m.use_minion && P.force) {
-    const T* fc = (const T*)P.force + c * g.N;
-    l = l + dt2 * fc[pm];
-    r = r + dt2 * fc[p];
-  }
-  if (m.use_minion && cons && P.rhs) {
-    const T* rh = (const T*)P.rhs;
-    l = l - dt2 * (sc[pm] * rh[pm]);
-    r = r - dt2 * sc[p] * rh[p];
-  }
-  int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-  if (side >= 0) lr_overrides(m, a, c, side, sc[pm], sc[p], l, r);
-}
-
-// stage 1: simh[(a*nc+c)*N + p]
-template <typename T>
-__global__ void mk_hat_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
-                              T* __restrict__ simh,
-                              const T* __restrict__ umax) {
-  const Grid& g = m.g;
-  i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.N) return;
-  int x[3];
-  unflat(g, p, x);
-  T eps = eps_from(umax);
-  for (int c = 0; c < m.nc; ++c)
-    for (int a = 0; a < 3; ++a) {
-      T l, r;
-      mk_lr(m, P, slopes, a, c, x, l, r);
-      simh[(a * m.nc + c) * g.N + p] =
-          riemann_transverse(l, r, ((const T*)P.mac[a])[p], eps);
-    }
-}
-
-// stage 2: dh[((c*3+a)*2+k)*N + p] = comp c on a-faces corrected along
-// b = OTHERS[a][k]
-template <typename T>
-__global__ void mk_dhat_kernel(MK m, MKPtrs P, const T* __restrict__ slopes,
-                               const T* __restrict__ simh,
-                               T* __restrict__ dh,
-                               const T* __restrict__ umax) {
-  const Grid& g = m.g;
-  i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.N) return;
-  int x[3];
-  unflat(g, p, x);
-  T eps = eps_from(umax);
-  for (int c = 0; c < m.nc; ++c) {
-    bool cons = (m.cons_mask >> c) & 1;
-    for (int a = 0; a < 3; ++a) {
-      for (int k = 0; k < 2; ++k) {
-        int b = other(a, k);
-        const T* mb = (const T*)P.mac[b];
-        const T* hb = simh + (i64)(b * m.nc + c) * g.N;
-        auto corr = [&](const int* xq) {
-          i64 q = at(g, xq[0], xq[1], xq[2]);
-          i64 qb = at_off(g, xq, b, 1);
-          if (cons)
-            return (T)(m.dt / 3.0 / m.dx[b]) * (hb[qb] * mb[qb] - hb[q] * mb[q]);
-          return (T)(m.dt / 6.0 / m.dx[b]) * (mb[q] + mb[qb]) * (hb[qb] - hb[q]);
-        };
-        int xm[3] = {x[0], x[1], x[2]};
-        xm[a] -= 1;
-        T l, r;
-        mk_lr(m, P, slopes, a, c, x, l, r);
-        l = l - corr(xm);
-        r = r - corr(x);
-        // the hat-state overrides apply again (mkflux_3d stage 2)
-        int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-        if (side >= 0) {
-          const T* sc = (const T*)P.s + c * g.N;
-          lr_overrides(m, a, c, side, sc[at(g, xm[0], xm[1], xm[2])], sc[p],
-                       l, r);
-        }
-        dh[((c * 3 + a) * 2 + k) * g.N + p] =
-            riemann_transverse(l, r, ((const T*)P.mac[a])[p], eps);
-      }
-    }
-  }
-}
-
-// stage 3: the final edge state of component c on the axis-a face at padded
-// point x (an interior face), with both transverse corrections and the
-// mkflux.f90 boundary overrides
-template <typename T>
-__device__ T mk_edge_value(const MK& m, const MKPtrs& P,
-                           const T* __restrict__ slopes,
-                           const T* __restrict__ dh, int a, int c,
-                           const int* x, T eps) {
-  const Grid& g = m.g;
-  bool cons = (m.cons_mask >> c) & 1;
-  const T* sc = (const T*)P.s + c * g.N;
-  auto corr = [&](const int* xq) {
-    T acc = (T)0;
-    i64 q = at(g, xq[0], xq[1], xq[2]);
-    for (int k = 0; k < 2; ++k) {
-      int tt = other(a, k);
-      int b = 3 - a - tt;
-      const T* mt = (const T*)P.mac[tt];
-      const T* dht = dh + (i64)((c * 3 + tt) * 2 + (b == other(tt, 0) ? 0 : 1)) * g.N;
-      i64 qt = at_off(g, xq, tt, 1);
-      if (cons) {
-        T coef = (T)(0.5 * m.dt / m.dx[tt]);
-        T flux_div = coef * (dht[qt] * mt[qt] - dht[q] * mt[q]);
-        T compr = coef * sc[q] * (mt[qt] - mt[q]);
-        acc = k == 0 ? flux_div - compr : (acc + flux_div) - compr;
-      } else {
-        T coef = (T)(0.25 * m.dt / m.dx[tt]);
-        T term = coef * (mt[q] + mt[qt]) * (dht[qt] - dht[q]);
-        acc = k == 0 ? term : acc + term;
-      }
-    }
-    return acc;
-  };
-  int xm[3] = {x[0], x[1], x[2]};
-  xm[a] -= 1;
-  i64 p = at(g, x[0], x[1], x[2]);
-  i64 pm = at(g, xm[0], xm[1], xm[2]);
-  T el, er;
-  mk_lr(m, P, slopes, a, c, x, el, er);
-  el = el - corr(xm);
-  er = er - corr(x);
-  T dt2 = (T)(0.5 * m.dt);
-  if (!m.use_minion && P.force) {
-    const T* fc = (const T*)P.force + c * g.N;
-    el = el + dt2 * fc[pm];
-    er = er + dt2 * fc[p];
-  }
-  if (!m.use_minion && cons && P.rhs) {
-    const T* rh = (const T*)P.rhs;
-    el = el - dt2 * (sc[pm] * rh[pm]);
-    er = er - dt2 * sc[p] * rh[p];
-  }
-  T ed = riemann_transverse(el, er, ((const T*)P.mac[a])[p], eps);
-  int side = x[a] == g.ng ? 0 : (x[a] == g.ng + g.n[a] ? 1 : -1);
-  if (side >= 0) ed = edge_override(m, a, c, side, sc[pm], sc[p], el, er, ed);
-  return ed;
-}
-
-// interior face t of the axis-a face set (extents n + 1 along a) as a
-// padded point x
-__device__ __forceinline__ void face_point(const Grid& g, int a, i64 t,
-                                           int* x) {
-  int e[3] = {g.n[0], g.n[1], g.n[2]};
-  e[a] += 1;
-  x[2] = (int)(t % e[2]);
-  i64 rr = t / e[2];
-  x[1] = (int)(rr % e[1]);
-  x[0] = (int)(rr / e[1]);
-  for (int d = 0; d < 3; ++d) x[d] += g.ng;
-}
-
-// face counts of the three face sets
-__host__ __device__ inline i64 face_count(const Grid& g, int a) {
-  i64 v = 1;
-  for (int d = 0; d < 3; ++d) v *= g.n[d] + (d == a ? 1 : 0);
-  return v;
 }
 
 // the tie epsilon: max |mac| over each MAC field's valid region (faces
@@ -289,27 +117,286 @@ __host__ inline int read_mk(MK& m, MKPtrs& P, AdvBC& bc, int& order,
   return 0;
 }
 
-// stages 0-2 (tie epsilon, slopes, hat, double-hat) into work
-// (slopes 3nc, simh 3nc, dh 6nc padded fields)
+// The shared-memory plan of a brick of B0 x B1 x B2 cells, all of it known
+// at compile time (so every index below folds to constants and shifts):
+//   sbox   s of one component, [-3, B+3) on every axis
+//   cbox   the MAC fields, mac_rhs, force and the three slopes: [-1, B+1)
+//   hbox   hat states on b-faces: [0, B_b] along b, [-1, B] across
+//   dbox   double-hat state (a, k): a-faces corrected along b = other(a, k),
+//          t the third axis: [0, B_a] along a, [0, B_b) along b, [-1, B_t]
+//   ebox   edge states on a-faces: [0, B_a] along a, [0, B) across; they
+//          reuse the hat states' space, dead by then
+// Each box is exactly what the next stage reads: the update of the brick's
+// cells reads the edges of ebox, an edge the double hats of dbox at its
+// face and the next one across, a double hat the hats of hbox likewise, and
+// a hat the slopes of cbox on either side of its face; a slope reads s two
+// cells either way along its axis.
+template <int B0, int B1, int B2, int MINB>
+struct Plan {
+  static constexpr int NT = 256;         // threads a block
+  static constexpr int MINBLOCKS = MINB;  // blocks an SM
+  __host__ __device__ static constexpr int B(int d) {
+    return d == 0 ? B0 : (d == 1 ? B1 : B2);
+  }
+  __host__ __device__ static constexpr Box sbox() {
+    return Box{{-3, -3, -3}, {B0 + 6, B1 + 6, B2 + 6}};
+  }
+  __host__ __device__ static constexpr Box cbox() {
+    return Box{{-1, -1, -1}, {B0 + 2, B1 + 2, B2 + 2}};
+  }
+  __host__ __device__ static constexpr Box hbox(int b) {
+    return Box{{b == 0 ? 0 : -1, b == 1 ? 0 : -1, b == 2 ? 0 : -1},
+               {B0 + (b == 0 ? 1 : 2), B1 + (b == 1 ? 1 : 2),
+                B2 + (b == 2 ? 1 : 2)}};
+  }
+  __host__ __device__ static constexpr Box dbox(int a, int k) {
+    return Box{{dlo(a, k, 0), dlo(a, k, 1), dlo(a, k, 2)},
+               {dext(a, k, 0), dext(a, k, 1), dext(a, k, 2)}};
+  }
+  __host__ __device__ static constexpr int dlo(int a, int k, int d) {
+    return d == 3 - a - other(a, k) ? -1 : 0;
+  }
+  __host__ __device__ static constexpr int dext(int a, int k, int d) {
+    return B(d) + (d == a ? 1 : (d == 3 - a - other(a, k) ? 2 : 0));
+  }
+  __host__ __device__ static constexpr Box ebox(int a) {
+    return Box{{0, 0, 0}, {B0 + (a == 0), B1 + (a == 1), B2 + (a == 2)}};
+  }
+};
+
+// The shared-memory offsets (in elements) of a plan's tiles, with or
+// without mac_rhs and force: the MAC fields, mac_rhs?, s, force?, the
+// slopes, the hat states (whose space the edges reuse), the double hats.
+// All are compile-time constants, so a tile access is one shared load at a
+// constant offset from the base.
+template <class P, bool RHS, bool FRC>
+struct Tiles : P {
+  static constexpr bool rhs = RHS, force = FRC;
+  static constexpr int CB = box_size(P::cbox()), SB = box_size(P::sbox());
+  __host__ __device__ static constexpr int OM(int d) { return d * CB; }
+  static constexpr int ORH = 3 * CB;
+  static constexpr int OS = (3 + RHS) * CB;
+  static constexpr int OF = OS + SB;
+  __host__ __device__ static constexpr int OSL(int d) {
+    return OF + (FRC ? CB : 0) + d * CB;
+  }
+  __host__ __device__ static constexpr int OH(int d) {
+    return OSL(3) + (d > 0 ? box_size(P::hbox(0)) : 0) +
+           (d > 1 ? box_size(P::hbox(1)) : 0) +
+           (d > 2 ? box_size(P::hbox(2)) : 0);
+  }
+  __host__ __device__ static constexpr int OE(int d) {
+    return OSL(3) + (d > 0 ? box_size(P::ebox(0)) : 0) +
+           (d > 1 ? box_size(P::ebox(1)) : 0);
+  }
+  __host__ __device__ static constexpr int OD(int j) {
+    return OH(3) + (j > 0 ? box_size(P::dbox(0, 0)) : 0) +
+           (j > 1 ? box_size(P::dbox(0, 1)) : 0) +
+           (j > 2 ? box_size(P::dbox(1, 0)) : 0) +
+           (j > 3 ? box_size(P::dbox(1, 1)) : 0) +
+           (j > 4 ? box_size(P::dbox(2, 0)) : 0) +
+           (j > 5 ? box_size(P::dbox(2, 1)) : 0);
+  }
+  static constexpr int ELEMS = OD(6);
+};
+
+// what every stage of one component reads
 template <typename T>
-int launch_mk_stages(const MK& m, const MKPtrs& P, const AdvBC& bc,
-                     int order, T* work, T* umax, cudaStream_t st) {
-  const Grid& g = m.g;
-  int nc = m.nc;
-  T* slopes = work;
-  T* simh = work + 3 * nc * g.N;
-  T* dh = work + 6 * nc * g.N;
-  int err = launch_mac_absmax<T>(g, P, umax, st);
-  if (err) return err;
-  int nb = blocks_for(g.N, 256);
-  slopes_kernel<T><<<nb, 256, 0, st>>>((const T*)P.s, slopes, g, nc, order,
-                                       bc);
-  VT_CHECK();
-  mk_hat_kernel<T><<<nb, 256, 0, st>>>(m, P, slopes, simh, umax);
-  VT_CHECK();
-  mk_dhat_kernel<T><<<nb, 256, 0, st>>>(m, P, slopes, simh, dh, umax);
-  VT_CHECK();
-  return 0;
+struct Ctx {
+  const MK& m;
+  T* sm;     // the brick's shared memory
+  int o[3];  // the brick's first cell
+  int c;
+  bool cons;
+  T eps;
+};
+
+// hat-stage l/r states of the component on the axis-A face at brick point
+// l (mk_lr of mkflux3d.cuh on the tiles)
+template <typename T, class G, int A>
+__device__ __forceinline__ void tile_lr(const Ctx<T>& x, const int* l, T& lv,
+                                        T& rv) {
+  constexpr Box cb = G::cbox(), sb = G::sbox();
+  const MK& m = x.m;
+  int lm[3] = {l[0], l[1], l[2]};
+  lm[A] -= 1;
+  int cp = bidx(cb, l), cm = bidx(cb, lm);
+  T s_p = x.sm[G::OS + bidx(sb, l)], s_m = x.sm[G::OS + bidx(sb, lm)];
+  T sl_p = x.sm[G::OSL(A) + cp], sl_m = x.sm[G::OSL(A) + cm];
+  T dt2 = (T)(0.5 * m.dt);
+  T advp = x.sm[G::OM(A) + cp];
+  lv = (s_m + (T)0.5 * sl_m) - (T)(0.5 * m.dt / m.dx[A]) * advp * sl_m;
+  rv = s_p - ((T)0.5 + dt2 * advp / (T)m.dx[A]) * sl_p;
+  if (m.use_minion && G::force) {
+    lv = lv + dt2 * x.sm[G::OF + cm];
+    rv = rv + dt2 * x.sm[G::OF + cp];
+  }
+  if (m.use_minion && x.cons && G::rhs) {
+    lv = lv - dt2 * (s_m * x.sm[G::ORH + cm]);
+    rv = rv - dt2 * s_p * x.sm[G::ORH + cp];
+  }
+  int side = face_side(m.g, A, x.o[A] + l[A]);
+  if (side >= 0) lr_overrides(m, A, x.c, side, s_m, s_p, lv, rv);
 }
+
+// copy a box of a padded field into a tile (coordinates clamped into the
+// array, as at() does)
+template <typename T, class G>
+__device__ __forceinline__ void load_box(const Grid& g, Box b,
+                                         const int* o,
+                                         const T* __restrict__ src, T* dst) {
+  constexpr int NT = G::NT;
+  int n = box_size(b);
+  for (int i = threadIdx.x; i < n; i += NT) {
+    int l[3];
+    bpoint(b, i, l);
+    int x0 = clampi(g.ng + o[0] + l[0], 0, g.P[0] - 1);
+    int x1 = clampi(g.ng + o[1] + l[1], 0, g.P[1] - 1);
+    int x2 = clampi(g.ng + o[2] + l[2], 0, g.P[2] - 1);
+    dst[i] = src[((i64)x0 * g.P[1] + x1) * g.P[2] + x2];
+  }
+}
+
+// limited slopes along A on [-1, B]^3
+template <typename T, class G, int A>
+__device__ __forceinline__ void slope_stage(const Ctx<T>& x, const AdvBC& bc,
+                                            int order) {
+  constexpr Box cb = G::cbox(), sb = G::sbox();
+  constexpr int n = box_size(cb);
+  const Grid& g = x.m.g;
+  int blo = bc.code[x.c][A][0], bhi = bc.code[x.c][A][1];
+  for (int i = threadIdx.x; i < n; i += G::NT) {
+    int l[3];
+    bpoint(cb, i, l);
+    auto S = [&](int mg) {
+      int q[3] = {l[0], l[1], l[2]};
+      q[A] = mg - g.ng - x.o[A];
+      return x.sm[G::OS + bidx(sb, q)];
+    };
+    x.sm[G::OSL(A) + i] = slope_at<T>(S, g.ng + x.o[A] + l[A], g.ng, g.n[A], blo,
+                               bhi, order);
+  }
+}
+
+// hat states on the B-faces
+template <typename T, class G, int B>
+__device__ __forceinline__ void hat_stage(const Ctx<T>& x) {
+  constexpr Box hb = G::hbox(B), cb = G::cbox();
+  constexpr int n = box_size(hb);
+  for (int i = threadIdx.x; i < n; i += G::NT) {
+    int l[3];
+    bpoint(hb, i, l);
+    T lv, rv;
+    tile_lr<T, G, B>(x, l, lv, rv);
+    x.sm[G::OH(B) + i] = riemann_transverse(lv, rv, x.sm[G::OM(B) + bidx(cb, l)], x.eps);
+  }
+}
+
+// double-hat state (A, K): A-faces corrected along Bx = other(A, K)
+template <typename T, class G, int A, int K>
+__device__ __forceinline__ void dhat_stage(const Ctx<T>& x) {
+  constexpr int Bx = other(A, K);
+  constexpr Box db = G::dbox(A, K), hb = G::hbox(Bx), cb = G::cbox(),
+                sb = G::sbox();
+  constexpr int n = box_size(db);
+  const MK& m = x.m;
+  const T* h = (x.sm + G::OH(Bx));
+  const T* mb = (x.sm + G::OM(Bx));
+  for (int i = threadIdx.x; i < n; i += G::NT) {
+    int l[3];
+    bpoint(db, i, l);
+    auto corr = [&](const int* q) {
+      int qb[3] = {q[0], q[1], q[2]};
+      qb[Bx] += 1;
+      int hq = bidx(hb, q), hqb = bidx(hb, qb);
+      int cq = bidx(cb, q), cqb = bidx(cb, qb);
+      if (x.cons)
+        return (T)(m.dt / 3.0 / m.dx[Bx]) * (h[hqb] * mb[cqb] - h[hq] * mb[cq]);
+      return (T)(m.dt / 6.0 / m.dx[Bx]) * (mb[cq] + mb[cqb]) *
+             (h[hqb] - h[hq]);
+    };
+    int lm[3] = {l[0], l[1], l[2]};
+    lm[A] -= 1;
+    T lv, rv;
+    tile_lr<T, G, A>(x, l, lv, rv);
+    lv = lv - corr(lm);
+    rv = rv - corr(l);
+    // the hat-state overrides apply again (mkflux_3d stage 2)
+    int side = face_side(m.g, A, x.o[A] + l[A]);
+    if (side >= 0)
+      lr_overrides(m, A, x.c, side, x.sm[G::OS + bidx(sb, lm)], x.sm[G::OS + bidx(sb, l)],
+                   lv, rv);
+    x.sm[G::OD(A * 2 + K) + i] = riemann_transverse(lv, rv, x.sm[G::OM(A) + bidx(cb, l)],
+                                              x.eps);
+  }
+}
+
+// the transverse correction term along TT = other(A, K) of an A-face edge
+// state at q (the third axis Bx = 3 - A - TT names TT's double hat)
+template <typename T, class G, int A, int K>
+__device__ __forceinline__ T edge_corr_term(const Ctx<T>& x, const int* q,
+                                            T acc) {
+  constexpr int TT = other(A, K), Bx = 3 - A - TT;
+  constexpr int KK = Bx == other(TT, 0) ? 0 : 1;
+  constexpr Box db = G::dbox(TT, KK), cb = G::cbox(), sb = G::sbox();
+  const MK& m = x.m;
+  const T* mt = (x.sm + G::OM(TT));
+  const T* dht = (x.sm + G::OD(TT * 2 + KK));
+  int qt[3] = {q[0], q[1], q[2]};
+  qt[TT] += 1;
+  int cq = bidx(cb, q), cqt = bidx(cb, qt);
+  int dq = bidx(db, q), dqt = bidx(db, qt);
+  if (x.cons) {
+    T coef = (T)(0.5 * m.dt / m.dx[TT]);
+    T flux_div = coef * (dht[dqt] * mt[cqt] - dht[dq] * mt[cq]);
+    T compr = coef * x.sm[G::OS + bidx(sb, q)] * (mt[cqt] - mt[cq]);
+    return K == 0 ? flux_div - compr : (acc + flux_div) - compr;
+  }
+  T coef = (T)(0.25 * m.dt / m.dx[TT]);
+  T term = coef * (mt[cq] + mt[cqt]) * (dht[dqt] - dht[dq]);
+  return K == 0 ? term : acc + term;
+}
+
+// edge states on the A-faces the update reads, with both transverse
+// corrections, the forces and the mkflux.f90 overrides
+template <typename T, class G, int A>
+__device__ __forceinline__ void edge_stage(const Ctx<T>& x) {
+  constexpr Box eb = G::ebox(A), cb = G::cbox(), sb = G::sbox();
+  constexpr int n = box_size(eb);
+  const MK& m = x.m;
+  T dt2 = (T)(0.5 * m.dt);
+  for (int i = threadIdx.x; i < n; i += G::NT) {
+    int l[3];
+    bpoint(eb, i, l);
+    int lm[3] = {l[0], l[1], l[2]};
+    lm[A] -= 1;
+    int cp = bidx(cb, l), cm = bidx(cb, lm);
+    T s_p = x.sm[G::OS + bidx(sb, l)], s_m = x.sm[G::OS + bidx(sb, lm)];
+    T el, er;
+    tile_lr<T, G, A>(x, l, el, er);
+    el = el - edge_corr_term<T, G, A, 1>(
+                  x, lm, edge_corr_term<T, G, A, 0>(x, lm, (T)0));
+    er = er - edge_corr_term<T, G, A, 1>(
+                  x, l, edge_corr_term<T, G, A, 0>(x, l, (T)0));
+    if (!m.use_minion && G::force) {
+      el = el + dt2 * x.sm[G::OF + cm];
+      er = er + dt2 * x.sm[G::OF + cp];
+    }
+    if (!m.use_minion && x.cons && G::rhs) {
+      el = el - dt2 * (s_m * x.sm[G::ORH + cm]);
+      er = er - dt2 * s_p * x.sm[G::ORH + cp];
+    }
+    T ed = riemann_transverse(el, er, x.sm[G::OM(A) + cp], x.eps);
+    int side = face_side(m.g, A, x.o[A] + l[A]);
+    if (side >= 0) ed = edge_override(m, A, x.c, side, s_m, s_p, el, er, ed);
+    x.sm[G::OE(A) + i] = ed;
+  }
+}
+
+// float32 bricks of 8^3 cells, three blocks an SM (63-71 KB of shared
+// memory each, at most 85 registers a thread); float64 bricks half as long
+// in x, two blocks an SM (76-86 KB each)
+typedef Plan<8, 8, 8, 3> PlanF32;
+typedef Plan<4, 8, 8, 2> PlanF64;
 
 }  // namespace vt

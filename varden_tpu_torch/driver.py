@@ -97,7 +97,6 @@ class Varden:
     raises unless ``device="cpu"`` is given (the plain PyTorch path)."""
 
     def __init__(self, cfg: VardenConfig, device=None):
-        advance.check_supported(cfg)
         self.cfg = cfg
         dec, ranks = _decomposition(cfg, device)
         ml = cfg.max_levs > 1

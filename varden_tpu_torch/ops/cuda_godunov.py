@@ -12,15 +12,13 @@ varden_tpu.ops.pallas_godunov).
 
 Each wrapper takes the same arguments as its TPU counterpart. On a CPU
 tensor it runs its plain PyTorch version (``*_plain`` below); on a CUDA
-tensor it launches the kernel or raises. ``umax`` (velpred_3d_fused,
-mkflux_update_3d_fused, velpred_2d_fused, mkflux_2d_fused) gives the
+tensor it launches the kernel or raises. ``umax`` (every wrapper) gives the
 largest |velocity| of the whole level, from which the Riemann tie epsilon
 is formed, where the tensors are one rank's block of it; the kernels'
 first launch then takes the larger of it and the block's own, which it is.
 ``<wrapper>.launches`` counts the
-CUDA launches the wrapper made (every stage counts: velpred_3d_fused,
-mkflux_update_3d_fused, velpred_2d_fused and mkflux_2d_fused make two
-each, the tie epsilon and one shared-memory pass).
+CUDA launches the wrapper made (every stage counts: each makes two,
+the tie epsilon and one shared-memory pass).
 """
 from __future__ import annotations
 
@@ -146,6 +144,17 @@ def mkflux_update_3d_fused(s, mac_pads, force, fupd, mac_rhs, dt, dx,
                                       is_conservative, slope_order,
                                       use_minion, flux_comps=flux_comps,
                                       umax=umax)
+    return _mkflux_update_launch(s, mac_pads, force, fupd, mac_rhs, dt, dx,
+                                 phys_bc, adv_bc, ng, n_cell, is_vel,
+                                 is_conservative, slope_order, use_minion,
+                                 flux_comps, umax)
+
+
+def _mkflux_update_launch(s, mac_pads, force, fupd, mac_rhs, dt, dx,
+                          phys_bc, adv_bc, ng, n_cell, is_vel,
+                          is_conservative, slope_order, use_minion,
+                          flux_comps=(), umax=None):
+    flux_comps = tuple(flux_comps)
     nc = s.shape[0]
     P = _padded(n_cell, ng)
     n = tuple(n_cell)
@@ -185,25 +194,34 @@ mkflux_update_3d_fused.launches = 0
 
 def mkflux_3d_plain(s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc,
                     ng, n_cell, is_vel, is_conservative, slope_order,
-                    use_minion):
+                    use_minion, umax=None):
     """The plain PyTorch version of mkflux_3d_fused."""
     return godunov3d.mkflux_3d(s, mac_pads, force, mac_rhs, dt, dx, phys_bc,
                                adv_bc, ng, n_cell, is_vel, is_conservative,
-                               slope_order, use_minion)
+                               slope_order, use_minion, eps=_eps(umax))
 
 
 def mkflux_3d_fused(s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc,
                     ng, n_cell, is_vel, is_conservative, slope_order,
-                    use_minion):
+                    use_minion, umax=None):
     """Godunov edge states and fluxes of nc components on all three face
     sets: returns (sedge, sflux), tuples of three (nc, faces) tensors,
     exactly as godunov3d.mkflux_3d, at any extent and in both dtypes.
     ``force`` and ``mac_rhs`` may each be None, meaning statically zero:
-    never read and never allocated."""
+    never read and never allocated. On the card: two launches, the tie
+    epsilon and one shared-memory brick pass."""
     if s.device.type == "cpu":
         return mkflux_3d_plain(s, mac_pads, force, mac_rhs, dt, dx, phys_bc,
                                adv_bc, ng, n_cell, is_vel, is_conservative,
-                               slope_order, use_minion)
+                               slope_order, use_minion, umax)
+    return _mkflux3d_launch(s, mac_pads, force, mac_rhs, dt, dx, phys_bc,
+                            adv_bc, ng, n_cell, is_vel, is_conservative,
+                            slope_order, use_minion, umax)
+
+
+def _mkflux3d_launch(s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc,
+                     ng, n_cell, is_vel, is_conservative, slope_order,
+                     use_minion, umax=None):
     nc = s.shape[0]
     P = _padded(n_cell, ng)
     n = tuple(n_cell)
@@ -221,15 +239,14 @@ def mkflux_3d_fused(s, mac_pads, force, mac_rhs, dt, dx, phys_bc, adv_bc,
              for d in range(3)]
     sedge = tuple(torch.empty(f, **kw) for f in faces)
     sflux = tuple(torch.empty(f, **kw) for f in faces)
-    work = torch.empty((12 * nc,) + P, **kw)
-    umax = torch.zeros(1, **kw)
+    umax = _umax_buf(umax, kw)
     cons_mask = sum(1 << c for c in range(nc) if is_conservative[c])
     iv = [*n, ng, slope_order, int(bool(use_minion)), nc, int(bool(is_vel)),
           cons_mask] + _flat_bc(phys_bc, adv_bc)
     _cuda.call("mkflux", "mkflux3d",
-               [s, *mac_pads, force, mac_rhs, *sedge, *sflux, work, umax],
+               [s, *mac_pads, force, mac_rhs, *sedge, *sflux, umax],
                iv, [float(dt), *map(float, dx)], s)
-    mkflux_3d_fused.launches += 5
+    mkflux_3d_fused.launches += 2
     return sedge, sflux
 
 

@@ -94,3 +94,10 @@ def slope(s: torch.Tensor, axis: int, ng: int, bc_lo: int, bc_hi: int,
     if bc_hi in (EXT_DIR, HOEXTRAP):
         sl = one_sided(-1, sl)
     return sl
+
+
+# The debug oracle's slope (varden_tpu.ops.slopes.slope_ref and its
+# _mc_limit_ref: the original full-array roll formulation). slope above is
+# already that formulation, step for step, so the oracle takes it as it is.
+slope_ref = slope
+_mc_limit_ref = mc_limit
