@@ -105,13 +105,15 @@ Phases, each of which asserts and any failure of which exits non-zero:
      ranks sharing the card, started by parallel.launch, each holding its
      block of every field, its kernels on the card and the halos through
      pinned host buffers (phase_decomposed, on the cells of
-     decomp_cells()). The viscous 3-D bubble and config 4's geometry
-     (periodic in x and y: kernel 7's ring sweeps) at N_DECOMP_CHECK^3 in
-     float64 on 2 and 4 ranks, and the headline and config 2's geometry
-     at N_2D_PUBLISHED^2 on 4 ranks in float64, each against its one-rank
-     card run (TOL_DECOMP_F64 of each field's size, the same V-cycles a
-     step); then the headline and config 2's geometry in float32 on 4
-     ranks within TOL_DECOMP_F32 of their one-rank runs (config 2's
+     decomp_cells(): 1 step at N_DECOMP_CHECK^3, STEPS_SHORT at the larger
+     sizes, cuts of depth). The viscous 3-D bubble and config 4's
+     geometry (periodic in x and y: kernel 7's ring sweeps) at
+     N_DECOMP_CHECK^3 in float64 on 2 and 4 ranks, and the headline and
+     config 2's geometry at N_2D_PUBLISHED^2 on 4 ranks in float64, each
+     against its one-rank card run (TOL_DECOMP_F64 of each field's size,
+     the same V-cycles a step); then the headline and config 2's
+     geometry in float32 on 4 ranks within TOL_DECOMP_F32 of their
+     one-rank runs (config 2's
      geometry: or within twice the one-rank float32 run's distance from
      float64 where that is larger, its pressure gradient being float32's
      own roundoff). Every rank records the first call of each kind
@@ -125,7 +127,7 @@ Phases, each of which asserts and any failure of which exits non-zero:
      amr_decomp_cells()): every patch of every level cut over gloo ranks
      sharing the card, the coarse-fine coupling through parallel.halo's
      fetch and put. Config 5 at an N_AMR_DECOMP^3 base in float64 on 2
-     and 4 ranks and at its full 256^3 base in float32 on 4 (2 steps),
+     and 4 ranks and at its full 256^3 base in float32 on 4 (1 step),
      config 3 across its regrid and the RT inputs with plotfiles,
      checkpoints and a restart from the mid-run checkpoint on 4, each
      against its one-rank run at the same mesh: the same hierarchy at
@@ -155,6 +157,21 @@ Phases, each of which asserts and any failure of which exits non-zero:
      base (kernels 1, 11 and 6 on every level, kernel 2 not). The JSON
      line's launches of kernels 11 and 6 are those of the headline's
      profiled phases, the path that runs them.
+ 19. the regression suite (phase_regression): the eight quick workloads
+     of varden_tpu_torch.regression (run_regression.py's) on the card in
+     float64 as shipped, each one's launch counters zeroed just before and
+     read just after: its checks pass (advect-3d's fails as it fails in
+     varden_tpu's harness, REGRESSION_REFERENCE_FAILS), the kernels of
+     REGRESSION_KERNELS launched and kernels 6, 11 and those of the other
+     dimension not, the kernel calls of step REGRESSION_RECORD_STEP
+     recorded and held to their plain versions at TOL_KERNEL, the checks'
+     numbers and the launches a steady step printed (bubble-2d, the
+     longest, in a process of its own started beside phase 17); then each
+     workload's first REGRESSION_CHECK_STEPS steps on the card against
+     the CPU plain path (float64, TOL_STEP, the same boxes; the CPU runs
+     in a process of their own while the card runs the quick workloads),
+     and the 2-D workloads' in float32 against float64
+     (TOL_F32_VS_F64_2D).
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. With --profile FILE,
@@ -1431,28 +1448,27 @@ def phase_step(torch, kw):
     return res
 
 
-def phase_run(torch, kw, steps):
-    """Varden.run of the configuration ``kw`` for ``steps`` steps on the
-    card and on the CPU plain path, float64: the same boxes (multi-level),
-    every field of every level within TOL_STEP of its size."""
-    from varden_tpu_torch.config import VardenConfig
+def run_states(cfg, device):
+    """Varden.run of ``cfg`` on ``device`` (None: the card): the patches'
+    (lo, n), the list of per-patch States and the wall seconds."""
+    import torch
     from varden_tpu_torch.driver import Varden
-    cfg = VardenConfig(**kw, max_step=steps)
-    out = {}
-    for name, dev in (("cpu", "cpu"), ("card", None)):
-        t0 = time.perf_counter()
-        v = Varden(cfg, device=dev)
-        states = v.run()
-        if dev is None:
-            torch.cuda.synchronize()
-        out[name] = (v, states if v.ml else [states],
-                     time.perf_counter() - t0)
-    (vc, sc, tc), (vg, sg, tg) = out["cpu"], out["card"]
-    boxes = [((0,) * cfg.dm, cfg.n_cell)]
-    if vg.ml:
-        boxes = [(s.lo, s.n) for s in vg.geom.specs]
-        need(boxes == [(s.lo, s.n) for s in vc.geom.specs],
-             f"AMR boxes differ between the card and the CPU: {boxes}")
+    t0 = time.perf_counter()
+    v = Varden(cfg, device=device)
+    states = v.run()
+    if device is None:
+        torch.cuda.synchronize()
+    boxes = ([(tuple(s.lo), tuple(s.n)) for s in v.geom.specs] if v.ml
+             else [((0,) * cfg.dm, tuple(cfg.n_cell))])
+    return boxes, states if v.ml else [states], time.perf_counter() - t0
+
+
+def hold_card_to_cpu(torch, card, cpu, steps):
+    """The card's run_states against the CPU plain path's, float64: the
+    same boxes, every field of every level within TOL_STEP of its size."""
+    (boxes, sg, tg), (boxes_c, sc, tc) = card, cpu
+    need(boxes == boxes_c, f"AMR boxes differ between the card and the "
+                           f"CPU: {boxes} against {boxes_c}")
     errs = {}
     for lev, (a, b) in enumerate(zip(sc, sg)):
         for key in ("u", "s", "gp", "p"):
@@ -1469,6 +1485,16 @@ def phase_run(torch, kw, steps):
           f"{TOL_STEP:.0e} x field size); wall card {tg:.3f} s (kernels "
           f"loaded), CPU {tc:.3f} s", flush=True)
     return {"levels": boxes, "max_abs_err": errs, "card_s": tg, "cpu_s": tc}
+
+
+def phase_run(torch, kw, steps):
+    """Varden.run of the configuration ``kw`` for ``steps`` steps on the
+    card and on the CPU plain path, float64: the same boxes (multi-level),
+    every field of every level within TOL_STEP of its size."""
+    from varden_tpu_torch.config import VardenConfig
+    cfg = VardenConfig(**kw, max_step=steps)
+    cpu = run_states(cfg, "cpu")
+    return hold_card_to_cpu(torch, run_states(cfg, None), cpu, steps)
 
 
 # ---------------------------------------------------------------------------
@@ -2030,18 +2056,19 @@ def decomp_cells():
     return {
         "check": dict(kw=bubble_kw(N_DECOMP_CHECK, "float64",
                                    visc_coef=1.0e-3),
-                      steps=STEPS_SHORT, ranks=(2, 4), expect=KERNELS_3D,
+                      steps=1, ranks=(2, 4), expect=KERNELS_3D,
                       label=f"viscous 3-D bubble {N_DECOMP_CHECK}^3"),
         # mesh_shape(2) splits y, mesh_shape(4) x and y: kernel 7's ring
         # sweep on blocks whose periodic x seam is local, then crosses ranks
-        "rt": dict(kw=rt_kw(N_DECOMP_CHECK, "float64"), steps=STEPS_SHORT,
+        "rt": dict(kw=rt_kw(N_DECOMP_CHECK, "float64"), steps=1,
                    ranks=(2, 4), expect=KERNELS_RT, bubble=False,
                    label=f"config 4's geometry {N_DECOMP_CHECK}^3 (periodic "
                          "x and y)"),
         "headline": dict(kw=bubble_kw(256, "float32", visc_coef=1.0e-3),
-                         steps=STEPS, ranks=(4,), expect=KERNELS_3D,
+                         steps=STEPS_SHORT, ranks=(4,), expect=KERNELS_3D,
                          label="headline 256^3"),
-        "2d": dict(kw=bubble2d_kw(N_2D_PUBLISHED, "float32"), steps=STEPS,
+        "2d": dict(kw=bubble2d_kw(N_2D_PUBLISHED, "float32"),
+                   steps=STEPS_SHORT,
                    ranks=(4,), expect=KERNELS_2D, widen=True,
                    label=f"config 2's geometry {N_2D_PUBLISHED}^2"),
     }
@@ -2396,28 +2423,27 @@ def phase_decomposed(torch, keys):
 
 N_AMR_DECOMP = 64
 AMR_DECOMP_TIMEOUT = 900.0
-# the RT inputs' decomposed I/O run: to step 4 with a checkpoint every 2
-# and a restart from step 2 (cuts of depth from phase 15's 20 and 10: on
-# 4 gloo ranks of one card a step takes 10-14 s, and phase 17 must leave
-# chip_smoke.py inside its time limit)
-RT_IO_DECOMP_STEPS = 4
-RT_IO_DECOMP_CHK = 2
+# the RT inputs' decomposed I/O run: to step 2 with a checkpoint every
+# step and a restart from step 1 (cuts of depth from phase 15's 20 and 10,
+# and from 4 and 2 to leave room for phase 19: on 4 gloo ranks of one card
+# a step takes 10-14 s, and chip_smoke.py must stay inside its time limit)
+RT_IO_DECOMP_STEPS = 2
+RT_IO_DECOMP_CHK = 1
 
 
 def amr_decomp_cells():
     """Phase 17's cells by key: the configuration (a keyword dict, or the
-    inputs file and its overrides), its steps (config 5 at 64^3: 1, cut
-    for time; config 3: through its regrid at step 5), the rank counts it
-    runs on,
-    the kernels its path launches, its label, whether its float32 gate
-    widens as phase 16's 2-D cell's does, and whether it writes plotfiles
-    and checkpoints and restarts (``io``). Each is held to its one-rank run
-    at the same mesh."""
+    inputs file and its overrides), its steps (config 5 at 64^3 and at
+    256^3: 1, cut for time; config 3: through its regrid at step 5), the
+    rank counts it runs on, the kernels its path launches, its label,
+    whether its float32 gate widens as phase 16's 2-D cell's does, and
+    whether it writes plotfiles and checkpoints and restarts (``io``).
+    Each is held to its one-rank run at the same mesh."""
     return {
         "cfg5": dict(kw=cfg5_kw(N_AMR_DECOMP, "float64"), steps=1,
                      ranks=(2, 4), expect=KERNELS_AMR,
                      label=f"config 5 {N_AMR_DECOMP}^3 + 2 levels"),
-        "cfg5-full": dict(kw=cfg5_kw(256, "float32"), steps=STEPS_SHORT,
+        "cfg5-full": dict(kw=cfg5_kw(256, "float32"), steps=1,
                           ranks=(4,), expect=KERNELS_AMR, widen=True,
                           label="config 5 256^3 + 2 levels"),
         "cfg3": dict(kw=cfg3_kw("float64"), steps=5, ranks=(4,),
@@ -3001,6 +3027,303 @@ def phase_tail(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the regression suite on the card
+# ---------------------------------------------------------------------------
+# the kernels each workload of varden_tpu_torch.regression launches with its
+# shipped options: every 3-D workload is viscous (kernel 5); MAC levels with
+# walls in x take kernel 3, periodic ones kernel 7's fused stages
+KERNELS_PERIODIC_X = ("velpred_3d_fused", "mkflux_update_3d_fused",
+                      "nodal_sweep_3d", "gsrb_const_sweep_3d",
+                      "gsrb_sweep_3d")
+REGRESSION_KERNELS = {
+    "bubble-2d": KERNELS_2D, "bubble-3d": KERNELS_3D,
+    "bubble-restart": KERNELS_3D, "advect-2d": KERNELS_2D,
+    "advect-3d": KERNELS_3D, "rt-2d": KERNELS_2D,
+    "rt-3d": KERNELS_PERIODIC_X, "vortex-3d": KERNELS_PERIODIC_X}
+# the check that fails in varden_tpu's harness as in the port (ROADMAP.md
+# section 3): run_regression.py holds the 3-D advected bubble, whose density
+# starts at up to densfact 10 in 3-D (initdata), to [1, 2]; the card must
+# give the failure the CPU gives
+REGRESSION_REFERENCE_FAILS = {"advect-3d": "level 0 rho overshoot"}
+# the steps of each workload's quick config held card against CPU (and, in
+# 2-D, float32 against float64); the regular step whose kernel calls are
+# recorded and held to their plain versions
+REGRESSION_CHECK_STEPS = 2
+REGRESSION_RECORD_STEP = 2
+
+
+class StepLaunches:
+    """For the duration of a with block, the launches of every regular step
+    of every Varden (Varden.step, step_ml) into ``per_step``, and the
+    kernel calls (record_kernel_calls) of the first step numbered
+    ``record_step`` into ``calls``."""
+
+    def __init__(self, record_step):
+        self.record_step = record_step
+        self.per_step = []
+        self.calls = None
+
+    def __enter__(self):
+        from varden_tpu_torch.driver import Varden
+        self._orig = (Varden.step, Varden.step_ml)
+        fns = counters()
+
+        def counted(orig):
+            def step(v, *a, **k):
+                rec = self.calls is None and v.istep + 1 == self.record_step
+                before = read_counts(fns)
+                calls = record_kernel_calls() if rec else None
+                try:
+                    out = orig(v, *a, **k)
+                finally:
+                    if rec:
+                        stop_recording()
+                        self.calls = dict(calls)
+                self.per_step.append({n: c - before[n]
+                                      for n, c in read_counts(fns).items()})
+                return out
+            return step
+
+        Varden.step, Varden.step_ml = (counted(f) for f in self._orig)
+        return self
+
+    def __exit__(self, *exc):
+        from varden_tpu_torch.driver import Varden
+        Varden.step, Varden.step_ml = self._orig
+        return False
+
+
+def step_extrema(torch, cfg):
+    """Varden on ``cfg`` on the card for cfg.max_step steps: each step's
+    density extrema and max|u| over every level."""
+    from varden_tpu_torch.driver import Varden
+    v = Varden(cfg)
+    states = v.initialize_ml() if v.ml else v.initialize()
+    out = []
+    while v.istep < cfg.max_step:
+        states = v.step_ml(states) if v.ml else v.step(states)
+        lv = states if v.ml else [states]
+        out.append(dict(step=v.istep,
+                        rho_min=min(float(st.s[0].min()) for st in lv),
+                        rho_max=max(float(st.s[0].max()) for st in lv),
+                        umax=max(float(st.u.abs().max()) for st in lv)))
+    return out
+
+
+def phase_regression_workload(torch, name):
+    """One quick workload of varden_tpu_torch.regression on the card as
+    shipped (float64), launches counted a step: its checks pass (or fail
+    as REGRESSION_REFERENCE_FAILS says), its kernels launched and kernels
+    6 and 11 not, and the kernel calls of step REGRESSION_RECORD_STEP held
+    to their plain versions."""
+    from varden_tpu_torch import regression
+    fns = counters()
+    zero_counts(fns)
+    failed, res = None, {}
+    with StepLaunches(REGRESSION_RECORD_STEP) as sl:
+        t0 = time.perf_counter()
+        try:
+            res = regression.run_workload(name)  # the card: no device named
+        except regression.CheckFailed as e:
+            failed, res = str(e), e.numbers
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    known = REGRESSION_REFERENCE_FAILS.get(name)
+    if known is None:
+        need(failed is None, f"regression {name} failed on the card: "
+                             f"{failed}")
+    else:
+        need(failed is not None and failed.startswith(known),
+             f"regression {name}: the reference harness's failure "
+             f"{known!r} expected, got {failed!r}")
+    expect = REGRESSION_KERNELS[name]
+    other = (KERNELS_2D if expect is not KERNELS_2D
+             else KERNELS_3D + ("gsrb_sweep_3d",))
+    for k in expect:
+        need(launches[k] > 0, f"regression {name}: {k} did not launch")
+    for k in OFF_PATH + other:
+        need(launches[k] == 0, f"regression {name}: {k} launched "
+                               f"{launches[k]}x")
+    need(sl.calls is not None, f"regression {name}: step "
+                               f"{REGRESSION_RECORD_STEP} was not recorded")
+    rows = check_recorded(torch, sl.calls)
+    for r in rows:
+        need(r["ok"], f"regression {name}: {r['name']} at {r['shape']} "
+                      f"disagrees with its plain version: {r['errs']}")
+    need(set(expect) <= {r["name"] for r in rows},
+         f"regression {name}: step {REGRESSION_RECORD_STEP} recorded "
+         f"{sorted({r['name'] for r in rows})}, not all of {expect}")
+    steady = sl.per_step[1:] or sl.per_step
+    per_steady = {k: sum(s[k] for s in steady) / len(steady)
+                  for k in launches if launches[k]}
+    nums = {k: v for k, v in res.items() if k != "levels"}
+    levels = [list(b[1]) for b in res.get("levels", [])]
+    verdict = (f"failed as the reference harness does: {failed}" if failed
+               else "checks passed")
+    print(f"  {name}: {verdict}; {nums}; levels {levels}; wall "
+          f"{wall:.3f} s; launches a steady "
+          f"step { {k: round(c, 2) for k, c in per_steady.items()} }; "
+          f"{len(rows)} recorded kernel calls within "
+          f"{max(r['worst'] for r in rows):.3e} of TOL_KERNEL", flush=True)
+    return {"result": res, "failed": failed, "wall_s": wall,
+            "levels": levels, "launches": launches,
+            "launches_per_steady_step": per_steady,
+            "kernel_checks": rows}
+
+
+def regression_check_cfg(name):
+    """A workload's quick config cut to REGRESSION_CHECK_STEPS steps,
+    without plotfiles or checkpoints, quiet."""
+    from varden_tpu_torch import regression
+    return regression._load(name, False, max_step=REGRESSION_CHECK_STEPS,
+                            plot_int=-1, chk_int=-1, verbose=0)
+
+
+# phase 19's processes beside the main one: the CPU half of the card
+# against CPU comparison (REGRESSION_CPU_THREADS torch threads), and the
+# longest quick workload (bubble-2d: 100 steps of a host-bound 4-level 2-D
+# step), each with a deadline
+REGRESSION_CPU_THREADS = 4
+REGRESSION_APART = ("bubble-2d",)
+REGRESSION_PROC_TIMEOUT = 900.0
+
+
+def regression_cpu_runs(path):
+    """The CPU plain path's run_states of every workload's
+    regression_check_cfg, saved to ``path`` (torch.save): the CPU half of
+    phase 19's comparison, run in a process of its own."""
+    import torch
+    from varden_tpu_torch import regression
+    torch.set_num_threads(REGRESSION_CPU_THREADS)
+    out = {}
+    for name in regression.WORKLOADS:
+        boxes, states, sec = run_states(regression_check_cfg(name), "cpu")
+        out[name] = (boxes, [{k: getattr(st, k) for k in ("u", "s", "gp",
+                                                          "p")}
+                             for st in states], sec)
+    torch.save(out, path)
+
+
+def regression_workload_proc(name, path):
+    """phase_regression_workload of ``name`` on the card in a process of
+    its own, its result pickled to ``path``."""
+    import pickle
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = phase_regression_workload(torch, name)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+class RegressionApart:
+    """REGRESSION_APART's quick workloads, each on the card in a process of
+    its own (regression_workload_proc), started when made: main() starts
+    them beside phase 17, phase 19 reads their results; stop() ends any
+    still running and removes their files."""
+
+    def __init__(self):
+        import multiprocessing
+        import tempfile
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_p19_")
+        ctx = multiprocessing.get_context("spawn")
+        self.paths = {name: os.path.join(self.tmp, name)
+                      for name in REGRESSION_APART}
+        self.procs = {name: ctx.Process(target=regression_workload_proc,
+                                        args=(name, self.paths[name]))
+                      for name in REGRESSION_APART}
+        for proc in self.procs.values():
+            proc.start()
+
+    def results(self, deadline):
+        """Each workload's phase_regression_workload result, waiting for
+        its process until ``deadline`` (time.perf_counter())."""
+        import pickle
+        out = {}
+        for name, proc in self.procs.items():
+            proc.join(max(0.0, deadline - time.perf_counter()))
+            need(proc.exitcode == 0, f"phase 19: the process of {name} "
+                                     f"ended with {proc.exitcode}")
+            with open(self.paths[name], "rb") as f:
+                out[name] = pickle.load(f)
+        return out
+
+    def stop(self):
+        import shutil
+        for proc in self.procs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_regression(torch, apart=None):
+    """Phase 19: the eight quick workloads on the card (float64, as
+    shipped), REGRESSION_APART's in processes of their own (``apart``, a
+    RegressionApart already started, or one started here), while another
+    process runs each workload's first REGRESSION_CHECK_STEPS steps on the
+    CPU plain path; the same steps on the card, and the 2-D workloads' in
+    float32 against float64 (TOL_F32_VS_F64_2D); then the card's steps
+    against the CPU's (float64, TOL_STEP)."""
+    import multiprocessing
+    import types
+    from varden_tpu_torch import regression
+    out = {"quick": {}, "card_vs_cpu": {}, "f32_vs_f64": {}}
+    own = apart is None
+    apart = RegressionApart() if own else apart
+    path = os.path.join(apart.tmp, "cpu")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=regression_cpu_runs, args=(path,))
+    proc.start()
+    try:
+        quick = {name: phase_regression_workload(torch, name)
+                 for name in regression.WORKLOADS
+                 if name not in REGRESSION_APART}
+        torch.cuda.empty_cache()
+        # the card's halves while the other processes run
+        card = {name: run_states(regression_check_cfg(name), None)
+                for name in regression.WORKLOADS}
+        for name in regression.WORKLOADS:
+            if regression._load(name, False).dm == 2:
+                print(f"  {name} float32 against float64, "
+                      f"{REGRESSION_CHECK_STEPS} steps", flush=True)
+                recs = {dt: step_extrema(torch, regression._load(
+                            name, False, max_step=REGRESSION_CHECK_STEPS,
+                            dtype=dt, verbose=0))
+                        for dt in ("float64", "float32")}
+                hold_f32_to_f64(recs["float32"], recs["float64"],
+                                TOL_F32_VS_F64_2D)
+                out["f32_vs_f64"][name] = recs
+        t0 = time.perf_counter()
+        deadline = t0 + REGRESSION_PROC_TIMEOUT
+        proc.join(REGRESSION_PROC_TIMEOUT)
+        need(proc.exitcode == 0, "phase 19: the process of the CPU runs "
+                                 f"ended with {proc.exitcode}")
+        cpu = torch.load(path)
+        quick.update(apart.results(deadline))
+        print(f"  phase 19's other processes ended "
+              f"{time.perf_counter() - t0:.1f} s after the main one's work",
+              flush=True)
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+        if own:
+            apart.stop()
+    out["quick"] = {name: quick[name] for name in regression.WORKLOADS}
+    print(f"  card vs CPU, float64, the first {REGRESSION_CHECK_STEPS} steps "
+          "of each quick config", flush=True)
+    for name in regression.WORKLOADS:
+        boxes, fields, sec = cpu[name]
+        print(f"  {name}:", flush=True)
+        out["card_vs_cpu"][name] = hold_card_to_cpu(
+            torch, card[name],
+            (boxes, [types.SimpleNamespace(**f) for f in fields], sec),
+            REGRESSION_CHECK_STEPS)
+    return out
+
 def field_errs_ml(got, ref):
     """{field: max over patches of max|got - ref| / max(1, max|ref|)}."""
     out = {}
@@ -3206,6 +3529,8 @@ def main(argv=None) -> int:
           flush=True)
     io = phase_io(torch)
     torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t_begin:.1f} s since the start",
+          flush=True)
 
     print("phase 16: the decomposed single-level path, gloo ranks sharing "
           f"the card: the viscous 3-D bubble and config 4's geometry at "
@@ -3213,7 +3538,10 @@ def main(argv=None) -> int:
           f"config 2's geometry at {N_2D_PUBLISHED}^2 on 4 in float64 and "
           "float32, each against its one-rank run, and every kernel call of "
           "a rank against its plain version", flush=True)
+    t_phase = time.perf_counter()
     decomposed = phase_decomposed(torch, list(decomp_cells()))
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
     print("phase 17: AMR under a mesh, every patch of every level cut over "
           "gloo ranks sharing the card: config 5 at a "
@@ -3223,18 +3551,39 @@ def main(argv=None) -> int:
           f"restart from step {RT_IO_DECOMP_CHK} on 4, each against its "
           "one-rank run at the same mesh, and every kernel call of a rank "
           "against its plain version", flush=True)
-    decomposed_amr = phase_decomposed_amr(torch, list(amr_decomp_cells()))
+    t_phase = time.perf_counter()
+    # phase 19's longest quick workload runs beside phases 17 and 18
+    apart = RegressionApart()
+    try:
+        decomposed_amr = phase_decomposed_amr(torch,
+                                              list(amr_decomp_cells()))
+        print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s "
+              f"({', '.join(REGRESSION_APART)} of phase 19 beside it); "
+              f"{time.perf_counter() - t_begin:.1f} s since the start",
+              flush=True)
 
-    print(f"phase 18: the tail: profiling.profile_phases on the headline "
-          f"256^3 (kernels 11 and 6 recorded and held to their plain "
-          f"versions) and on config 2's geometry at {N_2D}^2, "
-          f"profile_phases_ml on config 5 at 256^3 + 2 levels, "
-          f"{TAIL_REPS} timed calls a phase; then use_godunov_debug on the "
-          "card in float64 against the runs without it", flush=True)
-    t_tail = time.perf_counter()
-    tail = phase_tail(torch)
-    print(f"  phase 18 took {time.perf_counter() - t_tail:.1f} s",
-          flush=True)
+        print(f"phase 18: the tail: profiling.profile_phases on the headline "
+              f"256^3 (kernels 11 and 6 recorded and held to their plain "
+              f"versions) and on config 2's geometry at {N_2D}^2, "
+              f"profile_phases_ml on config 5 at 256^3 + 2 levels, "
+              f"{TAIL_REPS} timed calls a phase; then use_godunov_debug on "
+              "the card in float64 against the runs without it", flush=True)
+        t_tail = time.perf_counter()
+        tail = phase_tail(torch)
+        print(f"  phase 18 took {time.perf_counter() - t_tail:.1f} s",
+              flush=True)
+
+        print("phase 19: the regression suite on the card: the eight "
+              "quick workloads of varden_tpu_torch.regression in float64 "
+              "with their checks, launches and recorded kernel calls, each "
+              f"one's first {REGRESSION_CHECK_STEPS} steps card vs CPU, the "
+              "2-D ones in float32 against float64", flush=True)
+        t_reg = time.perf_counter()
+        regression_runs = phase_regression(torch, apart)
+        print(f"  phase 19 took {time.perf_counter() - t_reg:.1f} s",
+              flush=True)
+    finally:
+        apart.stop()
 
     # the JSON line: for each kernel its main case (velocity update, the
     # fused pre-smooth stage of the two V-cycles; the AMR kernels at the
@@ -3290,7 +3639,8 @@ def main(argv=None) -> int:
               "peak_bytes_rt": peak_rt, "steps_rt_f64": per_step_rt64,
               "profiled_step_rt": prof_rt, "io": io,
               "decomposed": decomposed, "decomposed_amr": decomposed_amr,
-              "tail": tail, "total_s": total_s}
+              "tail": tail, "regression": regression_runs,
+              "total_s": total_s}
     print("detail " + json.dumps(detail), flush=True)
     # the main paths once more in short, where the end of the output keeps them
     runs = [("3-D main path (phase 4)", per_step, launches_3d, prof3),
@@ -3413,6 +3763,18 @@ def main(argv=None) -> int:
         print(f"summary use_godunov_debug {key} (phase 18): within "
               f"{r['max_rel_err']:.3e} of the run without the flag; "
               f"launches { {k: c for k, c in r['launches'].items() if c} }",
+              flush=True)
+    for name, r in regression_runs["quick"].items():
+        res = {k: v for k, v in r["result"].items() if k != "levels"}
+        err = max(regression_runs["card_vs_cpu"][name]["max_abs_err"]
+                  .values())
+        per = {k: round(c, 2)
+               for k, c in r["launches_per_steady_step"].items()}
+        print(f"summary regression {name} (phase 19): "
+              + (f"failed as the reference harness does: {r['failed']}"
+                 if r["failed"] else "checks passed")
+              + f"; {res}; levels {r['levels']}; wall {r['wall_s']:.3f} s; "
+              f"card vs CPU within {err:.3e}; launches a steady step {per}",
               flush=True)
     print(f"total wall time {total_s:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -361,11 +361,43 @@ def cc_apply(level: CCLevel, phi, bvals=None):
     return apply_padded(p, level.aco, level.beta, level.alpha, level.dx, dm)
 
 
+def _member_bvals(bvals):
+    """Boundary values with an entry that varies over the batch axis (a
+    tensor of several elements, composite_cc_solve's per-component
+    values) as one [[lo, hi]] * dm of host numbers a batch member (one
+    device-to-host copy of each such entry); None where every entry is
+    one number."""
+    if not any(torch.is_tensor(v) and v.numel() > 1 for bv in bvals
+               for v in bv):
+        return None
+    cols = [[v.reshape(-1).tolist() if torch.is_tensor(v) else [float(v)]
+             for v in bv] for bv in bvals]
+    nb = max(len(c) for bv in cols for c in bv)
+    return [[[c[b] if len(c) > 1 else c[0] for c in bv] for bv in cols]
+            for b in range(nb)]
+
+
 def _const_sweep(level: CCLevel, phi, rhs, bvals, emit, corr=None,
                  **fused):
     """One gsrb_const_sweep_3d pass on a scalar-beta level; phi, rhs and
     corr may carry the batch axis or not (``fused``: nsweeps and cfac of
     kernel 5's fused emits)."""
+    per = _member_bvals(bvals)
+    if per is not None and any(bv != per[0] for bv in per):
+        # per-component boundary values (the batched viscous solve of an
+        # AMR run whose hierarchy is one level): the kernel takes one set
+        # a call, so each batch member goes through it with its own
+        outs = [_const_sweep(level, phi[b:b + 1],
+                             None if rhs is None else rhs[b:b + 1], bv, emit,
+                             None if corr is None else corr[b:b + 1], **fused)
+                for b, bv in enumerate(per)]
+        if emit == "smooth_restrict":
+            return (torch.cat([o[0] for o in outs]),
+                    torch.cat([o[1] for o in outs]),
+                    torch.stack([o[2] for o in outs]).max())
+        return torch.cat(outs)
+    if per is not None:
+        bvals = per[0]
     coef = [level.beta[d] / level.dx[d] ** 2 for d in range(level.dm)]
     coef.append(level.alpha)
     batched = phi.ndim > level.dm
