@@ -1,12 +1,10 @@
 """Mesh bookkeeping of the port (varden_tpu_torch.parallel.mesh) against
 varden_tpu.parallel.mesh: joining a process group from the environment,
-rank-0 I/O gating, the mesh factoring, the rank blocks and neighbours, and
-mesh runs on one rank, which warn and run unsharded with the regridder's
-mesh-quantised patches, against varden_tpu at mesh=8 on the conftest's 8
-virtual CPU devices."""
-import warnings
-
-import numpy as np
+rank-0 I/O gating, the mesh factoring, the rank blocks and neighbours.
+The mesh runs on one rank (which warn and run unsharded with the
+regridder's mesh-quantised patches) against varden_tpu at mesh=8 are in
+tests/test_torch_decomp_amr8.py, beside the 8-rank run of the same
+configuration, so that varden_tpu's sharded run is compiled once."""
 import pytest
 import torch.distributed as dist
 
@@ -149,36 +147,3 @@ def test_nest_into_snaps_extents_as_varden_tpu():
                     Sim(VardenConfig(**dict(kw, mesh=0)), device="cpu"),
                     lo, hi, LevelSpec((0, 0), (32, 32)), 0).n
     assert snapped > 0
-
-
-AMR_BASE = dict(dim_in=2, prob_type=1, n_cellx=32, n_celly=32, max_levs=2,
-                regrid_int=-1, grav=-9.8, bcx_lo=15, bcx_hi=15, bcy_lo=15,
-                bcy_hi=15, cflfac=0.9, init_shrink=0.1, dtype="float64",
-                verbose=0, mesh=8)
-
-
-@pytest.mark.parametrize("over", [
-    # tests/test_sharding.py::test_driver_mesh_mode_two_level
-    dict(max_step=2, init_iter=1),
-    # ::test_mesh_aware_clustering_partitions_fine_patch
-    dict(max_step=1, init_iter=0)],
-    ids=["two_level", "mesh_aware_clustering"])
-def test_one_rank_mesh_amr_matches_varden_tpu(clean_env, over):
-    from varden_tpu.config import VardenConfig as JCfg
-    from varden_tpu.driver import Varden as JVarden
-    from varden_tpu_torch.config import VardenConfig
-    from varden_tpu_torch.driver import Varden
-    jv = JVarden(JCfg(**AMR_BASE, **over))
-    assert jv.mesh is not None
-    js = jv.run()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        tv = Varden(VardenConfig(**AMR_BASE, **over), device="cpu")
-        ts = tv.run()
-    assert any("running unsharded" in str(w.message) for w in caught)
-    assert tv.geom.key() == jv.geom.key()
-    assert len(ts) == len(js) >= 2
-    for a, b in zip(ts, js):
-        for k in ("u", "s", "gp", "p"):
-            x, y = getattr(a, k).numpy(), np.array(getattr(b, k))
-            assert np.abs(x - y).max() <= 1e-12 * max(1.0, np.abs(y).max())

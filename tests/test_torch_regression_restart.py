@@ -25,12 +25,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import state_arrays
+from torch_inputs import regularise_reference, state_arrays
 from varden_tpu.amr import advance_ml as jadv
 from varden_tpu.amr import fill as jfill
 from varden_tpu.amr import hierarchy as jh
-from varden_tpu.amr import solve as jsolve
-from varden_tpu.config import OUTLET
 from varden_tpu.config import load_config as jload
 from varden_tpu.state import Sim as JSim
 from varden_tpu.state import State as JState
@@ -41,33 +39,6 @@ from varden_tpu_torch.driver import Varden as TVarden
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATH = os.path.join(ROOT, "inputs", "inputs-restart-regt")
 OVER = dict(n_cellx=8, n_celly=8, n_cellz=8, max_levs=3)
-
-
-def _regularise_reference(monkeypatch):
-    """varden_tpu's composite nodal solve with a fine level that fixes no
-    node (no coarse-fine side, no outlet: decided from the geometry, as
-    the masks are traced under jit) built with mask None."""
-    free = []
-    mask_fn, build = jsolve.fine_nodal_mask, jsolve.nodal.build_hierarchy
-
-    def fine_nodal_mask(geom, lev, extra_mask=None):
-        mask = mask_fn(geom, lev, extra_mask)
-        fixed = any(geom.side_kind(lev, d, side) == "cf" or (
-            geom.side_kind(lev, d, side) == "phys"
-            and geom.sim.phys_bc[d][side] == OUTLET)
-            for d in range(geom.dm) for side in range(2))
-        if not fixed and extra_mask is None:
-            free.append(mask)
-        return mask
-
-    def build_hierarchy(n, dx, pmask, sigma, mask=None, *a, **k):
-        if any(mask is m for m in free):
-            mask = None
-        return build(n, dx, pmask, sigma, mask, *a, **k)
-
-    monkeypatch.setattr(jsolve, "fine_nodal_mask", fine_nodal_mask)
-    monkeypatch.setattr(jsolve.nodal, "build_hierarchy", build_hierarchy)
-    return free
 
 
 def _spy_resumed_step(monkeypatch):
@@ -109,7 +80,7 @@ def test_restart_at_three_levels_is_bitwise_and_resumes_as_varden_tpu(
         [(8, 8, 8), (16, 16, 16), (32, 32, 32)]
     assert set(step["hints"]) >= {"phi_mac", "phi_hg"}
 
-    free = _regularise_reference(monkeypatch)
+    free = regularise_reference(monkeypatch)
     jg = jfill.MLGeom(JSim(jload(PATH, dtype="float64", **OVER)),
                       [jh.LevelSpec(tuple(s.lo), tuple(s.n))
                        for s in geom.specs], list(geom.parent),
