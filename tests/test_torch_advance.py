@@ -11,12 +11,12 @@ solves stop at rel_eps 1e-12, where varden_tpu on the CPU smooths with
 Jacobi and the port with red-black sweeps, so the two differ by at most
 2e-12/min(rho) there (tests/test_torch_visc.py), which the later phases
 carry through."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_inputs import smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu import advance as jadv
 from varden_tpu import problems as jprob
@@ -54,7 +54,7 @@ def test_advance_timestep_matches(warm):
     dt, proj_type = 2e-3, 4
     jh = None if hints is None else {k: jnp.asarray(v)
                                      for k, v in hints.items()}
-    jnew, jdiag = jax.jit(lambda s, h: jadv.advance_timestep(
+    jnew, jdiag = ref_jit(lambda s, h: jadv.advance_timestep(
         js, s, dt, proj_type, hints=h))(
         JState(**{k: jnp.asarray(v) for k, v in arrs.items()}), jh)
     tst, th = state_from_numpy(ts, arrs, hints)
@@ -90,7 +90,7 @@ def viscous_step_matches(coefs, diffusion_type):
     arrs["u"] = arrs["u"] + smooth((3,) + n, 1, amp=0.2)
     arrs["gp"] = smooth((3,) + n, 2, amp=0.5)
     dt, proj_type = 2e-3, 4
-    jnew, jdiag = jax.jit(lambda s: jadv.advance_timestep(
+    jnew, jdiag = ref_jit(lambda s: jadv.advance_timestep(
         js, s, dt, proj_type))(
         JState(**{k: jnp.asarray(v) for k, v in arrs.items()}))
     tst, _ = state_from_numpy(ts, arrs)

@@ -5,6 +5,7 @@ held to 1e-9 of each field's size (test_torch_advance.py says why). A file
 of its own, so that --dist loadfile spreads the viscous steps."""
 import pytest
 from test_torch_advance import VISC_COEFS, viscous_step_matches
+from torch_inputs import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("diffusion_type", [1, 2])

@@ -8,13 +8,13 @@ op. The wrappers run their plain versions on CPU tensors; the kernels
 themselves are held to those on the card (test_torch_kernels_gpu.py). The
 varden_tpu functions run under jax.jit (one compile instead of hundreds of
 eagerly dispatched ops)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit
 from varden_tpu import advance as jadv
 from varden_tpu.config import VardenConfig as JCfg
 from varden_tpu.ops import basic as jbasic
@@ -156,7 +156,7 @@ def test_mkflux_plain_matches_godunov3d(bc, n, kind):
     dt, ng = 2e-3, js.ng
     jf = (jnp.asarray(force) if force is not None
           else jnp.zeros_like(jnp.asarray(s_pad)))
-    ref = jax.jit(lambda s, m, f: jg3.mkflux_3d(
+    ref = ref_jit(lambda s, m, f: jg3.mkflux_3d(
         s, m, f, jnp.zeros(s_pad.shape[1:]), dt, js.dx, js.phys_bc, adv, ng,
         n, is_vel, cons, js.cfg.slope_order, False))(jnp.asarray(s_pad),
                                                      jmac, jf)
@@ -176,7 +176,7 @@ def test_mkflux_plain_matches_the_tpu_kernel_interpreted():
     s_pad, force, jmac, tmac, adv, is_vel, cons = _mkflux_inputs(
         js, ts, "scal+force", 11)
     dt, ng = 2e-3, js.ng
-    ref = jax.jit(lambda s, m, f: jpg.mkflux_3d_fused(
+    ref = ref_jit(lambda s, m, f: jpg.mkflux_3d_fused(
         s, m, f, jnp.zeros(s_pad.shape[1:]), dt, js.dx, js.phys_bc, adv, ng,
         n, False, cons, js.cfg.slope_order, False, interpret=True))(
             jnp.asarray(s_pad), jmac, jnp.asarray(force))
@@ -205,14 +205,20 @@ def test_mkflux_wrapper_umax_and_absent_inputs(kind, minion):
     umax = 2.5
     jf = (jnp.asarray(force) if force is not None
           else jnp.zeros_like(jnp.asarray(s_pad)))
+
+    def reference(eps):
+        return ref_jit(lambda s, m, f, r: jg3.mkflux_3d(
+            s, m, f, r, dt, js.dx, js.phys_bc, adv, ng, n, is_vel, cons,
+            js.cfg.slope_order, minion, eps=eps))
+
+    # one compile for each umax, mac_rhs being an argument
+    refs = {given: reference(None if given is None
+                             else jnp.asarray(1e-8 * given))
+            for given in (None, umax)}
     for with_rhs in (False, True):
         jr = jnp.asarray(rhs) if with_rhs else jnp.zeros(s_pad.shape[1:])
         for given in (None, umax):
-            eps = None if given is None else jnp.asarray(1e-8 * given)
-            ref = jax.jit(lambda s, m, f, r: jg3.mkflux_3d(
-                s, m, f, r, dt, js.dx, js.phys_bc, adv, ng, n, is_vel, cons,
-                js.cfg.slope_order, minion, eps=eps))(
-                    jnp.asarray(s_pad), jmac, jf, jr)
+            ref = refs[given](jnp.asarray(s_pad), jmac, jf, jr)
             got = tcg.mkflux_3d_fused(
                 torch.tensor(s_pad), tmac,
                 None if force is None else torch.tensor(force),

@@ -2,7 +2,11 @@
 max_levs 2, regrid_int 2, visc_coef 1e-3: initial projection, one pressure
 iteration, three steps, a regrid at step 3) against varden_tpu's (float64,
 CPU) at 1e-9 of each field's size, with equal boxes; and the port's CLI
-alone on the 3-D regression inputs at 16^3 with two levels."""
+alone on the 3-D regression inputs at 16^3 with two levels; then the same
+inputs against varden_tpu across a regrid. They sit in this file,
+beside its other tests, because pytest-xdist's --dist loadfile hands the
+files out by their number of tests, most first: a file of few heavy tests
+would start last and make the run's tail."""
 import os
 import re
 import subprocess
@@ -11,6 +15,7 @@ import sys
 import numpy as np
 
 from torch_inputs import state_arrays, one_torch_thread  # noqa: F401
+from torch_inputs import assert_runs_agree, run_inputs_both
 from varden_tpu.config import VardenConfig as JCfg
 from varden_tpu.driver import Varden as JVarden
 from varden_tpu_torch.config import VardenConfig as TCfg
@@ -80,3 +85,17 @@ def test_step_ml_chunk_equals_single_steps():
     for a, b in zip(state_arrays(sa), state_arrays(sb)):
         for k in a:
             assert np.array_equal(a[k], b[k]), k
+
+
+def test_regt_3d_two_levels_across_a_regrid():
+    """The 3-D regression inputs (inputs/inputs_3d-regt: the bubble, walls,
+    regrid every 2 steps) at a 16^3 base with two levels for three steps,
+    the port against varden_tpu (float64, CPU): a rebuilding or kept regrid
+    at step 3, the same boxes, and every field of every patch at 1e-9 of
+    its size."""
+    runs = run_inputs_both(os.path.join(ROOT, "inputs", "inputs_3d-regt"),
+                           n_cellx=16, n_celly=16, n_cellz=16, max_levs=2,
+                           max_step=3)
+    jv, tv, js, ts = runs
+    assert tv.istep == 3 and tv.regrids >= 1 and len(ts) >= 2
+    assert_runs_agree(*runs)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import smooth, state_arrays
+from torch_inputs import ref_jit, smooth, state_arrays
 from varden_tpu import problems as jprob
 from varden_tpu.amr import advance_ml as jadv
 from varden_tpu.amr import fill as jfill
@@ -67,7 +67,7 @@ def stepped(request):
     diag, varden_tpu states and diag, geometries)."""
     js, ts, jg, tg, jst, tst = _setup(request.param)
     dt = 0.5 * min(jg.dx(1)) / 0.5
-    jout, jdiag = jax.jit(lambda st: jadv.ml_advance(jg, st, dt, 4))(jst)
+    jout, jdiag = ref_jit(lambda st: jadv.ml_advance(jg, st, dt, 4))(jst)
     # the port's step with its Godunov wrappers counted: (name, flux_comps)
     # per call
     calls = []
@@ -165,7 +165,7 @@ def test_inter_level_operators_match():
                 mod.restrict_and_sync(jg if mod is jadv else tg,
                                       [tens(c) for c in cells]))
 
-    want = jax.jit(lambda: ops(jadv, jnp.asarray))()
+    want = ref_jit(lambda: ops(jadv, jnp.asarray))()
     got = ops(tadv, torch.tensor)
     flat_w = jax.tree_util.tree_leaves(want)
     flat_g = [x for grp in got for lev in grp

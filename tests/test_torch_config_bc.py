@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_inputs import one_torch_thread  # noqa: F401
 from varden_tpu import bc as jbc
 from varden_tpu import config as jcfg
 from varden_tpu import problems as jprob

@@ -6,12 +6,11 @@ port the edge-state kernel (mkflux_3d_fused, whose density fluxes feed the
 flux registers) and then the update kernel (update_3d), on the scalars
 and the velocity of both levels, and the fused kernel not at all. Every
 field of every patch within 1e-10 of its size."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import smooth, state_arrays
+from torch_inputs import ref_jit, smooth, state_arrays
 from varden_tpu import problems as jprob
 from varden_tpu.amr import advance_ml as jadv
 from varden_tpu.amr import fill as jfill
@@ -56,7 +55,7 @@ def test_debug_ml_advance_matches_varden_tpu(monkeypatch):
             return _f(*a, **k)
         monkeypatch.setattr(mod, name, spy)
     dt = 0.5 * min(jg.dx(1)) / 0.5
-    step = jax.jit(lambda st: jadv.ml_advance(jg, st, dt, 4)[0])
+    step = ref_jit(lambda st: jadv.ml_advance(jg, st, dt, 4)[0])
     for _ in range(2):
         jst = step(jst)
         tst, diag = tadv.ml_advance(tg, tst, dt, 4)

@@ -17,7 +17,6 @@ batched, each spawn bounded in time so that a deadlock fails the tests.
 - Within 1e-9: the one-rank and decomposed runs against varden_tpu
   unsharded (the periodic box with varden_tpu's accelerator route to the
   padded sweep, as the port's rule takes it)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +24,7 @@ import torch
 
 import torch_decomp_cases as cases
 from torch_inputs import force_padded_route, one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit
 from varden_tpu_torch.parallel import launch
 
 SOLVES = ["mg:face2d", "mg:const3d", "mg:padded3d", "nodal:walls2d",
@@ -101,7 +101,7 @@ def _jax_steps(name):
     from varden_tpu.state import Sim
     sim = Sim(VardenConfig(**cases.STEP_CFGS[name]))
     state = problems.initdata(sim)
-    step = jax.jit(lambda s, dt: advance.advance_timestep(
+    step = ref_jit(lambda s, dt: advance.advance_timestep(
         sim, s, dt, projection.REGULAR_TIMESTEP)[0])
     dt = jnp.asarray(cases.STEP_DT, sim.dtype)
     for _ in range(cases.STEPS):

@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 
+from torch_inputs import one_torch_thread  # noqa: F401
 from varden_tpu.config import VardenConfig as JCfg
 from varden_tpu.driver import Varden as JVarden
 from varden_tpu_torch.config import VardenConfig as TCfg

@@ -6,6 +6,7 @@ field's size (test_torch_driver.py says why). A file of its own, so that
 --dist loadfile spreads the driver runs."""
 import pytest
 from test_torch_driver import VISCOUS_RUNS, viscous_run_matches
+from torch_inputs import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("extra", [VISCOUS_RUNS["be-krylov"]],

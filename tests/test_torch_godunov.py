@@ -4,11 +4,12 @@ wrapper (its plain version on CPU tensors). Tolerance 1e-12 absolute on O(1) fie
 same op for op, so only library-level roundoff differs."""
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit
 
 from varden_tpu.config import VardenConfig as JCfg
 from varden_tpu.ops import godunov3d as jg3
@@ -68,7 +69,7 @@ def test_velpred_matches(bc):
     u_pad, f_pad = _vel_inputs(js)
     adv = [js.adv_bc[d] for d in range(3)]
     args = (2e-3, js.dx, js.phys_bc, adv, js.ng, js.n_cell, 4, False)
-    ref = jax.jit(lambda u, f: jg3.velpred_3d(u, f, *args))(
+    ref = ref_jit(lambda u, f: jg3.velpred_3d(u, f, *args))(
         jnp.asarray(u_pad), jnp.asarray(f_pad))
     out = tg3.velpred_3d(torch.as_tensor(u_pad), torch.as_tensor(f_pad),
                          *args)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_inputs import one_torch_thread  # noqa: F401
 from torch_inputs import smooth
 
 from varden_tpu.advance import embed_faces as jembed

@@ -13,13 +13,12 @@ against zero tensors. Last, whole runs with use_godunov_debug in 2-D at
 within 1e-10 of its size."""
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import assert_runs_agree, run_inputs_both
+from torch_inputs import assert_runs_agree, ref_jit, run_inputs_both
 
 from varden_tpu.advance import embed_faces as jembed
 from varden_tpu.config import VardenConfig as JCfg
@@ -94,12 +93,24 @@ def test_velpred_ref_matches(dm, bcname):
         args = (DT, js.dx, js.phys_bc, adv, ng, n, 4, minion)
         fn = jref.velpred_2d if dm == 2 else jref.velpred_3d
         tfn = tref.velpred_2d if dm == 2 else tref.velpred_3d
-        ref = jax.jit(lambda u, f: fn(u, f, *args))(jnp.asarray(u),
+        ref = ref_jit(lambda u, f: fn(u, f, *args))(jnp.asarray(u),
                                                     jnp.asarray(f))
         out = tfn(_t(u), _t(f), *args)
         for d in range(dm):
             assert out[d].shape == ref[d].shape
             _close(out[d], ref[d], f"velpred dm={dm} {bcname} face {d}")
+
+
+_EMBED = {}
+
+
+def _embed(js):
+    """varden_tpu's embed_faces on the configuration of ``js``, jitted once
+    for each configuration (the faces are its argument)."""
+    key = repr(js.cfg)
+    if key not in _EMBED:
+        _EMBED[key] = ref_jit(lambda um: jembed(js, um, js.ng))
+    return _EMBED[key]
 
 
 def _mkflux_inputs(js, dm, is_vel, seed=3):
@@ -112,8 +123,7 @@ def _mkflux_inputs(js, dm, is_vel, seed=3):
     mrhs = rng.randn(*[x + 2 * ng for x in n]) * 0.1
     umac = tuple(rng.randn(*[n[t] + (1 if t == d else 0) for t in range(dm)])
                  for d in range(dm))
-    mp = jax.jit(lambda um: jembed(js, um, ng))(
-        tuple(jnp.asarray(x) for x in umac))
+    mp = _embed(js)(tuple(jnp.asarray(x) for x in umac))
     adv = ([js.adv_bc[d] for d in range(dm)] if is_vel
            else [js.adv_bc[js.scal_comp(i)] for i in range(2)])
     cons = [False] * dm if is_vel else [True, False]
@@ -130,12 +140,12 @@ def test_mkflux_ref_matches(dm, bcname, is_vel):
     minion = not is_vel  # the minion source branch once
     tail = (DT, js.dx, js.phys_bc, adv, ng, n, is_vel, cons, 4, minion)
     if dm == 2:
-        ref = jax.jit(lambda s, f, r, m0, m1: jref.mkflux_2d(
+        ref = ref_jit(lambda s, f, r, m0, m1: jref.mkflux_2d(
             s, m0, m1, f, r, *tail))(*map(jnp.asarray, (s, sf, mrhs, *mp)))
         out = tref.mkflux_2d(_t(s), _t(mp[0]), _t(mp[1]), _t(sf), _t(mrhs),
                              *tail)
     else:
-        ref = jax.jit(lambda s, f, r, m: jref.mkflux_3d(
+        ref = ref_jit(lambda s, f, r, m: jref.mkflux_3d(
             s, m, f, r, *tail))(jnp.asarray(s), jnp.asarray(sf),
                                 jnp.asarray(mrhs),
                                 tuple(map(jnp.asarray, mp)))

@@ -14,12 +14,12 @@ The TPU kernel pk.gsrb_sweep_2d keeps the ghosts it was given through both
 colours, so its black cells on a Dirichlet or periodic boundary row see
 stale ghosts; the port's sweep is exact there. The two are compared on the
 cells no ghost reaches (one or more cells from every boundary)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_inputs import smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu import projection as jproj
 from varden_tpu.config import VardenConfig as JCfg
@@ -77,7 +77,7 @@ def test_gsrb_sweep_2d_matches_mg_gsrb(n, ell_bc, alpha):
     one = tck.gsrb_sweep_2d(*args, aco=tl.aco, alpha=alpha)
     assert _err(one, jmg.gsrb(jl, jnp.asarray(phi), jnp.asarray(rhs), BV,
                               1)) < 1e-11
-    ref3 = jax.jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 3))(
+    ref3 = ref_jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 3))(
         jnp.asarray(phi), jnp.asarray(rhs))
     assert _err(tmg.gsrb(tl, tp, tr, BV, 3), ref3) < 1e-11
 
@@ -140,7 +140,7 @@ def test_solve_2d_on_a_mac_operator(n, ell_bc, bottom):
     dx = (1.0 / 32, 1.0 / 32)
     kw = dict(alpha=0.0, rel_eps=1e-10, abs_eps=-1.0, return_info=True,
               bottom=bottom)
-    pj, (rn_j, it_j, _) = jax.jit(lambda b, r: jmg.solve(
+    pj, (rn_j, it_j, _) = ref_jit(lambda b, r: jmg.solve(
         n, dx, ell_bc, jnp.zeros(n), b, r, **kw))(
         tuple(jnp.asarray(b) for b in beta), jnp.asarray(rhs))
     pt, (rn_t, it_t, ratio) = tmg.solve(
@@ -172,7 +172,7 @@ def test_helmholtz_solve_2d_matches(bc, mu, batched):
     phi0 = smooth(shape, 3, amp=0.5, dm=2)
     kw = dict(alpha=1.0, bvals=bvals, rel_eps=1e-12, abs_eps=-1.0,
               return_info=True)
-    pj, (rn_j, it_j, ratio_j) = jax.jit(lambda a, r, p: jmg.solve(
+    pj, (rn_j, it_j, ratio_j) = ref_jit(lambda a, r, p: jmg.solve(
         N, DXH, ell_bc, a, (mu,) * 2, r, phi0=p, **kw))(
         jnp.asarray(aco), jnp.asarray(rhs), jnp.asarray(phi0))
     pt, (rn_t, it_t, ratio_t) = tmg.solve(
@@ -356,7 +356,7 @@ def test_visc_solve_2d_matches(bc, visc, diffusion_type):
     lapu = smooth((2,) + n, 6, amp=3.0, dm=2)
     rho = 1.0 + 0.5 * (1.0 + smooth(n, 7, amp=1.0, dm=2))
     mu = 0.5 * 2e-3 * visc
-    pj = jax.jit(lambda u, l, r: jproj.visc_solve(
+    pj = ref_jit(lambda u, l, r: jproj.visc_solve(
         js, u, l, r, jnp.zeros(n), mu, diffusion_type))(
         jnp.asarray(unew), jnp.asarray(lapu), jnp.asarray(rho))
     pt, (_, cycles, ratio) = tproj.visc_solve(
@@ -376,7 +376,7 @@ def test_diff_scalar_solve_2d_matches(diffusion_type):
                      smooth(n, 9, amp=0.5, dm=2)])
     laps = smooth((2,) + n, 10, amp=3.0, dm=2)
     mu = 0.5 * 2e-3 * 1e-2
-    pj = jax.jit(lambda s, l: jproj.diff_scalar_solve(
+    pj = ref_jit(lambda s, l: jproj.diff_scalar_solve(
         js, s, l, mu, diffusion_type))(jnp.asarray(snew), jnp.asarray(laps))
     pt = tproj.diff_scalar_solve(ts, torch.as_tensor(snew),
                                  torch.as_tensor(laps), mu, diffusion_type)

@@ -15,13 +15,12 @@ is taken. Tolerance: 1e-12 of each field's largest value (the same
 arithmetic, the residual summed in another order). A 2-D MAC solve gives
 the same phi, cycle count and ratio through the fused stages as through
 the single passes, bit for bit."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import smooth
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu.solvers import mg as jmg
 from varden_tpu_torch.ops import cuda_kernels as tck
@@ -63,7 +62,7 @@ def _problem(n, ell_bc, seed):
 ])
 def test_gsrb2d_fused_stages_match_varden_tpu(n, ell_bc, corr_fac):
     rng, jl, phi, rhs, targs = _problem(n, ell_bc, sum(n))
-    sweeps = jax.jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 2))
+    sweeps = ref_jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 2))
     if corr_fac is not None:
         c = rng.rand(*[s // f for s, f in zip(n, corr_fac)]) - 0.5
         cf = c
@@ -81,7 +80,7 @@ def test_gsrb2d_fused_stages_match_varden_tpu(n, ell_bc, corr_fac):
     p, crs, rmax = tck.gsrb_sweep_2d(*targs, emit="smooth_restrict",
                                      nsweeps=2)
     _close(p, ref_phi, "smooth_restrict phi")
-    r = jax.jit(lambda q: jnp.asarray(rhs) - jmg.cc_apply(jl, q, BV))(ref_phi)
+    r = ref_jit(lambda q: jnp.asarray(rhs) - jmg.cc_apply(jl, q, BV))(ref_phi)
     _close(crs, jmg._cell_avg_down(r, 2), "smooth_restrict coarse residual")
     _close(rmax, jnp.max(jnp.abs(r)), "smooth_restrict max|r|")
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_inputs import one_torch_thread  # noqa: F401
 from varden_tpu.ops import pallas_kernels as jpk
 from varden_tpu.solvers import mg as jmg
 from varden_tpu_torch.ops import cuda_kernels as tck

@@ -16,13 +16,13 @@ sweep. mg.solve of a periodic-x MAC operator holds to varden_tpu's
 accelerator route at 1e-9 relative (both run the same V-cycles to rel_eps
 1e-10). Against varden_tpu's unpatched CPU route (the exact sweep) the two
 would agree only to the solver's tolerance."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_inputs import force_padded_route, smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import force_padded_route, ref_jit, smooth
 from varden_tpu.ops import pallas_kernels as jpk
 from varden_tpu.solvers import mg as jmg
 from varden_tpu_torch.ops import cuda_kernels as tck
@@ -140,7 +140,7 @@ def test_gsrb_takes_the_padded_sweep(monkeypatch, n, ell_bc, alpha):
                                       aco=tl.aco, alpha=alpha)
     assert torch.equal(out, ref)
     calls = force_padded_route(monkeypatch)
-    want = jax.jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 2))(
+    want = ref_jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 2))(
         jnp.asarray(phi), jnp.asarray(rhs))
     assert calls
     assert float(np.max(np.abs(out.numpy() - np.asarray(want)))) <= 1e-12
@@ -150,7 +150,7 @@ def test_odd_periodic_level_keeps_the_exact_sweep():
     n, ell_bc = (15, 9, 8), [(0, 0), (1, 1), (2, 2)]
     jl, tl, phi, rhs = _problem(n, ell_bc, 0.0)
     out = tmg.gsrb(tl, torch.as_tensor(phi), torch.as_tensor(rhs), BV, 3)
-    want = jax.jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 3))(
+    want = ref_jit(lambda p, r: jmg.gsrb(jl, p, r, BV, 3))(
         jnp.asarray(phi), jnp.asarray(rhs))
     assert float(np.max(np.abs(out.numpy() - np.asarray(want)))) <= 1e-11
 
@@ -173,7 +173,7 @@ def test_solve_matches_the_accelerator_route(monkeypatch, n, ell_bc):
     rhs = smooth(n, 8, amp=10.0)
     calls = force_padded_route(monkeypatch)
     kw = dict(rel_eps=1e-10)
-    jphi, jrn = jax.jit(lambda r: jmg.solve(
+    jphi, jrn = ref_jit(lambda r: jmg.solve(
         n, DX, ell_bc, jnp.zeros(n), [jnp.asarray(b) for b in beta], r,
         **kw))(jnp.asarray(rhs))
     assert calls

@@ -19,14 +19,13 @@ periodic-x hierarchy, config 4's boundaries and a fully periodic (vortex
 tube) one, give through the fused stages what the ghost pad, the padded
 sweep and kernel 3's restriction gave before them, bit for bit, and call
 mg._pad_ghost no more."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_torch_gsrb_padded import BV, DX, SWEEP_CASES, _problem
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import smooth
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu.ops import pallas_kernels as jpk
 from varden_tpu.solvers import mg as jmg
@@ -53,7 +52,7 @@ def test_fused_stages_match_the_accelerator_route(case, stage):
     nu, cfac = stage
     jl, tl, phi, rhs = _problem(n, ell_bc, alpha)
     inv = tl.inv_diag.numpy()
-    sweep = jax.jit(lambda p, r: jpk.gsrb_sweep_3d(
+    sweep = ref_jit(lambda p, r: jpk.gsrb_sweep_3d(
         jmg._pad_ghost(p, ell_bc, BV, 3), r, jnp.asarray(inv), list(jl.beta),
         DX, aco=jl.aco, alpha=alpha, interpret=True))
 
@@ -77,7 +76,7 @@ def test_fused_stages_match_the_accelerator_route(case, stage):
     ref = sweeps(phi)
     p, crs, rmax = tck.gsrb_sweep_3d(*targs, emit="smooth_restrict", **tkw)
     _close(p, ref, "smooth_restrict phi")
-    r = jax.jit(lambda q: jnp.asarray(rhs) - jmg.cc_apply(jl, q, BV))(ref)
+    r = ref_jit(lambda q: jnp.asarray(rhs) - jmg.cc_apply(jl, q, BV))(ref)
     _close(crs, jmg._cell_avg_down(r, 3), "smooth_restrict coarse residual")
     _close(rmax, jnp.max(jnp.abs(r)), "smooth_restrict max|r|")
 

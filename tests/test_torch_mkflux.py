@@ -5,11 +5,12 @@ flux option against varden_tpu's kernel in interpret mode). Tolerance 1e-12 abso
 same op for op, so only library-level roundoff differs."""
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit
 
 from varden_tpu import advance as jadv
 from varden_tpu.config import VardenConfig as JCfg
@@ -82,7 +83,7 @@ def test_mkflux_update_matches(bc, is_vel, with_force):
 
     J = lambda a: None if a is None else jnp.asarray(a)
     T = lambda a: None if a is None else torch.as_tensor(a)
-    ref_e, ref_f, ref_new = jax.jit(jref)(J(s_pad), jmac, J(f_pad),
+    ref_e, ref_f, ref_new = ref_jit(jref)(J(s_pad), jmac, J(f_pad),
                                           J(rhs_pad), J(fupd))
     out_e, out_f = tg3.mkflux_3d(T(s_pad), tmac, T(f_pad), T(rhs_pad), *tail)
     for d in range(3):
@@ -95,7 +96,7 @@ def test_mkflux_update_matches(bc, is_vel, with_force):
     # components' conservative fluxes (zero for a convective one) against
     # varden_tpu's kernel in interpret mode
     fc = (0, 2) if is_vel else (0,)
-    kern = jax.jit(lambda s_, m_, f_, r_, u_: jpg.mkflux_update_3d_fused(
+    kern = ref_jit(lambda s_, m_, f_, r_, u_: jpg.mkflux_update_3d_fused(
         s_, m_, f_, u_, r_, *tail, flux_comps=fc, interpret=True))
     ref_new2, ref_fl = kern(J(s_pad), jmac, J(f_pad), J(rhs_pad), J(fupd))
     snew2, sflux2 = tcg.mkflux_update_3d_fused(

@@ -7,12 +7,12 @@ arithmetic, summed in another order); 1e-9 relative for solves (both run
 the same V-cycles to rel_eps 1e-10, so they agree to well inside the solver
 tolerance); 1e-8 relative with the iterative bottom solvers, whose stop
 tests may fall on either side of a roundoff-level difference."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_inputs import smooth as _smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit, smooth as _smooth
 
 from varden_tpu.ops import pallas_kernels as jpk
 from varden_tpu.solvers import nodal as jnd
@@ -86,7 +86,7 @@ def test_nodal_solve_matches(pmask, with_mask):
         mask = np.ones(ns)
         mask[:, -1, :] = 0.0
     kw = dict(rel_eps=1e-10, abs_eps=-1.0, return_info=True)
-    pj, (rn_j, it_j, _) = jax.jit(lambda s, r, m: jnd.solve(
+    pj, (rn_j, it_j, _) = ref_jit(lambda s, r, m: jnd.solve(
         N, dx, pmask, s, r, mask=m, **kw))(
         jnp.asarray(sigma), jnp.asarray(rhs),
         None if mask is None else jnp.asarray(mask))
@@ -112,7 +112,7 @@ def test_nodal_solve_with_each_bottom_solver(pmask, with_mask, bottom):
         mask = np.ones(ns)
         mask[:, -1, :] = 0.0
     kw = dict(rel_eps=1e-10, abs_eps=-1.0, return_info=True, bottom=bottom)
-    pj, (rn_j, it_j, ratio_j) = jax.jit(lambda s, r, m: jnd.solve(
+    pj, (rn_j, it_j, ratio_j) = ref_jit(lambda s, r, m: jnd.solve(
         N, dx, pmask, s, r, mask=m, **kw))(
         jnp.asarray(sigma), jnp.asarray(rhs),
         None if mask is None else jnp.asarray(mask))

@@ -11,13 +11,12 @@ and trace() writes a Chrome trace."""
 import json
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch_inputs import one_torch_thread  # noqa: F401
-from torch_inputs import smooth
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu import problems as jprob
 from varden_tpu import projection as jproj
@@ -116,7 +115,7 @@ def _states(dm):
 @pytest.mark.parametrize("dm", [2, 3])
 def test_phase_fns_match_varden_tpu(dm):
     js, ts, jst, tst = _states(dm)
-    premac, mac, scalar, hg = (jax.jit(f) for f in _jax_phases(js))
+    premac, mac, scalar, hg = (ref_jit(f) for f in _jax_phases(js))
     f = profiling.phase_fns(ts)
     assert set(f) == {"premac", "mac", "scalar", "hg"}
     jumac = premac(jst, DT)

@@ -4,12 +4,12 @@ V-cycles to rel_eps 1e-10 (MAC) and 1e-12 (nodal), so they agree to well
 inside the solver tolerance. The grid is 16x24x16 with isotropic cells (at
 a 1.5:1 cell aspect ratio the nodal V-cycle of both packages stalls far
 above its tolerance)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_inputs import smooth as _smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit, smooth as _smooth
 
 from varden_tpu import projection as jproj
 from varden_tpu.config import VardenConfig as JCfg
@@ -46,7 +46,7 @@ def test_macproject_matches(bc):
     umac = tuple(_smooth(tuple(n[t] + (1 if t == d else 0) for t in range(3)),
                          10 + d) for d in range(3))
     rho = 5.5 + 9.0 * _smooth(n, 6)
-    ref = jax.jit(lambda u, r: jproj.macproject(js, u, r))(
+    ref = ref_jit(lambda u, r: jproj.macproject(js, u, r))(
         tuple(jnp.asarray(u) for u in umac), jnp.asarray(rho))
     out = tproj.macproject(ts, tuple(torch.as_tensor(u) for u in umac),
                            torch.as_tensor(rho))
@@ -71,7 +71,7 @@ def test_hgproject_matches(bc, proj_type):
     p = _smooth(js.node_shape(), 9)
     dt = 2e-3
     args = (unew, uold, rhohalf, p, gp)
-    ref = jax.jit(lambda *a: jproj.hgproject(js, proj_type, *a, dt))(
+    ref = ref_jit(lambda *a: jproj.hgproject(js, proj_type, *a, dt))(
         *map(jnp.asarray, args))
     out = tproj.hgproject(ts, proj_type, *map(torch.as_tensor, args), dt)
     for k, name in enumerate(("unew", "p", "gp", "phi")):

@@ -3,7 +3,13 @@ run_regression.py: the same workload table (read from the file with ast:
 importing it sets JAX's global config), the same configs as varden_tpu's
 loader gives for every workload in quick and full mode, each runner passing
 on the CPU at a tiny size, and each check failing on a state that breaks
-it."""
+it. Then the hierarchies that the suite reaches, the port held to
+varden_tpu step by step (torch_inputs.hold_port_run): the 2-D regression
+inputs with four levels, the 2-D Rayleigh-Taylor inputs with three and the
+2-D advection inputs with two, each across a regrid. They sit in this file,
+beside its many cheap tests, because pytest-xdist's --dist loadfile hands
+the files out by their number of tests, most first: a file of one heavy
+test would start last and make the run's tail."""
 import ast
 import dataclasses
 import os
@@ -14,6 +20,7 @@ import pytest
 import torch
 
 from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import hold_port_run
 from varden_tpu.config import load_config as jload
 from varden_tpu_torch import regression as reg
 from varden_tpu_torch.state import State
@@ -251,3 +258,52 @@ def test_advect_3d_check_fails_in_both_packages_at_its_initial_data():
         _harness_fn("_check")(None, [jst], 2.0)
     with pytest.raises(reg.CheckFailed, match="level 0 rho overshoot"):
         reg._check(_driver((16, 16, 16)), [tst], 2.0)
+
+
+def test_bubble_2d_four_levels_follows_varden_tpu():
+    """The 2-D regression inputs with four levels (inputs/inputs_2d-regt: the
+    bubble in a box with walls, regrid every 2 steps) at a 32^2 base for 4
+    steps, across the step-3 regrid, the port held to varden_tpu step by step
+    (float64, CPU; torch_inputs.hold_port_run): the initial hierarchy and data,
+    the tree and data of the regrid, and the last step within 1e-9 of each
+    field's size (varden_tpu pins this hierarchy's depth only in its own golden
+    case, bubble-2d-ml4)."""
+    tv, ts, boxes = hold_port_run(
+        os.path.join(ROOT, "inputs", "inputs_2d-regt"), n_cellx=32,
+        n_celly=32, max_step=4)
+    assert len(ts) == 4 and tv.regrids >= 1 and len(boxes) == 4
+    assert all(len(b) == 4 for _, b in boxes)
+
+
+def test_rt_2d_three_levels_follows_varden_tpu():
+    """The 2-D Rayleigh-Taylor regression inputs
+    (inputs/inputs_RayleighTaylor_2d: periodic x, no-slip walls in y, three
+    levels, regrid every 2 steps) at a 32^2 base for 3 steps, across the step-3
+    regrid, the port held to varden_tpu step by step (float64, CPU;
+    torch_inputs.hold_port_run): the initial hierarchy and data, the tree and
+    data of the regrid, and the last step within 1e-9 of each field's size. Its
+    patches span the periodic axis, so the coarse-fine fills and composite
+    solves wrap across x."""
+    tv, ts, boxes = hold_port_run(
+        os.path.join(ROOT, "inputs", "inputs_RayleighTaylor_2d"),
+        n_cellx=32, n_celly=32, max_step=3)
+    assert len(ts) == 3 and tv.regrids >= 1 and len(boxes) == 3
+    assert all(b[0][1] == (32, 32) for _, b in boxes)
+    assert all(b[1][1][0] == 64 for _, b in boxes)  # spans periodic x
+
+
+def test_advect_2d_two_levels_follows_varden_tpu():
+    """The 2-D advection regression inputs (inputs/inputs_advect_2d: inlet at x
+    lo with u_bc 1, outlet at x hi, slip walls in y, two levels, regrid every 2
+    steps) at their shipped 64^2 base for 3 steps, across the step-3 regrid,
+    the port held to varden_tpu step by step (float64, CPU;
+    torch_inputs.hold_port_run): the initial hierarchy and data, the tree and
+    data of the regrid, and the last step within 1e-9 of each field's size.
+    Level 1 (64^2 at (32, 32), then 80^2 at (24, 24)) leaves the inlet face
+    uncovered; a base whose level 1 covers the domain (32^2) is the inlet
+    departure of ROADMAP.md section 3, which tests/test_torch_amr_solve.py
+    holds with varden_tpu patched."""
+    tv, ts, boxes = hold_port_run(
+        os.path.join(ROOT, "inputs", "inputs_advect_2d"), max_step=3)
+    assert len(ts) == 2 and tv.regrids >= 1 and len(boxes) == 3
+    assert boxes[-1][1] == [((0, 0), (64, 64)), ((24, 24), (80, 80))]

@@ -15,13 +15,12 @@ packages reach it to 1e-9.
 Then the RT inputs' hierarchy at a 16^3 base (two levels): the same
 patches, initial data and padded ghosts (a patch spanning the periodic x
 and y axes wraps) as varden_tpu's, to 1e-12."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from torch_inputs import force_padded_route, one_torch_thread  # noqa: F401
-from torch_inputs import state_arrays
+from torch_inputs import ref_jit, state_arrays
 from varden_tpu.amr import fill as jfill
 from varden_tpu.amr import regrid as jreg
 from varden_tpu.config import VardenConfig as JCfg
@@ -85,7 +84,7 @@ def test_rt_hierarchy_matches():
         assert tg.pmask_level(lev) == [jg.side_kind(lev, d, 0) == "per"
                                        for d in range(3)]
         assert tg.ell_bc_level(lev, 0) == jg.ell_bc_level(lev, 0)
-    want = jax.jit(lambda u: [jfill.pad_ml_multi(jg, u, [0, 1, 2], lev, 3)
+    want = ref_jit(lambda u: [jfill.pad_ml_multi(jg, u, [0, 1, 2], lev, 3)
                               for lev in range(jg.nlev)])(
         [jnp.asarray(a["u"]) for a in state_arrays(jst)])
     for lev in range(tg.nlev):

@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 
+from torch_inputs import one_torch_thread  # noqa: F401
 from varden_tpu.config import VardenConfig as JCfg
 from varden_tpu.config import load_config as jload
 from varden_tpu.driver import Varden as JVarden

@@ -25,11 +25,12 @@ Every elliptic BC code (periodic 0, Neumann 1, Dirichlet 2 with non-zero
 face values, coarse-fine ghost 3), a periodic axis and an odd extent where
 the emit takes one. Tolerance: 1e-12 of each field's largest value (the
 same arithmetic, summed in another order)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit
 
 from varden_tpu.ops import pallas_kernels as jpk
 from varden_tpu.solvers import mg as jmg
@@ -68,7 +69,7 @@ def test_gsrb_var_fused_stages_match_varden_tpu(n, ell_bc, corr_fac):
     inv = np.where(diag != 0.0, 1.0 / np.where(diag == 0.0, 1.0, diag), 0.0)
     targs = (torch.as_tensor(phi), torch.as_tensor(rhs), torch.as_tensor(inv),
              tuple(torch.as_tensor(b) for b in beta), DX, ell_bc, bv)
-    sweeps = jax.jit(lambda p, r: jmg.gsrb(jl, p, r, bv, 2))
+    sweeps = ref_jit(lambda p, r: jmg.gsrb(jl, p, r, bv, 2))
     # smooth with a coarse correction: phi + its piecewise-constant copy
     if corr_fac is not None:
         c = rng.rand(*[s // f for s, f in zip(n, corr_fac)]) - 0.5
@@ -166,7 +167,7 @@ def test_gsrb_const_fused_stages_match_varden_tpu(n, ell_bc, B, alpha,
     taco = torch.as_tensor(aco) if alpha else None
     targs = (torch.as_tensor(phi), torch.as_tensor(rhs), torch.as_tensor(inv),
              coef, ell_bc, bv)
-    sweeps = jax.jit(lambda p, r: jmg.gsrb(jl, p, r, bv, 2))
+    sweeps = ref_jit(lambda p, r: jmg.gsrb(jl, p, r, bv, 2))
     if corr_fac is not None:
         c = rng.rand(B, *[s // f for s, f in zip(n, corr_fac)]) - 0.5
         cf = c

@@ -5,12 +5,12 @@ and backward Euler; diffusive), held to 1e-10 relative to each field's size:
 both run the same arithmetic and the same solver cycles, and in 2-D both
 smooth the Helmholtz fast path with Jacobi, so nothing but roundoff
 differs. Whole runs are in tests/test_torch_run2d.py."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_inputs import smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu import advance as jadv
 from varden_tpu import problems as jprob
@@ -74,7 +74,7 @@ def test_advance_timestep_2d_matches(case, warm):
     dt, proj_type = 2e-3, 4
     jh = None if hints is None else {k: jnp.asarray(v)
                                      for k, v in hints.items()}
-    jnew, jdiag = jax.jit(lambda s, h: jadv.advance_timestep(
+    jnew, jdiag = ref_jit(lambda s, h: jadv.advance_timestep(
         js, s, dt, proj_type, hints=h))(
         JState(**{k: jnp.asarray(v) for k, v in arrs.items()}), jh)
     tst, th = state_from_numpy(ts, arrs, hints)

@@ -13,12 +13,12 @@ M-matrix whose row sums are at least alpha*aco, so ||A^-1||_inf <=
                             <= 2 tol/min(alpha*aco).
 On the V-cycle branch both run the same cycles (exact red-black sweeps, the
 dense bottom), and the same bound is asserted."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_inputs import smooth
+from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import ref_jit, smooth
 
 from varden_tpu import projection as jproj
 from varden_tpu.config import VardenConfig as JCfg
@@ -61,7 +61,7 @@ def test_helmholtz_solve_matches(bc, mu, batched):
     phi0 = smooth(shape, 3, amp=0.5)
     kw = dict(alpha=1.0, bvals=bvals, rel_eps=REL_EPS, abs_eps=-1.0,
               return_info=True)
-    pj, (rn_j, it_j, ratio_j) = jax.jit(lambda a, r, p: jmg.solve(
+    pj, (rn_j, it_j, ratio_j) = ref_jit(lambda a, r, p: jmg.solve(
         N, DX, ell_bc, a, (mu,) * 3, r, phi0=p, **kw))(
         jnp.asarray(aco), jnp.asarray(rhs), jnp.asarray(phi0))
     pt, (rn_t, it_t, ratio_t) = tmg.solve(
@@ -141,7 +141,7 @@ def test_visc_solve_matches(bc, diffusion_type):
     lapu = smooth((3,) + N, 6, amp=3.0)
     rho = 1.0 + 4.5 * (1.0 + smooth(N, 7, amp=1.0))
     mu = 0.5 * 2e-3 * 1e-1                       # dt 2e-3, visc_coef 0.1
-    pj = jax.jit(lambda u, l, r: jproj.visc_solve(
+    pj = ref_jit(lambda u, l, r: jproj.visc_solve(
         js, u, l, r, jnp.zeros(N), mu, diffusion_type))(
         jnp.asarray(unew), jnp.asarray(lapu), jnp.asarray(rho))
     pt = tproj.visc_solve(ts, torch.as_tensor(unew), torch.as_tensor(lapu),
@@ -167,7 +167,7 @@ def test_visc_solve_with_a_divergence_source_matches():
     for d in range(3):
         assert _err(tproj._grad_cc(tpad, d, 3, DX[d]),
                     jproj._grad_cc(pad, d, 3, DX[d])) < 1e-11
-    pj = jax.jit(lambda u, l, r, m: jproj.visc_solve(js, u, l, r, m, mu, 1))(
+    pj = ref_jit(lambda u, l, r, m: jproj.visc_solve(js, u, l, r, m, mu, 1))(
         jnp.asarray(unew), jnp.asarray(lapu), jnp.asarray(rho),
         jnp.asarray(mrhs))
     pt, (rn, cycles, ratio) = tproj.visc_solve(
@@ -187,7 +187,7 @@ def test_diff_scalar_solve_matches(diffusion_type):
                      smooth(N, 9, amp=0.5)])
     laps = smooth((2,) + N, 10, amp=3.0)
     mu = 0.5 * 2e-3 * 1e-1
-    pj = jax.jit(lambda s, l: jproj.diff_scalar_solve(
+    pj = ref_jit(lambda s, l: jproj.diff_scalar_solve(
         js, s, l, mu, diffusion_type))(jnp.asarray(snew), jnp.asarray(laps))
     pt = tproj.diff_scalar_solve(ts, torch.as_tensor(snew),
                                  torch.as_tensor(laps), mu, diffusion_type)

@@ -55,6 +55,20 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+# The compile options of the varden_tpu references that the tests jit
+# themselves (ref_jit): XLA's backend at optimisation level 0 compiles such
+# a reference about a third faster on the CPU, and each runs once or a few
+# times at the tests' small sizes.
+REF_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def ref_jit(fn, **kw):
+    """jax.jit with REF_COMPILE, for a varden_tpu reference that a test
+    jits itself (also as a decorator)."""
+    import jax
+    return jax.jit(fn, compiler_options=REF_COMPILE, **kw)
+
+
 def force_padded_route(monkeypatch):
     """Make varden_tpu take its accelerator route to the padded sweep
     (pallas_kernels.gsrb_sweep_3d, run in interpret mode) on the levels
@@ -339,7 +353,7 @@ def hold_port_run(path, tol=1e-9, at=None, report=None, **over):
         key = (repr(tree(step["geom"])), step["proj_type"])
         if key not in fns:
             jg = jgeom(step["geom"])
-            fns[key] = jax.jit(lambda st, dt, h, _g=jg, _pt=step["proj_type"]:
+            fns[key] = ref_jit(lambda st, dt, h, _g=jg, _pt=step["proj_type"]:
                                jadv.ml_advance(_g, st, dt, _pt, hints=h))
         hints = {k: [jnp.asarray(v) for v in vs]
                  for k, vs in step["hints"].items()}
