@@ -1985,7 +1985,8 @@ def profile_step(torch, v, state, path):
     own kernels (namespace vt), and per part of the step (the ranges
     advance_timestep and ml_advance record) the host seconds spent inside
     it and the
-    device seconds of the PyTorch ops started inside it. The profiler does
+    device seconds of the PyTorch ops started inside it (the step::
+    spans; the solvers' spans nest inside them). The profiler does
     not put a kernel launched from outside a PyTorch op under a range, so
     the package's own kernels are not in any part's device seconds;
     "other" is the rest of the step."""
@@ -2017,7 +2018,8 @@ def profile_step(torch, v, state, path):
                  "host_s": e.cpu_time_total * 1e-6,
                  "torch_device_s": e.device_time_total * 1e-6}
              for e in avgs
-             if e.key in RANGES and e.device_type == DeviceType.CPU}
+             if e.key in RANGES and e.key.startswith("step::")
+             and e.device_type == DeviceType.CPU}
     parts["other"] = {
         "host_s": wall - sum(p["host_s"] for p in parts.values()),
         "torch_device_s": busy - own - sum(p["torch_device_s"]

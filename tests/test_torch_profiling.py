@@ -6,8 +6,9 @@ on one numpy-made state of the viscous bubble in 2-D at 16^2 and 3-D at
 8^3 (varden_tpu's windowed Godunov path stands for its Pallas kernels,
 which compute the same function): 1e-10 of each output's size. Then
 profile_phases and profile_phases_ml return the reference's keys and print
-its summary lines, report() prints its four-column table in its order,
-and trace() writes a Chrome trace."""
+its summary lines, report() prints the spans' four-column table in its
+order while the summary is on and nothing once it is off, and trace()
+writes a Chrome trace."""
 import json
 import os
 
@@ -166,17 +167,24 @@ def test_profile_phases_keys_and_summary(capsys):
 
 def test_scoped_report_and_trace(tmp_path):
     profiling.reset()
-    for _ in range(2):
-        with profiling.scoped("small", block_on=[torch.zeros(2)]):
-            pass
-    with profiling.scoped("large"):
-        sum(range(200000))
-    rep = profiling.report().splitlines()
-    assert rep[0] == "%-28s %8s %12s %12s" % ("REGION", "COUNT", "TOTAL(s)",
-                                              "MEAN(s)")
-    assert [ln.split()[0] for ln in rep[1:]] == ["large", "small"]
-    assert rep[2].split()[1] == "2"
-    profiling.reset()
+    try:
+        for _ in range(2):
+            with profiling.span("mg::build"):
+                pass
+        with profiling.span("step::estdt"):
+            sum(range(200000))
+        rep = profiling.report().splitlines()
+        assert rep[0] == "%-28s %8s %12s %12s" % ("REGION", "COUNT",
+                                                  "TOTAL(s)", "MEAN(s)")
+        assert [ln.split()[0] for ln in rep[1:]] == ["step::estdt",
+                                                     "mg::build"]
+        assert rep[2].split()[1] == "2"
+        profiling.reset()
+        assert profiling.report().splitlines()[1:] == []
+    finally:
+        profiling.reset(on=False)
+    with profiling.span("mg::build"):
+        pass
     assert profiling.report().splitlines()[1:] == []
     with profiling.trace(str(tmp_path / "tr")):
         torch.ones(8).sum()

@@ -14,17 +14,17 @@ flag. The projections, the viscous and diffusive solves and the explicit
 Laplacians run through the solvers, whose modules say which of their
 passes are kernels of ops/cuda_kernels.py.
 
-The parts of a step are named torch.profiler ranges (RANGES), so that a
-profile of a step gives host and device time by part.
+The parts of a step are named spans (profiling.span; RANGES, the port's
+one registry of span names), so that a profile of a step gives host and
+device time by part.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 
-from . import projection
+from . import profiling, projection
 from .bc import grow_mac
 from .ops import basic, cuda_godunov, godunov_ref
 from .parallel import halo
@@ -32,8 +32,8 @@ from .solvers import mg
 from .state import Sim, State
 
 
-RANGES = ("step::velpred", "step::macproject", "step::scalar_advance",
-          "step::velocity_advance", "step::visc_solve", "step::hgproject")
+# every span of the port (profiling.SPANS), the names a trace is read by
+RANGES = profiling.SPANS
 
 
 def embed_faces(sim: Sim, umac, ng: int):
@@ -178,12 +178,12 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
                                  cfg.visc_coef, 1.0, cfg.boussinesq)
     u_pad = sim.fill_vel(uold)
     vf_pad = sim.fill_extrap(vel_force, ng)
-    with record_function("step::velpred"):
+    with profiling.span("step::velpred"):
         umac, u_slopes = _velpred(sim, u_pad, vf_pad, dt,
                                   _level_max(sim, uold))
 
     # ---- MAC projection
-    with record_function("step::macproject"):
+    with profiling.span("step::macproject"):
         (umac, div_b, div_a, phi_mac, mac_rn,
          mac_ratio) = projection.macproject(
             sim, umac, sold[0], None,
@@ -202,7 +202,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     is_cons = [True] + [False] * (sim.nscal - 1)
     s_pad = sim.fill_scal(sold)
     mac_pads = embed_faces(sim, umac, ng)
-    with record_function("step::scalar_advance"):
+    with profiling.span("step::scalar_advance"):
         snew = _mkflux_update(sim, sold, s_pad, umac, mac_pads, sf_pad,
                               scal_force_half, dt, adv_bc_scal, False,
                               is_cons, mac_max)
@@ -221,7 +221,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     vel_force_half = basic.mkvelforce_half(
         cfg.ext_force, rhohalf, sold[1] if cfg.boussinesq == 1 else None,
         gp, cfg.boussinesq)
-    with record_function("step::velocity_advance"):
+    with profiling.span("step::velocity_advance"):
         unew = _mkflux_update(sim, uold, u_pad, umac, mac_pads, vf_pad,
                               vel_force_half, dt, adv_bc_vel, True,
                               [False] * dm, mac_max, u_slopes)
@@ -231,7 +231,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
         # keeps half of it (advance_timestep.f90:116-120)
         visc_mu = (0.5 * dt * cfg.visc_coef if cfg.diffusion_type == 1
                    else dt * cfg.visc_coef)
-        with record_function("step::visc_solve"):
+        with profiling.span("step::visc_solve"):
             unew, (visc_rn, visc_cycles, visc_ratio) = projection.visc_solve(
                 sim, unew, lapu, rhohalf, None, visc_mu, cfg.diffusion_type,
                 return_info=True)
@@ -246,7 +246,7 @@ def advance_timestep(sim: Sim, state: State, dt: float, proj_type: int,
     if cfg.verbose >= 1:
         diag["u_pre_min"], diag["u_pre_max"] = _level_extremes(
             sim, unew.reshape(dm, -1), dim=1)
-    with record_function("step::hgproject"):
+    with profiling.span("step::hgproject"):
         unew, p, gp, phi_hg, hg_rn, hg_ratio = projection.hgproject(
             sim, proj_type, unew, uold, rhohalf, p, gp, dt,
             phi0=_warm(hints, "phi_hg", "phi_hg_prev", sim.dec))

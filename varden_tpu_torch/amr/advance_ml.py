@@ -17,17 +17,16 @@ the edge-state kernel mkflux_3d_fused, whose fluxes the registers read,
 then the update_3d kernel. In 2-D the edge kernel is mkflux_2d_fused
 followed by the plain update, as in varden_tpu, with or without the flag.
 The parts of
-the step are the torch.profiler ranges of the single-level step
-(advance.RANGES).
+the step are the spans of the single-level step (profiling.span,
+advance.RANGES).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import torch
-from torch.profiler import record_function
 
-from .. import projection
+from .. import profiling, projection
 from .. import bc as bc_mod
 from ..ops import basic, cuda_godunov
 from ..parallel import halo
@@ -442,7 +441,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     # ---- premac: Godunov MAC prediction per level
     velpred = (cuda_godunov.velpred_2d_fused if dm == 2
                else cuda_godunov.velpred_3d_fused)
-    with record_function("step::velpred"):
+    with profiling.span("step::velpred"):
         u_pads, vf_pads = vel_pads()
         umac_l = [velpred(u_pads[l], vf_pads[l], dt, geom.dx(l),
                           geom.phys_bc_block(l),
@@ -454,7 +453,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
         umac_l = edge_restrict_mac(geom, umac_l)
 
     # ---- composite MAC projection
-    with record_function("step::macproject"):
+    with profiling.span("step::macproject"):
         umac_l, div_b, div_a, phi_mac_l, mac_ratio, mac_outer = \
             macproject_ml(geom, umac_l, s_l,
                           phi0_l=_warm(geom, hints, "phi_mac", "phi_mac_prev"))
@@ -485,7 +484,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     # with diff_coef = 0 both scalar forces are zero (mkscalforce): None
     sf_l = (None if laps_l is None else
             [basic.mkscalforce(None, lp, cfg.diff_coef, 1.0) for lp in laps_l])
-    with record_function("step::scalar_advance"):
+    with profiling.span("step::scalar_advance"):
         for l in range(nlev):
             sf_pad = sf_half = None
             if laps_l is not None:
@@ -547,7 +546,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     # pads are rebuilt from the live t^n fields.
     visc_cycles = []
     visc_ratio = 0.0
-    with record_function("step::velocity_advance"):
+    with profiling.span("step::velocity_advance"):
         u_pads, vf_pads = vel_pads()
         unew_l = []
         for l in range(nlev):
@@ -569,7 +568,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
         visc_mu = (0.5 * dt * cfg.visc_coef if cfg.diffusion_type == 1
                    else dt * cfg.visc_coef)
         beta = [(visc_mu,) * dm] * nlev  # constant coefficient: no faces
-        with record_function("step::visc_solve"):
+        with profiling.span("step::visc_solve"):
             ell_same = all(sim.ell_bc[d2] == sim.ell_bc[0]
                            for d2 in range(dm))
             if ell_same and geom.cells() <= BATCH_MAX_CELLS:
@@ -614,7 +613,7 @@ def ml_advance(geom: MLGeom, states: List[State], dt, proj_type: int,
     del lapu_l
 
     # ---- composite nodal projection
-    with record_function("step::hgproject"):
+    with profiling.span("step::hgproject"):
         unew_l, p_l, gp_l, phi_hg_l, hg_ratio, hg_outer = hgproject_ml(
             geom, proj_type, unew_l, u_l, rhohalf_l, p_l, gp_l, dt,
             phi0_l=_warm(geom, hints, "phi_hg", "phi_hg_prev"))

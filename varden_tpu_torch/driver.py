@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import advance, problems, projection
+from . import advance, problems, profiling, projection
 from .amr import advance_ml, regrid
 from .amr.fill import MLGeom
 from .config import VardenConfig, load_config
@@ -166,9 +166,11 @@ class Varden:
     def step(self, state: State) -> State:
         """One regular timestep (varden.f90:237-371 loop body)."""
         cfg = self.cfg
+        profiling.begin_step()
         self.istep += 1
         if self.istep > 1:
-            self.dt = advance.estdt(self.sim, state, self.dt)
+            with profiling.span("step::estdt"):
+                self.dt = advance.estdt(self.sim, state, self.dt)
             if cfg.fixed_dt > 0.0:
                 self.dt = cfg.fixed_dt
             if cfg.stop_time >= 0.0 and self.time + self.dt > cfg.stop_time:
@@ -178,6 +180,7 @@ class Varden:
         self.last_diag = diag
         self._check_solver_health(diag)
         self._report(diag)
+        profiling.end_step()
         return state
 
     def gather(self, state):
@@ -194,10 +197,14 @@ class Varden:
         if not pmesh.is_io_proc():
             return
         cfg = self.cfg
+
+        def f(t):
+            return profiling.read(t, "driver.report")
+
         if cfg.verbose >= 1:
             print(f"... max of [div(umac)-RHS] before/after MAC projection "
-                  f"{float(diag['div_before']):15.8e} "
-                  f"{float(diag['div_after']):15.8e}")
+                  f"{f(diag['div_before']):15.8e} "
+                  f"{f(diag['div_after']):15.8e}")
             names = ("x", "y", "z")[:self.sim.dm]
             for tag in ("pre", "post"):
                 if "u_" + tag + "_min" not in diag:
@@ -205,13 +212,13 @@ class Varden:
                 when = "before" if tag == "pre" else " after"
                 for d, nm in enumerate(names):
                     print(f"... {nm}-velocity {when} projection "
-                          f"{float(diag['u_' + tag + '_min'][d]):17.10e}  "
-                          f"{float(diag['u_' + tag + '_max'][d]):17.10e}")
-            print(f"... new min/max : density {float(diag['smin']):17.10e} "
-                  f"{float(diag['smax']):17.10e}")
+                          f"{f(diag['u_' + tag + '_min'][d]):17.10e}  "
+                          f"{f(diag['u_' + tag + '_max'][d]):17.10e}")
+            print(f"... new min/max : density {f(diag['smin']):17.10e} "
+                  f"{f(diag['smax']):17.10e}")
         if cfg.mg_verbose >= 1 and "mac_resnorm" in diag:
-            print(f"... solver resnorm: MAC {float(diag['mac_resnorm']):12.5e}"
-                  f"  HG {float(diag['hg_resnorm']):12.5e}")
+            print(f"... solver resnorm: MAC {f(diag['mac_resnorm']):12.5e}"
+                  f"  HG {f(diag['hg_resnorm']):12.5e}")
         print(f"STEP = {self.istep:4d}  TIME = {self.time:14.10f}  "
               f"DT = {self.dt:14.9f}{levels}")
 
@@ -223,7 +230,7 @@ class Varden:
         if k == 0.0:
             return
         for nm in ("mac_ratio", "hg_ratio"):
-            r = float(diag[nm])
+            r = float(profiling.read(diag[nm], "driver.health"))
             if r > abs(k):
                 msg = (f"step {self.istep}: {nm.split('_')[0].upper()} "
                        f"projection exited {r:.1f}x above its effective "
@@ -382,7 +389,8 @@ class Varden:
         """The step's dt (varden.f90:302-318), from the second step on;
         ``clip`` cuts it at stop_time."""
         cfg = self.cfg
-        self.dt = advance_ml.ml_estdt(self.geom, states, self.dt)
+        with profiling.span("step::estdt"):
+            self.dt = advance_ml.ml_estdt(self.geom, states, self.dt)
         if cfg.fixed_dt > 0.0:
             self.dt = cfg.fixed_dt
         if clip and cfg.stop_time >= 0.0 and \
@@ -391,6 +399,7 @@ class Varden:
 
     def step_ml(self, states):
         """One regular multi-level step: regrid when due, dt, ml_advance."""
+        profiling.begin_step()
         self.istep += 1
         note = ""
         if self._regrid_due(self.istep):
@@ -404,6 +413,7 @@ class Varden:
         self._check_solver_health(diag)
         self._report(diag, f"  (levels: {[s.n for s in self.geom.specs]}"
                      f"{note})")
+        profiling.end_step()
         return states
 
     def step_ml_chunk(self, states, k):
@@ -411,6 +421,7 @@ class Varden:
         caller guarantees istep >= 1 and no regrid due within the chunk;
         stop_time clipping is the caller's too."""
         for _ in range(k):
+            profiling.begin_step()
             self.istep += 1
             self._ml_dt(states, clip=False)
             states, diag = self._ml_advance(states,
@@ -418,6 +429,7 @@ class Varden:
             self.time += self.dt
             self.last_diag = diag
             self._check_solver_health(diag)
+            profiling.end_step()
         self._report(self.last_diag, f"  (chunk of {k}; levels: "
                      f"{[s.n for s in self.geom.specs]})")
         return states

@@ -10,6 +10,8 @@ from typing import Sequence
 
 import torch
 
+from .. import profiling
+
 
 def _fdiff(face_arr, d, dm):
     """hi-face minus lo-face per cell along axis d for a face tensor whose
@@ -127,7 +129,8 @@ def estdt(u: torch.Tensor, rho: torch.Tensor, gp: torch.Tensor,
                         for d in range(dm)])
     if level_max is not None:
         umax, fmax = level_max(torch.stack([umax, fmax]))
-    umax, fmax = umax.tolist(), fmax.tolist()
+    umax = profiling.read(umax, "estdt")
+    fmax = profiling.read(fmax, "estdt")
     dt = big
     for d in range(dm):
         if umax[d] > eps:

@@ -19,8 +19,9 @@ all_reduce and all_gather but refuses them in send and recv, so the
 exchange moves a CUDA slab through pinned host buffers: it is copied to
 the host, sent, received into a host buffer and copied to the card. That
 is the transport of such runs, not a fallback. ``exchanges``,
-``reductions`` and ``copies`` count the calls, their bytes and their
-seconds, in the style of the kernels' ``.launches``.
+``reductions`` and ``copies`` (the profiling counters ``halo.exchanges``,
+``halo.reductions`` and ``halo.copies``) count the calls, their bytes and
+their seconds, in the style of the kernels' ``.launches``.
 
 ``fetch`` and ``put`` are BoxLib's parallel copy between decompositions,
 which the coarse-fine coupling of a decomposed AMR hierarchy runs on: every
@@ -41,29 +42,13 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import profiling
 from .mesh import Decomp, rank as rank_
 
 
-class Counter:
-    """Calls, bytes sent by this rank, and host seconds spent."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.count = 0
-        self.bytes = 0
-        self.elements = 0
-        self.seconds = 0.0
-
-    def as_dict(self):
-        return {"count": self.count, "bytes": self.bytes,
-                "elements": self.elements, "seconds": self.seconds}
-
-
-exchanges = Counter()
-reductions = Counter()
-copies = Counter()
+exchanges = profiling.counter("halo.exchanges")
+reductions = profiling.counter("halo.reductions")
+copies = profiling.counter("halo.copies")
 
 
 def _staged(t: torch.Tensor) -> bool:

@@ -1,10 +1,23 @@
 """Profiling and tracing (counterpart of varden_tpu.profiling).
 
-The reference's bl_prof scoped timers and its per-step phase "Timing
-summary" (advance_timestep.f90:150-166, main.f90:17-29):
+The port's one span primitive, its one counter type, and the reference's
+bl_prof summary and per-step phase "Timing summary"
+(advance_timestep.f90:150-166, main.f90:17-29):
 
-  * ``scoped`` / ``reset`` / ``report``: host-side named timers with a
-    bl_prof_res-style aggregate report;
+  * ``span(name)``: a named host interval. While torch.profiler runs it is
+    a ``record_function`` range, on the device trace's clock; while the
+    summary is on (``reset()``) its host seconds go into ``report()``'s
+    bl_prof_res-style table; otherwise it is a shared null context after
+    one flag check. Every name is declared once, in ``SPANS``, which is
+    ``advance.RANGES``; ``span`` refuses any other;
+  * ``counter(name)``: the registry of ``Counter``s (calls, bytes,
+    elements, host seconds), always on: ``vcycles.mg`` / ``vcycles.nodal``
+    (V-cycles entered at the finest level), ``host_reads.<site>`` (the
+    device-to-host reads a step waits for, through ``read`` and
+    ``library_read``) and ``parallel.halo``'s ``halo.exchanges``,
+    ``halo.reductions`` and ``halo.copies``. ``Varden.step`` and
+    ``step_ml`` bracket each step with ``begin_step`` / ``end_step``,
+    which appends the step's counts to ``HISTORY``;
   * ``profile_phases`` / ``profile_phases_ml``: the phases of one
     timestep run apart, each timed over ``n_rep`` calls, and the
     reference's summary printed;
@@ -18,6 +31,7 @@ timed with CUDA events recorded on the current stream around its
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -25,47 +39,147 @@ from collections import defaultdict
 from typing import Callable, Dict
 
 import torch
+from torch.autograd.profiler import record_function
 
+# Every span of the port. The six step:: ranges part a timestep; the rest
+# isolate what the host does inside a step's solves, so that a traced run
+# can tell where the device waited for it (a span goes around a solve, a
+# V-cycle or a phase of one, never around a single kernel call).
+SPANS = ("step::velpred", "step::macproject", "step::scalar_advance",
+         "step::velocity_advance", "step::visc_solve", "step::hgproject",
+         "step::estdt",
+         "mg::build", "mg::vcycle", "mg::coarse", "mg::converge",
+         "mg::sweeps",
+         "nodal::build", "nodal::vcycle", "nodal::coarse", "nodal::converge")
+_SPAN_NAMES = frozenset(SPANS)
+
+# whether torch.profiler is recording: one call into torch's C library
+profiler_on = torch._C._autograd._profiler_enabled
+
+NULL = contextlib.nullcontext()
+_summary_on = False
 _records: Dict[str, list] = defaultdict(list)
 
 
-def _tensors(x):
-    if torch.is_tensor(x):
-        return [x]
-    if isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        return [t for y in x for t in _tensors(y)]
-    return []
+class _Span:
+    """An open span: a record_function range while the profiler runs, the
+    summary's host seconds while it is on."""
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = record_function(self.name) if profiler_on() else None
+        if self.rf is not None:
+            self.rf.__enter__()
+        self.t0 = time.perf_counter() if _summary_on else None
+        return self
+
+    def __exit__(self, *exc):
+        if self.t0 is not None:
+            _records[self.name].append(time.perf_counter() - self.t0)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
 
 
-@contextlib.contextmanager
-def scoped(name: str, block_on=None):
-    """bl_prof_timer equivalent: ``with profiling.scoped("macproject"):``.
-    Host wall seconds; where ``block_on`` holds a CUDA tensor, the clock
-    stops after the card has finished the work queued so far."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        for t in _tensors(block_on):
-            if t.is_cuda:
-                torch.cuda.synchronize(t.device)
-                break
-        _records[name].append(time.perf_counter() - t0)
+def span(name: str):
+    """``with profiling.span("mg::vcycle"):`` (a name of SPANS)."""
+    if name not in _SPAN_NAMES:
+        raise KeyError(f"span {name!r} is not in profiling.SPANS")
+    if _summary_on or profiler_on():
+        return _Span(name)
+    return NULL
 
 
-def reset():
+def reset(on: bool = True):
+    """Clear the summary and switch it on (``on`` False: off, spans then
+    time nothing)."""
+    global _summary_on
     _records.clear()
+    _summary_on = on
 
 
 def report() -> str:
-    """bl_prof_glean-style aggregate (main.f90:27-29)."""
+    """bl_prof_glean-style aggregate of the spans since ``reset()``
+    (main.f90:27-29)."""
     lines = ["%-28s %8s %12s %12s" % ("REGION", "COUNT", "TOTAL(s)", "MEAN(s)")]
     for name, ts in sorted(_records.items(), key=lambda kv: -sum(kv[1])):
         lines.append("%-28s %8d %12.6f %12.6f"
                      % (name, len(ts), sum(ts), sum(ts) / len(ts)))
     return "\n".join(lines)
+
+
+class Counter:
+    """Calls, bytes, elements and host seconds."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.count = 0
+        self.bytes = 0
+        self.elements = 0
+        self.seconds = 0.0
+
+    def as_dict(self):
+        return {"count": self.count, "bytes": self.bytes,
+                "elements": self.elements, "seconds": self.seconds}
+
+
+COUNTERS: Dict[str, Counter] = {}
+
+
+def counter(name: str) -> Counter:
+    """The registered Counter ``name``, made on first use."""
+    c = COUNTERS.get(name)
+    if c is None:
+        c = COUNTERS[name] = Counter()
+    return c
+
+
+def read(t, site: str):
+    """``t.tolist()``: a device tensor's value on the host, which waits for
+    the device. Counts one read and its bytes at ``host_reads.<site>``; a
+    host number passes through uncounted."""
+    if not torch.is_tensor(t):
+        return t
+    c = counter("host_reads." + site)
+    c.count += 1
+    c.bytes += t.numel() * t.element_size()
+    return t.tolist()
+
+
+def library_read(site: str):
+    """``with profiling.library_read(site):`` around a library call that
+    reads the device on the host inside (torch.linalg.solve reads its error
+    status): one read at ``host_reads.<site>``."""
+    counter("host_reads." + site).count += 1
+    return NULL
+
+
+# The counts of the last HISTORY_STEPS steps, oldest first: one dict a step
+# of each counter's calls in it, counters that did not move left out.
+HISTORY_STEPS = 4096
+HISTORY = collections.deque(maxlen=HISTORY_STEPS)
+_step_start: Dict[str, int] = {}
+
+
+def begin_step():
+    """Mark the counters at a step's start."""
+    global _step_start
+    _step_start = {k: c.count for k, c in COUNTERS.items()}
+
+
+def end_step():
+    """Append the counts since ``begin_step`` to HISTORY."""
+    entry = {}
+    for k, c in COUNTERS.items():
+        d = c.count - _step_start.get(k, 0)
+        if d:
+            entry[k] = d
+    HISTORY.append(entry)
 
 
 @contextlib.contextmanager

@@ -28,6 +28,16 @@ Helmholtz fast path. The loops that the JAX
 package runs as lax.while_loop are Python loops here, reading the residual
 norms on the host once per V-cycle.
 
+Spans and counters (profiling): a V-cycle entered at the finest level
+counts one ``vcycles.mg`` and is the span ``mg::vcycle``; inside it
+``mg::coarse`` covers the first visited level of at most
+CONST_FUSED_MAX_CELLS cells, every coarser one and the bottom (the
+launch-bound part of the cycle). ``solve`` puts its hierarchy build in
+``mg::build``, its tolerance tests between V-cycles in ``mg::converge``
+and the Helmholtz fast path's sweep budget in ``mg::sweeps``; every read
+of a device value on the host goes through ``profiling.read`` (sites
+``mg.*``).
+
 The rule for 3-D face-tensor levels periodic in x (_padded_route: every
 extent even and >= 8, no batch axis; the MAC levels of BASELINE config 4
 and of the vortex tube): their sweeps hold each sweep's ghost ring at the
@@ -55,6 +65,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
+from .. import profiling
 from ..bc import BC_DIR, BC_NEU, BC_PER
 from ..ops import cuda_kernels as ck
 from ..parallel import halo
@@ -331,7 +342,9 @@ def build_hierarchy(n, dx, ell_bc, aco, beta, alpha,
     if bottom == "dense" and N <= 4096:
         A = _bottom_dense_A(lb, is_singular(ell_bc, alpha))
         eye = torch.eye(N, dtype=A.dtype, device=A.device)
-        levels[-1] = dataclasses.replace(lb, binv=torch.linalg.solve(A, eye))
+        with profiling.library_read("mg.build"):
+            binv = torch.linalg.solve(A, eye)
+        levels[-1] = dataclasses.replace(lb, binv=binv)
     return levels
 
 
@@ -370,8 +383,8 @@ def _member_bvals(bvals):
     if not any(torch.is_tensor(v) and v.numel() > 1 for bv in bvals
                for v in bv):
         return None
-    cols = [[v.reshape(-1).tolist() if torch.is_tensor(v) else [float(v)]
-             for v in bv] for bv in bvals]
+    cols = [[profiling.read(v.reshape(-1), "mg.bvals") if torch.is_tensor(v)
+             else [float(v)] for v in bv] for bv in bvals]
     nb = max(len(c) for bv in cols for c in bv)
     return [[[c[b] if len(c) > 1 else c[0] for c in bv] for bv in cols]
             for b in range(nb)]
@@ -569,7 +582,8 @@ def bottom_dense_solve(level: CCLevel, r, singular: bool):
     if level.binv is not None:
         return (rr @ level.binv.T).reshape(r.shape)
     A = _bottom_dense_A(level, singular)
-    return torch.linalg.solve(A, rr.T).T.reshape(r.shape)
+    with profiling.library_read("mg.bottom"):
+        return torch.linalg.solve(A, rr.T).T.reshape(r.shape)
 
 
 def _krylov_bottom(apply_fn, r, spatial_axes, method, eps=BOTTOM_EPS,
@@ -581,14 +595,14 @@ def _krylov_bottom(apply_fn, r, spatial_axes, method, eps=BOTTOM_EPS,
         return (a * b).sum(dim=spatial_axes, keepdim=True)
 
     tiny = torch.finfo(r.dtype).tiny
-    tol = eps * float(r.abs().max())
+    tol = eps * profiling.read(r.abs().max(), "mg.krylov")
     x = torch.zeros_like(r)
     rr = r
 
     if method == "cg":
         p, rs = r, dot(r, r)
         for _ in range(max_iter):
-            if not float(rr.abs().max()) > tol:
+            if not profiling.read(rr.abs().max(), "mg.krylov") > tol:
                 break
             ap = apply_fn(p)
             alpha = rs / dot(p, ap).clamp(min=tiny)
@@ -614,7 +628,7 @@ def _krylov_bottom(apply_fn, r, spatial_axes, method, eps=BOTTOM_EPS,
     p = v = torch.zeros_like(r)
     rho = alpha = omega = torch.ones_like(dot(r, r))
     for _ in range(max_iter):
-        if not float(rr.abs().max()) > tol:
+        if not profiling.read(rr.abs().max(), "mg.krylov") > tol:
             break
         live = rr.abs().amax(dim=spatial_axes, keepdim=True) > tol
         rho2 = dot(r0h, rr)
@@ -657,12 +671,41 @@ def bottom_solve(level: CCLevel, r, singular: bool, method: str = "dense"):
     return _krylov_bottom(apply_fn, r, spatial, method)
 
 
+def _coarse_top(levels, lev, size) -> bool:
+    """Whether ``levels[lev]`` is the first level of a V-cycle of at most
+    CONST_FUSED_MAX_CELLS in ``size`` (cells, or a nodal level's nodes)."""
+    return (size(levels[lev]) <= CONST_FUSED_MAX_CELLS
+            and (lev == 0 or size(levels[lev - 1]) > CONST_FUSED_MAX_CELLS))
+
+
+def _cells(level) -> int:
+    return math.prod(level.n)
+
+
+_VCYCLES = profiling.counter("vcycles.mg")
+
+
 def v_cycle(levels: List[CCLevel], phi, rhs, bvals, lev=0,
             nu1=DEFAULT_NU1, nu2=DEFAULT_NU2, singular=False,
             return_resnorm=False, bottom="dense"):
     """One V-cycle. With return_resnorm, also returns the max-norm of the
     post-pre-smooth fine residual (a 0-d tensor), which the restriction
-    computes anyway."""
+    computes anyway. Entered at the finest level it counts one
+    ``vcycles.mg`` and is the span ``mg::vcycle``; its first level of at
+    most CONST_FUSED_MAX_CELLS cells opens ``mg::coarse``."""
+    if lev == 0:
+        _VCYCLES.count += 1
+    with (profiling.span("mg::vcycle") if lev == 0 else profiling.NULL), \
+            (profiling.span("mg::coarse") if _coarse_top(levels, lev, _cells)
+             else profiling.NULL):
+        return _visit(levels, phi, rhs, bvals, lev, nu1, nu2, singular,
+                      return_resnorm, bottom)
+
+
+def _visit(levels, phi, rhs, bvals, lev, nu1, nu2, singular, return_resnorm,
+           bottom):
+    """v_cycle's visit of ``levels[lev]``: the smoothing, the coarser
+    levels' correction through v_cycle, or the bottom solve."""
     level = levels[lev]
     bv = bvals if lev == 0 else [[0.0, 0.0]] * level.dm
     if level.dec is not None:
@@ -1003,63 +1046,80 @@ def solve(n, dx, ell_bc, aco, beta, rhs, *, alpha=0.0, bvals=None, phi0=None,
 
     def tol_eff(p):
         floor = roundoff_floor(diag_max, _gmax(p, dec), dtype)
-        return float(torch.maximum(tol, floor))
+        return profiling.read(torch.maximum(tol, floor), "mg.tol")
 
     def resnorm(p):
         return _gmax(_residual(L0, p, rhs, bvals), dec)
 
+    def above(r, p):
+        return profiling.read(r, "mg.resnorm") > tol_eff(p)
+
     rn = resnorm(phi)
     if alpha != 0.0:
-        # Jacobi contraction bound gamma = max offdiag/diag: a red-black
-        # sweep of the consistently ordered 7-point operator contracts the
-        # error by about gamma^2. The budget is sized from the measured
-        # starting residual (the warm starts these solves get are decades
-        # inside a cold start) and respects the dtype's attainable floor.
-        safe_diag = torch.where(L0.diag == 0.0, torch.ones_like(L0.diag),
-                                L0.diag)
-        gmax = ((L0.diag - alpha * L0.aco) / safe_diag).max()
-        if dec is not None:
-            gmax = halo.all_max(gmax)
-        gamma, rin, bn = torch.stack([gmax, rn, bnorm]).tolist()
-        gamma = min(max(gamma, 1.0e-6), 1.0)
-        target = max(tol_eff(phi), 1.0e-14 * bn)
-        k_smooth = 0
-        use_jacobi = dm == 2 and _scalar_beta(beta)
-        per_sweep = 1.0 if use_jacobi else 2.0
-        # a non-finite rin (diverged prior state, bad warm start) falls
-        # through to the V-cycle branch with no sweeps
-        if gamma < 0.5 and math.isfinite(rin) and rin > target:
-            ratio = target / max(rin, torch.finfo(dtype).tiny)
-            k_need = math.ceil(math.log(ratio)
-                               / (per_sweep * math.log(gamma))) + 2
-            k_smooth = min(max(k_need, 0), 40)
-        if k_smooth > 0:
-            smooth = jacobi if use_jacobi else gsrb
-            phi = smooth(L0, phi, rhs, bvals, k_smooth)
-            rn = resnorm(phi)
+        with profiling.span("mg::sweeps"):
+            # Jacobi contraction bound gamma = max offdiag/diag: a red-black
+            # sweep of the consistently ordered 7-point operator contracts the
+            # error by about gamma^2. The budget is sized from the measured
+            # starting residual (the warm starts these solves get are decades
+            # inside a cold start) and respects the dtype's attainable floor.
+            safe_diag = torch.where(L0.diag == 0.0, torch.ones_like(L0.diag),
+                                    L0.diag)
+            gmax = ((L0.diag - alpha * L0.aco) / safe_diag).max()
+            if dec is not None:
+                gmax = halo.all_max(gmax)
+            gamma, rin, bn = profiling.read(torch.stack([gmax, rn, bnorm]),
+                                            "mg.gamma")
+            gamma = min(max(gamma, 1.0e-6), 1.0)
+            target = max(tol_eff(phi), 1.0e-14 * bn)
+            k_smooth = 0
+            use_jacobi = dm == 2 and _scalar_beta(beta)
+            per_sweep = 1.0 if use_jacobi else 2.0
+            # a non-finite rin (diverged prior state, bad warm start) falls
+            # through to the V-cycle branch with no sweeps
+            if gamma < 0.5 and math.isfinite(rin) and rin > target:
+                ratio = target / max(rin, torch.finfo(dtype).tiny)
+                k_need = math.ceil(math.log(ratio)
+                                   / (per_sweep * math.log(gamma))) + 2
+                k_smooth = min(max(k_need, 0), 40)
+            if k_smooth > 0:
+                smooth = jacobi if use_jacobi else gsrb
+                phi = smooth(L0, phi, rhs, bvals, k_smooth)
+                rn = resnorm(phi)
     iters = 0
-    if float(rn) > tol_eff(phi):
-        levels = build_hierarchy(list(n), list(dx), ell_bc, aco, list(beta),
-                                 alpha, bottom=bottom, dec=dec, top=L0)
+    with profiling.span("mg::converge"):
+        cold = above(rn, phi)
+    if cold:
+        with profiling.span("mg::build"):
+            levels = build_hierarchy(list(n), list(dx), ell_bc, aco,
+                                     list(beta), alpha, bottom=bottom,
+                                     dec=dec, top=L0)
         kw = dict(singular=singular, return_resnorm=True, bottom=bottom)
         stall = 0
-        while iters < max_cycles and float(rn) > tol_eff(phi) and stall < 2:
-            tl = tol_eff(phi)
+        while True:
+            with profiling.span("mg::converge"):
+                if not (iters < max_cycles and above(rn, phi) and stall < 2):
+                    break
+                tl = tol_eff(phi)
             phi, mon = v_cycle(levels, phi, rhs, bvals, 0, nu1, nu2, **kw)
             iters += 1
-            mon, prev = float(mon), float("inf")
+            with profiling.span("mg::converge"):
+                mon, prev = profiling.read(mon, "mg.monitor"), float("inf")
             while iters < max_cycles and mon > tl and mon < 0.7 * prev:
                 phi, mon2 = v_cycle(levels, phi, rhs, bvals, 0, nu1, nu2,
                                     **kw)
                 iters += 1
-                mon, prev = float(mon2), mon
-            rn_new = resnorm(phi)
-            stall = stall + 1 if float(rn_new) > 0.9 * float(rn) else 0
+                with profiling.span("mg::converge"):
+                    mon, prev = profiling.read(mon2, "mg.monitor"), mon
+            with profiling.span("mg::converge"):
+                rn_new = resnorm(phi)
+                stall = (stall + 1 if profiling.read(rn_new, "mg.resnorm")
+                         > 0.9 * profiling.read(rn, "mg.resnorm") else 0)
             rn = rn_new
     if singular:
         phi = phi - _mean_sp(phi, dm, dec)
     if return_info:
         tiny = torch.finfo(dtype).tiny
-        ratio = rn / max(tol_eff(phi), tiny)
+        with profiling.span("mg::converge"):
+            ratio = rn / max(tol_eff(phi), tiny)
         return phi, (rn, iters, ratio)
     return phi, rn

@@ -19,6 +19,12 @@ the post-smooth, on the unpadded node tensor; masked levels apply the
 operator and update outside it. The dense bottom matrix is assembled once
 per hierarchy by the plain factored apply. In 2-D, where varden_tpu has no
 nodal kernel either, they all run through the plain factored apply.
+
+Spans and counters (profiling), as in solvers/mg: ``vcycles.nodal`` and
+``nodal::vcycle`` for a V-cycle entered at the finest level,
+``nodal::coarse`` from its first level of at most
+mg.CONST_FUSED_MAX_CELLS nodes down, and ``solve``'s ``nodal::build`` and
+``nodal::converge``; host reads at the sites ``nodal.*``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..ops import cuda_kernels as ck
 from ..parallel import halo
 from . import mg as _mg
@@ -314,7 +321,9 @@ def build_hierarchy(n, dx, pmask, sigma, mask,
     if bottom == "dense" and N <= 4096:
         A = _bottom_dense_A(lb)
         eye = torch.eye(N, dtype=A.dtype, device=A.device)
-        levels[-1] = dataclasses.replace(lb, binv=torch.linalg.solve(A, eye))
+        with profiling.library_read("nodal.build"):
+            binv = torch.linalg.solve(A, eye)
+        levels[-1] = dataclasses.replace(lb, binv=binv)
     return levels
 
 
@@ -378,17 +387,40 @@ def bottom_dense_solve(level: NodalLevel, r):
     if level.binv is not None:
         out = (level.binv @ r.reshape(-1)).reshape(shape)
     else:
-        out = torch.linalg.solve(_bottom_dense_A(level),
-                                 r.reshape(-1)).reshape(shape)
+        with profiling.library_read("nodal.bottom"):
+            out = torch.linalg.solve(_bottom_dense_A(level),
+                                     r.reshape(-1)).reshape(shape)
     if level.mask is not None:
         out = out * level.mask
     return out
 
 
+def _nodes(level) -> int:
+    return math.prod(node_shape(level.n, level.pmask))
+
+
+_VCYCLES = profiling.counter("vcycles.nodal")
+
+
 def v_cycle(levels, phi, rhs, lev=0, nu1=DEFAULT_NU1, nu2=DEFAULT_NU2,
             return_resnorm=False, bottom="dense"):
     """One V-cycle. With return_resnorm, also returns the max-norm of the
-    post-pre-smooth fine residual (a 0-d tensor)."""
+    post-pre-smooth fine residual (a 0-d tensor). Entered at the finest
+    level it counts one ``vcycles.nodal`` and is the span
+    ``nodal::vcycle``; its first level of at most mg.CONST_FUSED_MAX_CELLS
+    nodes opens ``nodal::coarse``."""
+    if lev == 0:
+        _VCYCLES.count += 1
+    with (profiling.span("nodal::vcycle") if lev == 0 else profiling.NULL), \
+            (profiling.span("nodal::coarse")
+             if _mg._coarse_top(levels, lev, _nodes) else profiling.NULL):
+        return _visit(levels, phi, rhs, lev, nu1, nu2, return_resnorm,
+                      bottom)
+
+
+def _visit(levels, phi, rhs, lev, nu1, nu2, return_resnorm, bottom):
+    """v_cycle's visit of ``levels[lev]``: the smoothing, the coarser
+    levels' correction through v_cycle, or the bottom solve."""
     level = levels[lev]
     if level.dec is not None:
         return _dv_cycle(levels, phi, rhs, lev, nu1, nu2, return_resnorm,
@@ -700,31 +732,44 @@ def solve(n, dx, pmask, sigma, rhs, *, mask=None, phi0=None,
 
     def tol_eff(p):
         floor = _mg.roundoff_floor(diag_max, _mg._gmax(p, dec), dtype)
-        return float(torch.maximum(tol, floor))
+        return profiling.read(torch.maximum(tol, floor), "nodal.tol")
+
+    def above(r, p):
+        return profiling.read(r, "nodal.resnorm") > tol_eff(p)
 
     rn = _mg._gmax(_residual(L0, phi, rhs), dec)
     iters = 0
-    if float(rn) > tol_eff(phi):
-        levels = build_hierarchy(list(n), list(dx), list(pmask), sigma, mask,
-                                 bottom=bottom, dec=dec, top=L0)
+    with profiling.span("nodal::converge"):
+        cold = above(rn, phi)
+    if cold:
+        with profiling.span("nodal::build"):
+            levels = build_hierarchy(list(n), list(dx), list(pmask), sigma,
+                                     mask, bottom=bottom, dec=dec, top=L0)
         stalled = False
-        while iters < max_cycles and float(rn) > tol_eff(phi) and not stalled:
-            tl = tol_eff(phi)
+        while True:
+            with profiling.span("nodal::converge"):
+                if not (iters < max_cycles and above(rn, phi) and not stalled):
+                    break
+                tl = tol_eff(phi)
             phi, mon = v_cycle(levels, phi, rhs, return_resnorm=True,
                                bottom=bottom)
             iters += 1
-            mon, prev = float(mon), float("inf")
+            with profiling.span("nodal::converge"):
+                mon, prev = profiling.read(mon, "nodal.monitor"), float("inf")
             while iters < max_cycles and mon > tl and mon < 0.7 * prev:
                 phi, mon2 = v_cycle(levels, phi, rhs, return_resnorm=True,
                                     bottom=bottom)
                 iters += 1
-                mon, prev = float(mon2), mon
-            rn = _mg._gmax(_residual(levels[0], phi, rhs), dec)
+                with profiling.span("nodal::converge"):
+                    mon, prev = profiling.read(mon2, "nodal.monitor"), mon
+            with profiling.span("nodal::converge"):
+                rn = _mg._gmax(_residual(levels[0], phi, rhs), dec)
             stalled = mon > tl
     if singular:
         phi = phi - _gmean(phi, dec, dm)
     if return_info:
         tiny = torch.finfo(dtype).tiny
-        ratio = rn / max(tol_eff(phi), tiny)
+        with profiling.span("nodal::converge"):
+            ratio = rn / max(tol_eff(phi), tiny)
         return phi, (rn, iters, ratio)
     return phi, rn
